@@ -1,0 +1,512 @@
+"""HTTP checkpoint transport: per-replica HTTP server streaming live weights.
+
+Twin of the reference transport (``torchft/checkpointing/http_transport.py``):
+every worker runs a threading HTTP server; ``metadata()`` is its URL; healing
+peers fetch ``/checkpoint/{step}/full`` (or ``/checkpoint/{step}/{i}`` chunks
+in parallel); the RWLock freezes the state dict while it is being serialized
+so the train loop can't mutate weights mid-transfer
+(``http_transport.py:181-202``).
+
+Divergence from the reference: staging stores a serialization *plan* (the
+tree skeleton + snapshots of the leaves), and serving threads copy one leaf
+at a time to the host while streaming it to the socket (the reference's
+incremental-save analog, ``_serialization.py:14-39``).  Peak extra host RSS
+during a heal send is one leaf, not 1-2× the model; chunked fetches stream
+the byte range they own the same way.  Tensors are snapshotted on their
+device (``clone()``) at staging time, so the optimizer's in-place update
+can't change them while a peer is still fetching; received leaves arrive as
+CPU tensors for the caller to ``copy_`` into its live tensors.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import socket
+import threading
+import time
+from collections import deque
+from io import BufferedWriter, RawIOBase
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Callable, Dict, List, Optional, Tuple, TypeVar
+from urllib.request import urlopen
+
+from torchft_tpu_torch.checkpointing._rwlock import RWLock
+from torchft_tpu_torch.checkpointing.serialization import (
+    PytreePlan,
+    ViewReader as _ViewReader,
+    load_pytree,
+    plan_pytree,
+)
+from torchft_tpu_torch.checkpointing.transport import CheckpointTransport
+from torchft_tpu_torch.observability import HealMetrics
+
+logger = logging.getLogger(__name__)
+
+T = TypeVar("T")
+
+# Per-request stall bound during a striped heal: a source that stops
+# answering is declared dead after this long and its chunks are stolen by
+# the surviving sources (the overall heal deadline still applies).
+HEAL_SOURCE_TIMEOUT_ENV = "TORCHFT_HEAL_SOURCE_TIMEOUT_S"
+
+
+def _heal_source_timeout(overall: float) -> float:
+    raw = os.environ.get(HEAL_SOURCE_TIMEOUT_ENV)
+    per_source = float(raw) if raw else 30.0
+    return max(0.1, min(per_source, overall))
+
+
+def _read_stream_into(resp, view: memoryview) -> None:
+    """Drain exactly ``len(view)`` bytes from a response into ``view``."""
+    off = 0
+    while off < len(view):
+        n = resp.readinto(view[off:])
+        if not n:
+            raise EOFError("truncated checkpoint response")
+        off += n
+
+
+class _RawSocketWriter(RawIOBase):
+    """Adapts the handler's socket file to io.BufferedWriter."""
+
+    def __init__(self, wfile) -> None:
+        super().__init__()
+        self._wfile = wfile
+
+    def writable(self) -> bool:
+        return True
+
+    def write(self, b) -> int:
+        # honor the RawIOBase short-write contract: BufferedWriter retries
+        # any remainder only if we report what was actually written
+        return self._wfile.write(b)
+
+
+class _ChaosWriter(RawIOBase):
+    """Serving-path fault injector: counts bytes served across the whole
+    transport and, when the armed hook trips, kills the server (the chaos
+    drill's "heal source dies mid-transfer") and aborts this response."""
+
+    def __init__(self, inner: RawIOBase, transport: "HTTPTransport") -> None:
+        super().__init__()
+        self._inner = inner
+        self._transport = transport
+
+    def writable(self) -> bool:
+        return True
+
+    def write(self, b) -> int:
+        transport = self._transport
+        hook = transport.chaos_serve_hook
+        with transport._bytes_served_lock:
+            transport._bytes_served += len(b)
+            served = transport._bytes_served
+        if hook is not None and hook(served):
+            # shut down off-thread: shutdown() joins the serve loop, and this
+            # handler must die NOW with a torn connection, mid-payload
+            threading.Thread(
+                target=transport.shutdown, name="tpuft_chaos_kill", daemon=True
+            ).start()
+            raise ConnectionError("chaos: heal source killed mid-transfer")
+        return self._inner.write(b)
+
+
+# _ViewReader moved to serialization.ViewReader (shared with CommTransport)
+
+
+class HTTPTransport(CheckpointTransport[T]):
+    """Serve/fetch live checkpoints over HTTP.
+
+    Args:
+        timeout: default deadline for fetches.
+        num_chunks: >0 splits the serialized state into N byte-ranges fetched
+            by parallel threads (``http_transport.py:219-241``); 0 streams
+            one ``full`` payload.
+    """
+
+    def __init__(
+        self,
+        timeout: float = 60.0,
+        num_chunks: int = 0,
+        heal_chunk_bytes: Optional[int] = None,
+    ) -> None:
+        self._timeout = timeout
+        self._num_chunks = num_chunks
+        self._heal_chunk_bytes = heal_chunk_bytes
+        self._lock = RWLock(timeout=timeout)
+        self._staged: Optional[Dict[str, object]] = None  # step, chunks
+        self._allowed = threading.Event()
+        # striped-heal bookkeeping: metrics of the most recent striped recv,
+        # and a chaos hook (``chaos.arm_heal_source_kill``) that can make
+        # this source die mid-serve to drill mid-heal failover
+        self.last_heal_metrics: Optional[HealMetrics] = None
+        self.chaos_serve_hook: Optional[Callable[[int], bool]] = None
+        # count only striped (range) serving toward the chaos trip wire:
+        # killing a single-source /full transfer has no survivor to fail
+        # over to, which tests a different (fatal) scenario
+        self.chaos_striped_only = False
+        self._bytes_served = 0
+        self._bytes_served_lock = threading.Lock()
+
+        transport = self
+
+        class _Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, fmt: str, *args: object) -> None:
+                logger.debug("http_transport: " + fmt, *args)
+
+            def do_GET(self) -> None:
+                parts = [p for p in self.path.split("/") if p]
+                # /checkpoint/{step}/{full|index|i} or
+                # /checkpoint/{step}/range/{start}/{stop}
+                if (
+                    len(parts) not in (3, 5)
+                    or parts[0] != "checkpoint"
+                    or (len(parts) == 5 and parts[2] != "range")
+                ):
+                    self.send_error(404, "unknown path")
+                    return
+                # Wait for a checkpoint to be staged rather than 404ing a
+                # peer that raced ahead (the quorum guarantees it's coming).
+                if not transport._allowed.wait(timeout=transport._timeout):
+                    self.send_error(503, "no checkpoint staged")
+                    return
+                # the lock is only held to grab the plan reference — the
+                # plan's leaves are self-contained snapshots, so streaming
+                # happens lock-free and a concurrent disallow_checkpoint
+                # (write lock, taken in the commit path) never waits on a
+                # slow healer's socket
+                with transport._lock.r_lock():
+                    staged = transport._staged
+                    plan: Optional[PytreePlan] = (
+                        staged["plan"] if staged is not None else None  # type: ignore[assignment,index]
+                    )
+                    staged_step = staged["step"] if staged is not None else None
+                if plan is None:
+                    self.send_error(503, "no checkpoint staged")
+                    return
+                step = int(parts[1])
+                if staged_step != step:
+                    self.send_error(
+                        404,
+                        f"staged step {staged_step} != requested {step}",
+                    )
+                    return
+                if parts[2] == "index":
+                    # chunk-addressable index for striped healers: stable
+                    # boundaries at array-payload granularity, identical on
+                    # every peer serving the same step
+                    body = json.dumps(
+                        {
+                            "total_len": plan.total_len,
+                            "header_digest": plan.header_digest(),
+                            "chunks": plan.chunk_ranges(
+                                transport._heal_chunk_bytes
+                            ),
+                        }
+                    ).encode()
+                    self.send_response(200)
+                    self.send_header("Content-Type", "application/json")
+                    self.send_header("Content-Length", str(len(body)))
+                    self.send_header("X-Total-Len", str(plan.total_len))
+                    self.end_headers()
+                    self.wfile.write(body)
+                    return
+                num_chunks = max(1, transport._num_chunks)
+                chunk_size = -(-plan.total_len // num_chunks)
+                if parts[2] == "range":
+                    start, stop = int(parts[3]), int(parts[4])
+                    if not 0 <= start <= stop <= plan.total_len:
+                        self.send_error(
+                            416, f"bad range [{start}, {stop}) of {plan.total_len}"
+                        )
+                        return
+                elif parts[2] == "full":
+                    start, stop = 0, plan.total_len
+                else:
+                    idx = int(parts[2])
+                    if idx >= num_chunks:
+                        self.send_error(404, f"no chunk {idx}")
+                        return
+                    start = idx * chunk_size
+                    stop = min(plan.total_len, start + chunk_size)
+                self.send_response(200)
+                self.send_header("Content-Type", "application/octet-stream")
+                self.send_header("Content-Length", str(stop - start))
+                self.send_header("X-Num-Chunks", str(num_chunks))
+                self.send_header("X-Total-Len", str(plan.total_len))
+                self.send_header("X-Header-Digest", plan.header_digest())
+                self.end_headers()
+                # streams leaf by leaf: only leaves overlapping [start, stop)
+                # are ever materialized on host.  The handler's wfile is an
+                # unbuffered socket writer; batching the plan's small frame
+                # headers with the payloads into 1 MB writes avoids
+                # per-frame syscalls
+                raw = _RawSocketWriter(self.wfile)
+                if transport.chaos_serve_hook is not None and (
+                    not transport.chaos_striped_only or parts[2] == "range"
+                ):
+                    raw = _ChaosWriter(raw, transport)
+                buffered = BufferedWriter(raw, buffer_size=1 << 20)
+                plan.write_range(start, stop, buffered)
+                buffered.flush()
+
+        class _Server(ThreadingHTTPServer):
+            daemon_threads = True
+            allow_reuse_address = True
+
+        # dual-stack like the reference's checkpoint server
+        # (torchft/http.py:11-13): bind [::] with v6only off where the
+        # kernel allows, so v4 and v6 healers both reach us
+        v6_server = None
+        try:
+            _Server.address_family = socket.AF_INET6
+            v6_server = _Server(("::", 0), _Handler, bind_and_activate=False)
+            v6_server.socket.setsockopt(
+                socket.IPPROTO_IPV6, socket.IPV6_V6ONLY, 0
+            )
+            v6_server.server_bind()
+            v6_server.server_activate()
+            self._server = v6_server
+        except OSError:
+            if v6_server is not None:
+                v6_server.server_close()
+            _Server.address_family = socket.AF_INET
+            self._server = _Server(("0.0.0.0", 0), _Handler)
+        self._port: int = self._server.server_address[1]
+        self._thread = threading.Thread(
+            target=self._server.serve_forever,
+            name="tpuft_http_transport",
+            daemon=True,
+        )
+        self._thread.start()
+
+    @property
+    def port(self) -> int:
+        return self._port
+
+    def metadata(self) -> str:
+        return f"http://{socket.gethostname()}:{self._port}"
+
+    def send_checkpoint(
+        self, dst_ranks: List[int], step: int, state_dict: T, timeout: float
+    ) -> None:
+        """Stage a streaming plan under the write lock; serving threads
+        materialize leaves lazily (bytes are generated per-request, never
+        staged)."""
+        plan = plan_pytree(state_dict, snapshot=True)
+        with self._lock.w_lock(timeout=timeout):
+            self._staged = {"step": step, "plan": plan}
+        self._allowed.set()
+
+    def disallow_checkpoint(self) -> None:
+        self._allowed.clear()
+        with self._lock.w_lock():
+            self._staged = None
+
+    def recv_checkpoint(
+        self,
+        src_rank: int,
+        metadata: str,
+        step: int,
+        timeout: float,
+        leaf_hook=None,
+    ) -> T:
+        """Fetch and deserialize a peer's live checkpoint.
+
+        Default (num_chunks=0) is fully streaming: array payloads are read
+        straight off the socket into preallocated arrays, and ``leaf_hook``
+        (e.g. a ``copy_`` into the healing replica's live tensor) maps
+        each leaf on arrival so its host copy dies immediately."""
+        base = f"{metadata}/checkpoint/{step}"
+        if self._num_chunks == 0:
+            with urlopen(f"{base}/full", timeout=timeout) as resp:
+                return load_pytree(resp, leaf_hook=leaf_hook)  # type: ignore[return-value]
+
+        # chunked mode: parallel range fetches landing in one preallocated
+        # buffer (no per-chunk bytes objects, no join copy)
+        with urlopen(f"{base}/0", timeout=timeout) as resp:
+            total = int(resp.headers.get("X-Num-Chunks", "1"))
+            total_len = int(resp.headers["X-Total-Len"])
+            chunk_size = -(-total_len // max(1, total))
+            buf = bytearray(total_len)
+            view = memoryview(buf)
+            _read_stream_into(resp, view[: min(chunk_size, total_len)])
+
+        done = [False] * total
+        done[0] = True
+        errors: List[BaseException] = []
+
+        def _fetch(i: int) -> None:
+            try:
+                start = i * chunk_size
+                stop = min(total_len, start + chunk_size)
+                with urlopen(f"{base}/{i}", timeout=timeout) as r:
+                    _read_stream_into(r, view[start:stop])
+                done[i] = True
+            except BaseException as e:  # noqa: BLE001 — re-raised on the caller
+                errors.append(e)
+
+        threads = [
+            threading.Thread(target=_fetch, args=(i,)) for i in range(1, total)
+        ]
+        deadline = time.monotonic() + timeout
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=max(0.0, deadline - time.monotonic()))
+        if errors:
+            # a real fetch failure (404/refused) must not masquerade as a
+            # timeout
+            raise errors[0]
+        if not all(done):
+            raise TimeoutError("chunked checkpoint fetch timed out")
+        return load_pytree(_ViewReader(view), leaf_hook=leaf_hook)  # type: ignore[return-value]
+
+    def recv_checkpoint_striped(
+        self,
+        sources: List[Tuple[int, Optional[str]]],
+        step: int,
+        timeout: float,
+        leaf_hook=None,
+    ) -> T:
+        """Striped multi-source heal: fetch disjoint chunk ranges of the
+        serialized checkpoint from every source concurrently into one
+        preallocated buffer.
+
+        One worker per source pulls chunks from a shared queue (natural work
+        stealing: a fast source simply takes more chunks).  A source that
+        errors or stalls past the per-request bound is declared dead, its
+        in-flight chunk is requeued for the survivors, and the heal degrades
+        all the way down to today's single-peer transfer before failing."""
+        live = [(rank, meta) for rank, meta in sources if meta]
+        if len(live) <= 1:
+            return super().recv_checkpoint_striped(
+                sources, step, timeout, leaf_hook=leaf_hook
+            )
+
+        deadline = time.monotonic() + timeout
+        per_req_timeout = _heal_source_timeout(timeout)
+        t0 = time.monotonic()
+
+        # chunk index from the first source that answers
+        index: Optional[dict] = None
+        failed: List[str] = []
+        for rank, meta in list(live):
+            try:
+                with urlopen(
+                    f"{meta}/checkpoint/{step}/index", timeout=per_req_timeout
+                ) as resp:
+                    index = json.loads(resp.read())
+                break
+            except Exception as e:  # noqa: BLE001 — source-level failover
+                logger.warning("striped heal: index fetch from %s failed: %s", meta, e)
+                failed.append(meta)
+                live.remove((rank, meta))
+        if index is None:
+            raise ConnectionError(
+                f"striped heal: no source answered the chunk index ({failed})"
+            )
+
+        total_len = int(index["total_len"])
+        digest = index.get("header_digest")
+        chunks: deque = deque(tuple(c) for c in index["chunks"])
+        num_chunks = len(chunks)
+        buf = bytearray(total_len)
+        view = memoryview(buf)
+
+        lock = threading.Lock()
+        state = {"done": 0, "stolen": 0}
+        per_source_bytes: Dict[str, int] = {meta: 0 for _, meta in live}
+        errors: List[BaseException] = []
+
+        def _worker(meta: str) -> None:
+            while True:
+                with lock:
+                    if state["done"] >= num_chunks:
+                        return
+                    job = chunks.popleft() if chunks else None
+                if job is None:
+                    # the remaining chunk(s) are in flight on ANOTHER worker
+                    # — whose source may yet die and requeue them; staying
+                    # available is what makes "survives losing P-1 sources"
+                    # true for the last chunk too
+                    if time.monotonic() > deadline:
+                        return
+                    time.sleep(0.02)
+                    continue
+                start, stop = job
+                try:
+                    if time.monotonic() > deadline:
+                        raise TimeoutError("striped heal deadline exceeded")
+                    with urlopen(
+                        f"{meta}/checkpoint/{step}/range/{start}/{stop}",
+                        timeout=per_req_timeout,
+                    ) as r:
+                        if int(r.headers["X-Total-Len"]) != total_len:
+                            raise ValueError(
+                                f"source {meta} serves a different checkpoint "
+                                f"({r.headers['X-Total-Len']} != {total_len} bytes)"
+                            )
+                        if digest and r.headers.get("X-Header-Digest") not in (
+                            None,
+                            digest,
+                        ):
+                            raise ValueError(
+                                f"source {meta} skeleton digest mismatch"
+                            )
+                        _read_stream_into(r, view[start:stop])
+                    with lock:
+                        state["done"] += 1
+                        per_source_bytes[meta] += stop - start
+                except BaseException as e:  # noqa: BLE001 — reassign + record
+                    with lock:
+                        chunks.appendleft((start, stop))
+                        state["stolen"] += 1
+                        failed.append(meta)
+                        errors.append(e)
+                    logger.warning(
+                        "striped heal: source %s died mid-heal (%s); "
+                        "reassigning its chunks",
+                        meta,
+                        e,
+                    )
+                    return
+
+        threads = [
+            threading.Thread(
+                target=_worker, args=(meta,), name=f"tpuft_heal_{i}", daemon=True
+            )
+            for i, (_, meta) in enumerate(live)
+        ]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=max(0.0, deadline - time.monotonic()))
+        if state["done"] != num_chunks:
+            if errors:
+                raise errors[0]
+            raise TimeoutError(
+                f"striped heal fetched {state['done']}/{num_chunks} chunks "
+                f"before the deadline"
+            )
+
+        self.last_heal_metrics = HealMetrics(
+            step=step,
+            num_sources=len(sources),
+            bytes_total=total_len,
+            duration_s=time.monotonic() - t0,
+            per_source_bytes={
+                m: n for m, n in per_source_bytes.items() if n
+            },
+            failed_sources=failed,
+            stolen_chunks=state["stolen"],
+        )
+        return load_pytree(_ViewReader(view), leaf_hook=leaf_hook)  # type: ignore[return-value]
+
+    def shutdown(self, wait: bool = True) -> None:
+        self._server.shutdown()
+        self._server.server_close()
