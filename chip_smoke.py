@@ -5,20 +5,33 @@ Run from the repository root on a machine with one NVIDIA H100::
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from ``torchft_tpu_torch/csrc/``, then:
+It builds the port's CUDA kernels from ``torchft_tpu_torch/csrc/`` (one
+``nvcc`` per source, in parallel), then:
 
-1. kernel phase — holds each flash-attention kernel (fwd, dq, dkv) against
-   its plain PyTorch version on the card at the Llama-3-8B attention shapes
-   (B=1, S=2048, H=32, KV=8, D=128, bf16, causal) and at two more cases (a
-   non-causal Sq != Sk case with ragged tiles, and a GQA groups=1 case at
-   D=64), and times kernel, plain version and the
+1. flash kernel phase — holds each flash-attention kernel (fwd, dq, dkv)
+   against its plain PyTorch version on the card at the Llama-3-8B
+   attention shapes (B=1, S=2048, H=32, KV=8, D=128, bf16, causal) and at
+   two more cases (a non-causal Sq != Sk case with ragged tiles, and a GQA
+   groups=1 case at D=64), and times kernel, plain version and the
    ``F.scaled_dot_product_attention`` yardstick;
-2. train phase — the port's main path: two replica groups as threads
+2. quant kernel phase — holds the rowwise quantize, fused reduce and
+   dequantize kernels against their plain versions exactly (payload bytes
+   equal, scales and f32 outputs bit-equal), for int8 and fp8, at the main
+   path's shapes (quantize: the 1,486,901,248 gradients of the train
+   phases' model; reduce: one 4 MiB pipeline window, [2, 2048, 1024]; the
+   public round trip quantize → dequantize at the same size) and at a
+   ragged case, a w=3 case and a case with NaN, ±inf and zero rows; times
+   kernel, plain version and, for dequantize, one ``torch.mul``;
+3. float train phase — the port's main path: two replica groups as threads
    (each its own Manager, TCPCommunicator and HTTPTransport) train Llama at
    Llama-3-8B width cut to 2 layers, bf16, B=1, S=2048, for 5 steps; replica
    1 is killed before step 2, restarts and heals from replica 0.  Every loss
    must be finite, both replicas must end at the same step with equal
-   parameter hashes, and every flash kernel must have launched.
+   parameter hashes, and every flash kernel must have launched;
+4. quantized train phase — the same fleet with ``should_quantize=True``
+   (int8 wire): gradients quantized on the card, the windowed quantized
+   pipeline with its per-window reduce on the card.  The same checks, and
+   the quantize and reduce kernels must have launched.
 
 Any failure raises, so the exit code is non-zero.  The last line of
 standard output is ``{"ok": true, "device": {...}}``.
@@ -27,6 +40,7 @@ standard output is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import subprocess
@@ -41,6 +55,7 @@ import torch
 # normwise ||err|| / ||plain|| <= NORM_RTOL.  lse is f32: |err| <= LSE_ATOL.
 ATOL, RTOL, NORM_RTOL, LSE_ATOL = 5e-3, 2e-2, 1e-2, 1e-3
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 ITERS = 10  # timed launches per kernel (plain versions: 2)
 STEPS = 5  # train steps; replica 1 is killed before step 2
@@ -51,6 +66,25 @@ REPLACES = {
     "dq": "torchft_tpu/ops/flash_attention.py:213",
     "dkv": "torchft_tpu/ops/flash_attention.py:243",
 }
+QUANT_SOURCE = "torchft_tpu_torch/csrc/quant.cu"
+QUANT_REPLACES = {
+    "quantize": "torchft_tpu/ops/pallas_quant.py:79",
+    "reduce": "torchft_tpu/ops/pallas_quant.py:189",
+    "dequantize": "torchft_tpu/ops/pallas_quant.py:86",
+}
+QUANT_ITERS = 100  # timed launches per quant case below the main size
+# Quant cases: ``n`` gradients through quantize and the round trip, and one
+# reduce of ``w`` contributions of ``rows`` rows.  "main" is the train
+# phases' shapes: every gradient of the 2-layer model, and one 4 MiB window
+# (4096 rows) of the pipeline split over 2 ranks; its last window holds
+# 1040 rows per rank, the "ragged" reduce.
+MAIN_QUANT = dict(name="main", n=1_486_901_248, w=2, rows=2048, special=False)
+QUANT_CASES = [
+    MAIN_QUANT,
+    dict(name="ragged", n=1000 * 1024 + 517, w=2, rows=1040, special=False),
+    dict(name="w3", n=2048 * 1024 - 1, w=3, rows=2048, special=False),
+    dict(name="nan_inf_zero", n=64 * 1024, w=2, rows=64, special=True),
+]
 MAIN_CASE = dict(name="llama3_8b", B=1, H=32, KV=8, Sq=2048, Sk=2048, D=128, causal=True)
 CASES = [
     MAIN_CASE,
@@ -215,20 +249,144 @@ def kernel_phase(fa, iters: int) -> dict:
     return out
 
 
-def train_phase(train_ddp, fa, card: str) -> dict:
+def _quant_input(n: int, special: bool, seed: int) -> torch.Tensor:
+    """f32 [n] on the card over six decades; ``special`` puts NaN, +inf and
+    -inf in rows 0-2 and zeros in row 3."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(n, generator=gen, device="cuda")
+    x *= torch.logspace(-3, 3, 1024, device="cuda").repeat(-(-n // 1024))[:n]
+    if special:
+        x[5], x[1024 + 7], x[2048 + 3] = float("nan"), float("inf"), float("-inf")
+        x[3072:4096] = 0.0
+    return x
+
+
+def _exact(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """Hold a quant kernel's output against its plain version bit for bit
+    (NaN included); returns max |kernel − plain| over the values (0)."""
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} != plain {tuple(want.shape)}")
+    gb, wb = got.contiguous().view(torch.uint8), want.contiguous().view(torch.uint8)
+    if not torch.equal(gb, wb):
+        bad = int((gb != wb).sum())
+        err = (got.float() - want.float()).abs().nan_to_num(float("inf")).max().item()
+        raise AssertionError(
+            f"{name}: kernel differs from its plain version in {bad} bytes, max |err| {err} "
+            "(tolerance: exact)"
+        )
+    return 0.0
+
+
+def _quant_bound(kernel: str, case) -> tuple:
+    """(bound_ms, bound_by): bytes moved (each input read once, each output
+    written once) at the HBM rate against f32 operations (quantize: abs,
+    max, divide, round, clamp per element; reduce: a multiply and an add
+    per contribution, then the requantize; dequantize: one multiply) at the
+    f32 peak."""
+    n, w, rows = case["n"], case["w"], case["rows"]
+    if kernel == "quantize":
+        prow = -(-max(1, -(-n // 1024)) // 32) * 32
+        nbytes, ops = 4 * n + prow * 1024 + 4 * prow, 5 * n
+    elif kernel == "reduce":
+        nbytes, ops = (w + 1) * rows * (1024 + 4), (2 * w + 5) * rows * 1024
+    else:
+        drows = -(-n // 1024)
+        nbytes, ops = drows * (1024 + 4) + 4 * n, n
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def quant_phase(qk, iters: int) -> dict:
+    """Per case and wire kind: each quant kernel held exactly against its
+    plain version, with kernel / plain / library ms and the bound.  The
+    launches made here are comparisons and are reset before the train
+    phases."""
+    out = {}
+    for case in QUANT_CASES:
+        big = case is MAIN_QUANT
+        reps = iters if big else QUANT_ITERS
+        for kind in ("int8", "fp8"):
+            n, w, rows = case["n"], case["w"], case["rows"]
+            x = _quant_input(n, case["special"], 0)
+            q, s = qk.quantize_rowwise_device(x, kind=kind)
+            q_ref, s_ref = qk.quantize_rowwise_plain(x, kind=kind)
+            errs = {"quantize": max(_exact(f"{case['name']} {kind} quantize q", q, q_ref),
+                                    _exact(f"{case['name']} {kind} quantize scales", s, s_ref))}
+            del q_ref, s_ref
+            # the public round trip: the dequantize kernel on the kernel's payload
+            back = qk.dequantize_rowwise_device(q, s, n)
+            errs["dequantize"] = _exact(f"{case['name']} {kind} dequantize", back,
+                                        qk.dequantize_rowwise_plain(q, s, n))
+            if kind == "int8":
+                # each value comes back within half a step (its row's scale),
+                # plus the two f32 roundings (|x| <= 127 steps): 1e-4 steps
+                step = s.reshape(-1).repeat_interleave(1024)[:n]
+                held = torch.isfinite(x) & torch.isfinite(step)
+                if not ((back - x).abs() <= step * (0.5 + 1e-4))[held].all():
+                    raise AssertionError(f"{case['name']} int8 round trip is off by over half a step")
+                del step, held
+            del back
+            timings = {
+                "quantize": (_time_ms(lambda: qk.quantize_rowwise_device(x, kind=kind), reps),
+                             _time_ms(lambda: qk.quantize_rowwise_plain(x, kind=kind), 2, 1), None),
+                "dequantize": (
+                    _time_ms(lambda: qk.dequantize_rowwise_device(q, s, n), reps),
+                    _time_ms(lambda: qk.dequantize_rowwise_plain(q, s, n), 2, 1),
+                    # one library call for the same function: int8 · f32 → f32
+                    _time_ms(lambda: torch.mul(q, s), reps) if kind == "int8" else None,
+                ),
+            }
+            del x, q, s
+            torch.cuda.empty_cache()
+            parts = [qk.quantize_rowwise_plain(
+                _quant_input(rows * 1024, case["special"] and c == 1, 1 + c), kind=kind)
+                for c in range(w)]
+            qs = torch.stack([p[0][:rows] for p in parts])
+            scs = torch.stack([p[1][:rows] for p in parts])
+            del parts
+            red = qk.reduce_quantized_device(qs, scs, kind=kind)
+            red_ref = qk.reduce_quantized_plain(qs, scs, kind=kind)
+            errs["reduce"] = max(_exact(f"{case['name']} {kind} reduce q", red[0], red_ref[0]),
+                                 _exact(f"{case['name']} {kind} reduce scales", red[1], red_ref[1]))
+            timings["reduce"] = (
+                _time_ms(lambda: qk.reduce_quantized_device(qs, scs, kind=kind), QUANT_ITERS),
+                _time_ms(lambda: qk.reduce_quantized_plain(qs, scs, kind=kind), 10, 2),
+                None,
+            )
+            rows_out = {}
+            for name in ("quantize", "reduce", "dequantize"):
+                ms, plain_ms, lib_ms = timings[name]
+                bound_ms, bound_by = _quant_bound(name, case)
+                rows_out[name] = dict(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+                                      bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+            out[f"{case['name']} {kind}"] = rows_out
+            print(f"quant case {case['name']} {kind}: {json.dumps(rows_out)}", flush=True)
+            del qs, scs, red, red_ref
+            torch.cuda.empty_cache()
+    return out
+
+
+def train_phase(train_ddp, fa, qk, card: str, should_quantize: bool) -> dict:
     """The port's main path: 2 replica threads at Llama-3-8B width with a
-    kill and heal; the launch counts cover exactly this run."""
+    kill and heal, averaging gradients in f32/bf16 or through the int8
+    quantized wire; the launch counts cover exactly this run."""
     steps, layers = STEPS, LAYERS
     cfg = train_ddp.model_config("llama3_8b", layers)
     device = torch.device("cuda")
+    # the previous phase's replicas sit in reference cycles (a manager's
+    # closures hold its model): free them before this fleet allocates
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
+    qk.reset_launches()
     t0 = time.perf_counter()
     results = train_ddp.run_fleet(
-        cfg, device, replicas=2, steps=steps, batch=1, seq=2048, kill_at=(1, 2)
+        cfg, device, replicas=2, steps=steps, batch=1, seq=2048, kill_at=(1, 2),
+        should_quantize=should_quantize,
     )
     wall_s = time.perf_counter() - t0
-    launches = dict(fa.launches)
+    launches = {**fa.launches, **qk.launches}
     for i, r in enumerate(results):
         if not all(math.isfinite(x) for x in r.losses):
             raise AssertionError(f"replica {i}: non-finite loss in {r.losses}")
@@ -239,9 +397,11 @@ def train_phase(train_ddp, fa, card: str) -> dict:
     shas = {r.params_sha256 for r in results}
     if len(shas) != 1:
         raise AssertionError(f"replicas diverged: parameter sha256 {shas}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"flash kernel {name} never launched on the main path")
+    # dequantize is public API only: the pipeline dequantizes on the host
+    required = ("fwd", "dq", "dkv") + (("quantize", "reduce") if should_quantize else ())
+    for name in required:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the main path")
     # steady steps: replica 0's last three iterations, after the heal round
     steady = sorted(results[0].step_s[-3:])
     step_s = steady[len(steady) // 2]
@@ -252,6 +412,7 @@ def train_phase(train_ddp, fa, card: str) -> dict:
     }
     return dict(
         card=card,
+        sync="quantized int8" if should_quantize else "float (bf16 and f32 buckets)",
         model="llama3_8b width, %d layers, bf16" % layers,
         params=sum(t.numel() for t in results[0].state.values()),
         steps=steps,
@@ -282,6 +443,7 @@ def main() -> int:
     from torchft_tpu_torch import train_ddp
     from torchft_tpu_torch.ops import cuda_build
     from torchft_tpu_torch.ops import flash_attention as fa
+    from torchft_tpu_torch.ops import quant as qk
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -292,28 +454,43 @@ def main() -> int:
           flush=True)
 
     t0 = time.perf_counter()
-    cuda_build.build([fa.KERNEL_SOURCE])
+    sources = [fa.KERNEL_SOURCE, qk.KERNEL_SOURCE]
+    cuda_build.build(sources)
     build_s = time.perf_counter() - t0
-    print(f"built {fa.KERNEL_SOURCE}.cu in {build_s:.1f} s", flush=True)
-    for line in cuda_build.build_log(fa.KERNEL_SOURCE).splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"ptxas: {line.strip()}", flush=True)
+    print(f"built {', '.join(s + '.cu' for s in sources)} in {build_s:.1f} s", flush=True)
+    for source in sources:
+        for line in cuda_build.build_log(source).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas {source}: {line.strip()}", flush=True)
 
     kernels = kernel_phase(fa, ITERS)
-    results = {"card": card, "build_s": build_s, "kernels": kernels}
-    train = train_phase(train_ddp, fa, card)
-    launches = train["launches"]
-    results["train"] = train
-    print(f"train: {json.dumps(train)}", flush=True)
+    quant = quant_phase(qk, ITERS)
+    results = {"card": card, "build_s": build_s, "kernels": kernels, "quant": quant}
+    for key, quantized in (("train", False), ("train_quantized", True)):
+        results[key] = train_phase(train_ddp, fa, qk, card, quantized)
+        print(f"{key}: {json.dumps(results[key])}", flush=True)
+    float_t, quant_t = results["train"], results["train_quantized"]
+    print("step ms (median of the last 3): float %.1f, quantized %.1f; phases float %s, "
+          "quantized %s" % (float_t["step_ms_median_last3"], quant_t["step_ms_median_last3"],
+                            json.dumps(float_t["phase_ms_median_last3"]),
+                            json.dumps(quant_t["phase_ms_median_last3"])), flush=True)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)
 
+    # flash kernels: launches of the float phase (the quantized phase runs
+    # them as often); quant kernels: launches of the quantized phase
     main_rows = kernels[MAIN_CASE["name"]]
+    quant_rows = quant[f"{MAIN_QUANT['name']} int8"]
     line = {"kernels": [
         dict(name=f"flash_{name}", route="cuda", source=SOURCE, replaces=REPLACES[name],
-             launches=launches[name], **main_rows[name])
+             launches=float_t["launches"][name], **main_rows[name])
         for name in ("fwd", "dq", "dkv")
+    ] + [
+        dict(name=f"quant_{name}", route="cuda", source=QUANT_SOURCE,
+             replaces=QUANT_REPLACES[name], launches=quant_t["launches"][name],
+             **quant_rows[name])
+        for name in ("quantize", "reduce", "dequantize")
     ]}
     print(json.dumps(line), flush=True)
     print(card, flush=True)  # nvidia-smi's own line: name, power limit

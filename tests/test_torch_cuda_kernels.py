@@ -10,7 +10,10 @@ Tolerance: bf16 kernels vs their plain versions on the same card, compared
 in f32.  o, dq, dk and dv: elementwise 5e-3 absolute + 2e-2 relative (the
 two sum in different orders, so their bf16 outputs may differ by one ulp,
 2^-7 relative) and normwise relative error at most 1e-2.  lse is f32 on
-both sides: 1e-3 absolute.
+both sides: 1e-3 absolute.  The quantize, reduce and dequantize kernels
+run the same single IEEE operations in the same order as their plain
+versions, so they are held exactly: payload bytes equal, scales and f32
+outputs bit-equal (NaN included).
 """
 
 import pytest
@@ -18,6 +21,7 @@ import torch
 
 from torchft_tpu_torch.models.llama import Llama, llama3_8b
 from torchft_tpu_torch.ops import flash_attention as tfa
+from torchft_tpu_torch.ops import quant as tq
 
 
 def _assert_close(name, got, want) -> None:
@@ -115,3 +119,56 @@ def test_llama_on_cuda_runs_attention_on_the_kernels(cuda_device, monkeypatch) -
     tfa.reset_launches()
     model.loss(tokens, tokens.roll(-1, 1)).backward()
     assert tfa.launches == {"fwd": 1, "dq": 1, "dkv": 1}
+
+
+def _bit_equal(got: torch.Tensor, want: torch.Tensor) -> bool:
+    return got.shape == want.shape and torch.equal(
+        got.contiguous().view(torch.uint8), want.contiguous().view(torch.uint8)
+    )
+
+
+def _quant_input(gen, n, special, device):
+    x = torch.randn(n, generator=gen, device=device) * torch.logspace(-3, 3, n, device=device)
+    if special:  # a NaN row, ±inf rows and an all-zero row
+        x[5] = float("nan")
+        x[1024 + 7] = float("inf")
+        x[2048 + 3] = float("-inf")
+        x[3072:4096] = 0.0
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+@pytest.mark.parametrize("n,special", [(256 * 1024, False), (1000 * 1024 + 517, False),
+                                       (5 * 1024, True), (3, False)])
+def test_quant_kernels_match_plain(cuda_device, kind, n, special) -> None:
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x = _quant_input(gen, n, special, cuda_device)
+    tq.reset_launches()
+    q, s = tq.quantize_rowwise_device(x, kind=kind)
+    q_ref, s_ref = tq.quantize_rowwise_plain(x, kind=kind)
+    assert q.shape[0] == tq.padded_rows(n) and q.shape[0] % tq.BLOCK_ROWS == 0
+    assert _bit_equal(q, q_ref) and _bit_equal(s, s_ref)
+    out = tq.dequantize_rowwise_device(q, s, n)
+    assert _bit_equal(out, tq.dequantize_rowwise_plain(q, s, n))
+    for w in (2, 3):
+        parts = [tq.quantize_rowwise_plain(_quant_input(gen, n, special and c == 1, cuda_device),
+                                           kind=kind) for c in range(w)]
+        qs = torch.stack([p[0] for p in parts])
+        scs = torch.stack([p[1] for p in parts])
+        got = tq.reduce_quantized_device(qs, scs, kind=kind)
+        want = tq.reduce_quantized_plain(qs, scs, kind=kind)
+        assert _bit_equal(got[0], want[0]) and _bit_equal(got[1], want[1]), w
+    torch.cuda.synchronize()
+    assert tq.launches == {"quantize": 1, "reduce": 2, "dequantize": 1}
+
+
+@pytest.mark.cuda
+def test_quant_wrappers_refuse_what_the_kernels_do_not_take(cuda_device) -> None:
+    with pytest.raises(ValueError, match="float32"):
+        tq.quantize_rowwise_device(torch.zeros(10, device=cuda_device, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="rows of 1024"):
+        tq.quantize_rowwise_device(torch.zeros(10, device=cuda_device), row_size=128)
+    q, s = tq.quantize_rowwise_device(torch.zeros(10, device=cuda_device))
+    with pytest.raises(ValueError, match="int8"):
+        tq.reduce_quantized_device(q[None].view(torch.uint8), s[None], kind="int8")

@@ -54,16 +54,36 @@ def test_no_forbidden_import_in_the_source(path) -> None:
 def test_every_module_imports_and_bf16_paths_run_with_jax_blocked() -> None:
     """In a fresh interpreter where ``jax``, ``ml_dtypes``, ``optax`` and
     ``torchft_tpu`` cannot be imported: import every module of the port,
-    round-trip bf16 tensors through the checkpoint serializer, and average
-    bf16 gradients over two thread replicas."""
+    round-trip bf16 tensors through the checkpoint serializer, run the fp8
+    host wire against the golden fixture, and average bf16 gradients over
+    two thread replicas, then average them again through the fp8 quantized
+    sync."""
     script = textwrap.dedent(
         f"""
-        import importlib, sys
+        import importlib, os, sys
         for name in {list(FORBIDDEN)!r}:
             sys.modules[name] = None  # any import of it now raises
         sys.path.insert(0, {str(REPO)!r})
         for mod in {_modules()!r}:
             importlib.import_module(mod)
+
+        import json
+        import numpy as np
+        from torchft_tpu_torch.quantization import (
+            dequantize_rowwise, quantize_rowwise, reduce_quantized,
+        )
+
+        with open({str(REPO / "tests" / "fixtures" / "quant_wire_golden.json")!r}) as f:
+            golden = json.load(f)["fp8"]
+        rng = np.random.default_rng(42)
+        flat = (rng.normal(size=512) * np.logspace(-2, 2, 512)).astype(np.float32)
+        q, s = quantize_rowwise(flat, row_size=128, kind="fp8")
+        assert q.dtype == np.uint8 and q.reshape(-1).tolist() == golden["payload"]
+        assert s.astype(float).tolist() == golden["scales"]
+        q2, s2 = reduce_quantized(np.stack([q, q]), np.stack([s, s]), kind="fp8")
+        twice = dequantize_rowwise(q2, s2, 512, np.float32)
+        assert np.abs(twice - 2 * flat).max() <= 2 * np.abs(flat).max() / 8
+        os.environ["TORCHFT_QUANT_KIND"] = "fp8"
 
         import threading
         import torch
@@ -93,7 +113,11 @@ def test_every_module_imports_and_bf16_paths_run_with_jax_blocked() -> None:
             manager.start_quorum()
             allreduce_gradients(manager, [p]).wait()
             assert manager.should_commit()
-            out[i] = p.grad
+            out[i] = p.grad.clone()
+            manager.start_quorum()
+            allreduce_gradients(manager, [p], should_quantize=True).wait()
+            assert manager.should_commit()
+            assert torch.equal(p.grad, out[i])  # 1.5 travels exactly in fp8
             manager.shutdown()
 
         threads = [threading.Thread(target=replica, args=(i,)) for i in range(2)]

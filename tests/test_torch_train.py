@@ -11,6 +11,10 @@ with its own Manager, TCPCommunicator and HTTPTransport.
   3e-3; summation-order differences left at most 7e-6 between the packages
   here, and the 1e-4 absolute tolerance leaves room for another CPU's
   rounding while staying well below one step's movement.
+- The quantized gradient sync (``should_quantize=True``, int8 and fp8):
+  a recovery run ends with equal parameter hashes and finite losses, and a
+  2-replica quantized average of the same gradients in each package agrees
+  within the int8 wire's tolerance (stated at the test).
 """
 
 import math
@@ -29,7 +33,10 @@ from torchft_tpu.ddp import ft_allreduce
 from torchft_tpu.lighthouse import LighthouseServer as JaxLighthouseServer
 from torchft_tpu.models import llama as jllama
 from torchft_tpu.optim import OptimizerWrapper as JaxOptimizerWrapper
+from torchft_tpu_torch import manager as tmanager
 from torchft_tpu_torch import train_ddp
+from torchft_tpu_torch.communicator import TCPCommunicator
+from torchft_tpu_torch.ddp import allreduce_gradients
 from torchft_tpu_torch.lighthouse import LighthouseServer
 from torchft_tpu_torch.models import llama as tllama
 from torchft_tpu_torch.optim import OptimizerWrapper
@@ -121,6 +128,96 @@ def test_same_run_in_both_packages_ends_allclose() -> None:
         jax.tree_util.tree_leaves_with_path(port_final),
     ):
         np.testing.assert_allclose(b, a, rtol=0, atol=1e-4, err_msg=str(path))
+
+
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+def test_quantized_fleet_heals_and_ends_bit_identical(monkeypatch, kind) -> None:
+    monkeypatch.setenv("TORCHFT_QUANT_KIND", kind)
+    cfg = train_ddp.model_config("llama_debug")
+    results = train_ddp.run_fleet(
+        cfg, CPU, steps=5, seq=128, batch=2, lr=1e-3, kill_at=(1, 2), timeout=30.0,
+        should_quantize=True,
+    )
+    _check_fleet(results, 5)
+    assert results[1].restarts == 1 and results[0].restarts == 0
+
+
+def _both_packages_quantized_average(params0, cfg, batches):
+    """Each replica's gradients of one step on its batch, then the 2-replica
+    quantized average in each package: returns (port avg, JAX avg, the
+    replicas' f32 gradients) as JAX-layout numpy trees."""
+    model = jllama.Llama(cfg)
+    grad_fn = jax.jit(jax.grad(model.loss))
+    jax_grads = [
+        jax.tree_util.tree_map(np.asarray, grad_fn(params0, (jnp.asarray(t.numpy()), jnp.asarray(y.numpy()))))
+        for t, y in batches
+    ]
+
+    def run(pkg, comm_cls, lighthouse_cls, body):
+        lighthouse = lighthouse_cls(
+            bind="127.0.0.1:0", min_replicas=2, join_timeout_ms=100,
+            quorum_tick_ms=20, heartbeat_timeout_ms=5000,
+        )
+
+        def replica(idx):
+            manager = pkg.Manager(
+                comm=comm_cls(timeout_s=30.0), load_state_dict=lambda s: None,
+                state_dict=lambda: {}, min_replica_size=2, replica_id=f"replica_{idx}",
+                lighthouse_addr=lighthouse.local_address(), timeout=30.0,
+                quorum_timeout=30.0, connect_timeout=30.0, init_sync=False,
+            )
+            try:
+                manager.start_quorum()
+                return body(manager, idx)
+            finally:
+                manager.shutdown()
+
+        try:
+            with ThreadPoolExecutor(max_workers=2) as pool:
+                return [f.result(timeout=120) for f in [pool.submit(replica, i) for i in range(2)]]
+        finally:
+            lighthouse.shutdown()
+
+    def port_body(manager, idx):
+        torch_model = tllama.Llama(tllama.llama_debug(), device=CPU)
+        torch_model.load_state_dict(tllama.params_from_jax(params0))
+        torch_model.loss(*batches[idx]).backward()
+        allreduce_gradients(manager, torch_model, should_quantize=True).wait()
+        grads = {name: p.grad for name, p in torch_model.named_parameters()}
+        return tllama.params_to_numpy(grads, cfg.n_layers)
+
+    def jax_body(manager, idx):
+        avg = ft_allreduce(manager, jax.tree_util.tree_map(jnp.asarray, jax_grads[idx]), True)
+        return jax.tree_util.tree_map(np.asarray, avg)
+
+    port = run(tmanager, TCPCommunicator, LighthouseServer, port_body)
+    ref = run(jmanager, JaxTCPCommunicator, JaxLighthouseServer, jax_body)
+    return port, ref, jax_grads
+
+
+def test_quantized_step_matches_jax_within_int8_tolerance() -> None:
+    """Rowwise int8 carries each value to within half a step (scale =
+    row absmax / 127) of itself, twice on the way (quantize, then the
+    requantize of the sum); rows of the flat buffer span parameters, so the
+    step is bounded with the largest gradient A over both replicas:
+    each package's average lies within 2·A/127 of the exact one, and the two
+    within 4·A/127 of each other.  (The packages flatten the parameters in
+    different orders, so their rows, and their scales, differ.)"""
+    cfg = jllama.llama_debug()
+    params0 = jax.tree_util.tree_map(np.asarray, jllama.Llama(cfg).init(jax.random.PRNGKey(0)))
+    batches = [train_ddp.synthetic_batches(tllama.llama_debug(), 2, 128, i, 1, CPU)[0]
+               for i in range(2)]
+    port, ref, grads = _both_packages_quantized_average(params0, cfg, batches)
+    leaves = lambda tree: [np.asarray(x, np.float32) for x in jax.tree_util.tree_leaves(tree)]
+    A = max(np.abs(g).max() for tree in grads for g in leaves(tree))
+    exact = [(a + b) / 2 for a, b in zip(leaves(grads[0]), leaves(grads[1]))]
+    diffs = []
+    for p0, p1, r0, e in zip(leaves(port[0]), leaves(port[1]), leaves(ref[0]), exact):
+        np.testing.assert_array_equal(p0, p1)  # both port replicas agree
+        assert np.abs(p0 - e).max() <= 2 * A / 127
+        assert np.abs(r0 - e).max() <= 2 * A / 127
+        diffs.append(np.abs(p0 - r0).reshape(-1))
+    assert np.concatenate(diffs).max() <= 4 * A / 127
 
 
 class _FakeManager:

@@ -6,8 +6,9 @@ coordination plane byte for byte (lighthouse, manager server, store, wire
 protocol, Python TCP communicator), so a port replica and a JAX replica
 speak one protocol, and ports what touches tensors: the ``Manager``'s heal
 path (torch tensors stream as checkpoint leaves), gradient averaging over
-``.grad`` tensors, a ``torch.optim`` wrapper, the Llama-3 model, and the
-flash-attention kernels, hand-written in CUDA for Hopper.
+``.grad`` tensors (float, or quantized to int8/fp8 on the card), a
+``torch.optim`` wrapper, the Llama-3 model, and the flash-attention and
+quantized-wire kernels, hand-written in CUDA for Hopper.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 The train loop is ``python -m torchft_tpu_torch.train_ddp``.

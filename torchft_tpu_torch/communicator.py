@@ -49,6 +49,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from torchft_tpu_torch import bf16
 from torchft_tpu_torch.futures import TimerHandle, schedule_timeout
 from torchft_tpu_torch.obs.flight import FlightEvent, FlightRecorder
 from torchft_tpu_torch.obs.spans import span as obs_span, spans_enabled
@@ -98,6 +99,14 @@ def _bytes_view(arr: np.ndarray) -> memoryview:
 
 
 def _reduce_into(op: ReduceOp, acc: np.ndarray, incoming: np.ndarray) -> None:
+    if bf16.is_bf16(acc):
+        # bf16 travels as its bit pattern; reduce as ml_dtypes does
+        if op in (ReduceOp.SUM, ReduceOp.AVG):
+            bf16.add_into(acc, incoming)
+            return
+        pick = np.maximum if op == ReduceOp.MAX else np.minimum
+        bf16.assign(acc, bf16.from_f32(pick(bf16.to_f32(acc), bf16.to_f32(incoming))))
+        return
     if op in (ReduceOp.SUM, ReduceOp.AVG):
         np.add(acc, incoming, out=acc)
     elif op == ReduceOp.MAX:
@@ -3115,10 +3124,7 @@ class TCPCommunicator(Communicator):
                         ctx, flat, op, tag_base=wire_tags.RING_REDUCE_TAG_BASE
                     )
                 if op == ReduceOp.AVG:
-                    if np.issubdtype(own.dtype, np.integer):
-                        own //= ws
-                    else:
-                        np.divide(own, ws, out=own)
+                    _avg_in_place(own, ws)
                 # compact: own is a view of the full-size working copy;
                 # returning it would pin all n elements for the Work's life
                 return own.copy()
@@ -3491,13 +3497,19 @@ def _allreduce_sync(
                 offset += n
     if op == ReduceOp.AVG:
         for a in out:
-            if np.issubdtype(a.dtype, np.integer):
-                a //= ws
-            else:
-                # bfloat16/fp8 are not np.inexact subdtypes; true-divide all
-                # non-integer dtypes in place
-                np.divide(a, ws, out=a)
+            _avg_in_place(a, ws)
     return out
+
+
+def _avg_in_place(a: np.ndarray, ws: int) -> None:
+    """``a /= ws`` for the AVG reductions: integers floor-divide, bf16
+    rounds back from f32, other dtypes true-divide in place."""
+    if bf16.is_bf16(a):
+        bf16.assign(a, bf16.div(a, ws))
+    elif np.issubdtype(a.dtype, np.integer):
+        a //= ws
+    else:
+        np.divide(a, ws, out=a)
 
 
 def _ring_bounds(n: int, ws: int) -> List[int]:

@@ -1,18 +1,22 @@
 """Fault-tolerant data parallelism over the replica dimension.
 
-The port of ``torchft_tpu/ddp.py``'s float path.  Gradients are the
-``.grad`` tensors of a module's parameters; the replica-dim average runs on
-the host: each dtype's gradients are flattened into buckets of at most
-``TORCHFT_BUCKET_CAP_MB`` (the JAX package's boundaries), copied to pinned
-host memory with non-blocking transfers started up front, ring-allreduced
-by ``Manager.allreduce`` over the TCP communicator, and copied back into the
-``.grad`` tensors in place.
+The port of ``torchft_tpu/ddp.py``.  Gradients are the ``.grad`` tensors of
+a module's parameters; the replica-dim average runs on the host.
 
-bf16 (and f16) buckets travel as f32: they are widened on the device before
-the copy to host and rounded back after.  The wire carries twice the bytes,
-and no host code needs a bf16 numpy dtype.  With two replicas the result
-equals the JAX package's bf16 average exactly; with more it is within one
-bf16 ulp.
+- Float path: each dtype's gradients are flattened into buckets of at most
+  ``TORCHFT_BUCKET_CAP_MB`` (the JAX package's boundaries), copied to pinned
+  host memory with non-blocking transfers started up front, ring-allreduced
+  by ``Manager.allreduce`` over the TCP communicator, and copied back into
+  the ``.grad`` tensors in place.  bf16 buckets travel as bf16 bytes (the
+  bit pattern, ``bf16.py``) and are added and divided as ml_dtypes does, so
+  the result is bit-identical to the JAX package's at any replica count and
+  a mixed quorum exchanges frames of one size.
+- Quantized path (``should_quantize=True``): the gradients are flattened to
+  f32 on the card and quantized there by the rowwise kernel
+  (``ops.quant``); only the 1-byte payload and the f32 scales are copied to
+  the host, averaged by ``Manager.allreduce_prequantized`` (the windowed
+  quantized pipeline, whose per-window reduce runs on the card too), and
+  copied back into the ``.grad`` tensors.
 """
 
 from __future__ import annotations
@@ -24,9 +28,11 @@ import threading
 from concurrent.futures import Future
 from typing import Dict, Iterable, List, Tuple, Union
 
+import numpy as np
 import torch
 from torch import nn
 
+from torchft_tpu_torch import bf16
 from torchft_tpu_torch.manager import Manager
 from torchft_tpu_torch.work import DummyWork, Work
 
@@ -37,9 +43,6 @@ logger = logging.getLogger(__name__)
 # the collective sequence.
 BUCKET_CAP_MB_ENV = "TORCHFT_BUCKET_CAP_MB"
 DEFAULT_BUCKET_CAP_MB = 32
-
-# dtypes the host ring cannot add natively travel widened to f32
-_WIDENED = (torch.bfloat16, torch.float16)
 
 
 @functools.lru_cache(maxsize=None)
@@ -100,15 +103,13 @@ def allreduce_gradients(
     ``should_commit``.  Error swallowing and participation zeroing happen
     inside ``manager.allreduce``: on error the gradients keep this
     replica's values and the vote discards the step."""
-    if should_quantize:
-        raise NotImplementedError(
-            "the quantized gradient sync lands in a later slice of the port"
-        )
     grads = _gradients(module_or_params)
     if manager.errored() or manager.allreduce_is_identity() or not grads:
         # single-member quorum: averaging is the identity; skip the
         # device→host→device round trip entirely
         return DummyWork(grads)
+    if should_quantize:
+        return _allreduce_gradients_device_quantized(manager, grads)
 
     groups = bucket_groups(
         [g.numel() * g.element_size() for g in grads],
@@ -120,8 +121,6 @@ def allreduce_gradients(
     staged: List[Tuple[List[int], torch.Tensor, object]] = []
     for group in groups:
         flat = torch.cat([grads[i].detach().reshape(-1) for i in group])
-        if flat.dtype in _WIDENED:
-            flat = flat.float()
         if flat.is_cuda:
             host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
             host.copy_(flat, non_blocking=True)
@@ -136,11 +135,11 @@ def allreduce_gradients(
         if done is not None:
             done.synchronize()
         # in_place: the bucket is ours and discarded after the copy-back
-        works.append(manager.allreduce(host.numpy(), in_place=True))
+        works.append(manager.allreduce(_host_array(host), in_place=True))
 
     def _copy_back() -> None:
         for (group, _host, _done), work in zip(staged, works):
-            avg = torch.from_numpy(work.wait())
+            avg = _host_tensor(work.wait())
             off = 0
             for i in group:
                 g = grads[i]
@@ -148,19 +147,95 @@ def allreduce_gradients(
                 g.copy_(avg[off : off + n].view(g.shape))  # casts back, moves H2D
                 off += n
 
+    return _fenced(manager, grads, _copy_back)
+
+
+def _fenced(manager: Manager, grads: List[torch.Tensor], copy_back) -> Work:
+    """Run ``copy_back`` off-thread and register the composite with the
+    manager: the WHOLE pipeline (including the copy-back) is fenced at
+    commit, not just the wire — a copy-back failure after the vote would
+    otherwise apply unaveraged gradients on this replica only."""
     fut: "Future[List[torch.Tensor]]" = Future()
 
     def _finish() -> None:
         try:
-            _copy_back()
+            copy_back()
         except Exception as e:  # noqa: BLE001 — funnel, never raise
             manager.report_error(e)
         fut.set_result(grads)
 
     threading.Thread(target=_finish, name="tpuft_ddp_gather", daemon=True).start()
     out = Work(fut)
-    # fence the WHOLE pipeline (including the copy-back) at commit, not
-    # just the rings: a copy-back failure after the vote would otherwise
-    # apply unaveraged gradients on this replica only
     manager._register_pending(out)
     return out
+
+
+def _host_array(host: torch.Tensor) -> np.ndarray:
+    """A host bucket as the numpy array the ring reduces: bf16 as its bit
+    pattern (:data:`bf16.BF16`), every other dtype as itself."""
+    return bf16.from_tensor(host) if host.dtype == torch.bfloat16 else host.numpy()
+
+
+def _host_tensor(avg: np.ndarray) -> torch.Tensor:
+    return bf16.to_tensor(avg) if bf16.is_bf16(avg) else torch.from_numpy(avg)
+
+
+def _flatten_f32(grads: List[torch.Tensor]) -> torch.Tensor:
+    """Every gradient, widened to f32, in one flat tensor on their device;
+    each leaf is cast straight into its slice, so no per-leaf f32 copy is
+    made."""
+    flat = torch.empty(sum(g.numel() for g in grads), dtype=torch.float32, device=grads[0].device)
+    off = 0
+    for g in grads:
+        n = g.numel()
+        flat[off : off + n].copy_(g.detach().reshape(-1))
+        off += n
+    return flat
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    if not t.is_cuda:
+        return t
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t)
+    return host
+
+
+def _allreduce_gradients_device_quantized(manager: Manager, grads: List[torch.Tensor]) -> Work:
+    """Device quantize → Manager-orchestrated wire pipeline → copy back.
+
+    The counterpart of ``_allreduce_pytree_device_quantized``: the
+    fault-tolerance orchestration (quorum wait, participation zeroing,
+    capacity weight, error funnel) lives in
+    ``Manager.allreduce_prequantized``; this function flattens and
+    quantizes on the card, ships the 1-byte payload and the scales to the
+    host, and copies the average back into the ``.grad`` tensors
+    (``copy_`` rounds f32 to bf16 to nearest even)."""
+    from torchft_tpu_torch.ops.quant import quantize_rowwise_device
+    from torchft_tpu_torch.quantization import FP8, quant_kind
+
+    try:
+        kind = quant_kind()
+        flat = _flatten_f32(grads)
+        n = flat.numel()
+        q, scales = quantize_rowwise_device(flat, kind=kind)
+        del flat  # the f32 copy is the largest buffer of the step
+        if kind == FP8:
+            q = q.view(torch.uint8)  # the host holds e4m3 as its bit pattern
+        # the only device→host bytes: the 1-byte payload + rowwise scales
+        q_np = _to_host(q).numpy()
+        s_np = _to_host(scales).numpy()
+        work = manager.allreduce_prequantized(q_np, s_np, n)
+    except Exception as e:  # noqa: BLE001 — errors never reach the train loop
+        manager.report_error(e)
+        return DummyWork(grads)
+
+    def _copy_back() -> None:
+        avg = torch.from_numpy(work.wait())
+        off = 0
+        for g in grads:
+            k = g.numel()
+            g.copy_(avg[off : off + k].view(g.shape))  # casts, moves H2D
+            off += k
+
+    return _fenced(manager, grads, _copy_back)

@@ -20,8 +20,10 @@ replica dimension runs host-side over TCP, and the gradient divisor
 ``num_participants()`` is a runtime scalar.  The device work of a step is
 fenced by the ddp composite work, so the reference's stream/event
 choreography collapses to thread joins (the ``_quorum_future``) and a plain
-recovery event.  The quantized collectives and the native tier land in
-later slices of the port; their entry points raise ``NotImplementedError``.
+recovery event.  bf16 buckets arrive as their bit pattern (``bf16.py``)
+and are divided as the JAX package divides ml_dtypes bf16.  The sharded
+outer sync and the native tier land in later slices of the port; their
+entry points raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ from typing import Callable, Dict, List, Optional, Tuple, TypeVar, Union, cast
 
 import numpy as np
 
-from torchft_tpu_torch import knobs
+from torchft_tpu_torch import bf16, knobs
 from torchft_tpu_torch.checkpointing._rwlock import RWLock
 from torchft_tpu_torch.obs.flight import FlightEvent, FlightRecorder, flight_dir
 from torchft_tpu_torch.obs.spans import span as obs_span
@@ -46,6 +48,7 @@ from torchft_tpu_torch.observability import QuorumTracer, traced
 from torchft_tpu_torch.checkpointing.transport import CheckpointTransport
 from torchft_tpu_torch.communicator import Communicator, ReduceOp
 from torchft_tpu_torch.manager_server import ManagerClient, ManagerServer
+from torchft_tpu_torch.quantization import dequantize_int8_rowwise, quant_kind
 from torchft_tpu_torch.store import StoreClient, StoreServer
 from torchft_tpu_torch.work import DummyWork, Event, Work
 
@@ -1292,10 +1295,6 @@ class Manager:
             # on the flight timeline
             return w if stream is None else self.stream_submitted(stream, w)
 
-        if should_quantize:
-            raise NotImplementedError(
-                "the quantized allreduce lands in a later slice of the port"
-            )
         if self.errored():
             return _failed_fast(DummyWork(data))
 
@@ -1328,7 +1327,14 @@ class Manager:
             data = _scale_contribution(data, scale)
 
         try:
-            work = self._comm.allreduce(data, ReduceOp.SUM, in_place=in_place)
+            if should_quantize:
+                from torchft_tpu_torch.collectives import allreduce_quantized
+
+                # wire format for the quantized ring: int8 (default) or
+                # fp8 e4m3 via TORCHFT_QUANT_KIND
+                work = allreduce_quantized(self._comm, data, kind=quant_kind())
+            else:
+                work = self._comm.allreduce(data, ReduceOp.SUM, in_place=in_place)
 
             # AVG = SUM / runtime participant count — replica count is never
             # baked into compiled programs (SURVEY.md §7 hard part 1)
@@ -1352,8 +1358,8 @@ class Manager:
         self, q: np.ndarray, scales: np.ndarray, n: int
     ) -> Work:
         """Fault-tolerant SUM-allreduce of an already-quantized stream (int8
-        rows + rowwise f32 scales, e.g. quantized on device by
-        ``ops.pallas_quant``), normalized by ``num_participants()``.
+        or fp8 rows + rowwise f32 scales, e.g. quantized on the card by
+        ``ops.quant``), normalized by ``num_participants()``.
 
         Same orchestration contract as :meth:`allreduce`: waits the quorum,
         zeroes the contribution of non-participants, swallows errors into a
@@ -1361,9 +1367,49 @@ class Manager:
         off-thread) whose value is the averaged float32 array of length
         ``n``.  On error the value is this replica's own dequantized
         contribution, mirroring the unquantized input-passthrough."""
-        raise NotImplementedError(
-            "the prequantized allreduce lands in a later slice of the port"
-        )
+        from torchft_tpu_torch.collectives import allreduce_prequantized
+
+        def _own_value() -> np.ndarray:
+            return dequantize_int8_rowwise(
+                q, np.asarray(scales).reshape(-1), n, np.float32
+            )
+
+        if self.errored():
+            return DummyWork(_own_value())
+
+        try:
+            self.wait_quorum()
+        except Exception as e:  # noqa: BLE001 — funnel, never raise
+            self.report_error(e)
+            return DummyWork(_own_value())
+        num_participants = self.num_participants()
+        q_in, s_in = q, scales
+        if not self.is_participating():
+            q_in = np.zeros_like(q)
+            s_in = np.zeros_like(scales)
+        elif (scale := self._capacity_weight_scale()) is not None:
+            # weighted average on an already-quantized stream: the 1-byte
+            # payload is untouchable, but dequant = q × scale — so the
+            # capacity weight rides the rowwise scales
+            s_in = (np.asarray(scales, np.float32) * np.float32(scale))
+
+        fut: concurrent.futures.Future = concurrent.futures.Future()
+
+        def _run() -> None:
+            try:
+                summed = allreduce_prequantized(self._comm, q_in, s_in, n)
+                # in place: the pipeline's output is ours (n f32 on the host)
+                fut.set_result(np.divide(summed, num_participants, out=summed))
+            except Exception as e:  # noqa: BLE001 — funnel, never raise
+                self.report_error(e)
+                fut.set_result(_own_value())
+
+        threading.Thread(
+            target=_run, name="tpuft_prequantized_allreduce", daemon=True
+        ).start()
+        out = Work(fut)
+        self._register_pending(out)
+        return out
 
     def outer_shard_group(self) -> tuple:
         """``(group_size, group_index, owns_shard)`` for the sharded outer
@@ -1661,6 +1707,11 @@ class Manager:
         if self._own_store is not None:
             self._own_store.shutdown()
         self._comm.shutdown()
+        # the manager server's threads may outlive shutdown and reach this
+        # object: drop the user's state callbacks so they cannot pin the
+        # model and optimizer (device memory) past the replica's life
+        self._user_state_dicts.clear()
+        self._load_state_dict_fns.clear()
 
     # test-friendly logger attribute (mocked-client path sets it lazily)
     @property
@@ -1676,19 +1727,6 @@ class Manager:
         self._logger_obj = value
 
 
-def quant_kind() -> str:
-    """Validate ``TORCHFT_QUANT_KIND`` (``int8`` or ``fp8``) the way the
-    JAX package's ``quantization.quant_kind`` does, so a typo fails at
-    Manager construction; the quantized wire itself lands in a later slice
-    of the port."""
-    kind = os.environ.get("TORCHFT_QUANT_KIND", "int8").strip().lower()
-    if kind not in ("int8", "fp8"):
-        raise ValueError(
-            f"TORCHFT_QUANT_KIND={kind!r}: must be 'int8' or 'fp8'"
-        )
-    return kind
-
-
 def _scale_contribution(
     data: Union[np.ndarray, List[np.ndarray]], scale: float
 ) -> Union[np.ndarray, List[np.ndarray]]:
@@ -1697,6 +1735,8 @@ def _scale_contribution(
     through unscaled — fractional weights would floor them to noise)."""
 
     def _one(a: np.ndarray) -> np.ndarray:
+        if bf16.is_bf16(a):
+            return bf16.scale(a, scale)
         if np.issubdtype(a.dtype, np.integer):
             return a
         return (a * scale).astype(a.dtype)
@@ -1710,8 +1750,10 @@ def _div(a: np.ndarray, n: int) -> np.ndarray:
     # Always out-of-place: the communicator may return the caller's own
     # buffer aliased (DummyCommunicator passthrough), and mutating it would
     # silently corrupt a retained gradient. Integer grads floor-divide;
-    # everything else (incl. extension float dtypes like bfloat16, which are
-    # NOT np.inexact subdtypes) true-divides.
+    # bf16 (its bit pattern, see ``bf16.py``) rounds back from an f32
+    # divide; everything else true-divides.
+    if bf16.is_bf16(a):
+        return bf16.div(a, n)
     if np.issubdtype(a.dtype, np.integer):
         return a // n
     return (a / n).astype(a.dtype)

@@ -113,6 +113,7 @@ def train_loop(
     steps: int,
     on_step: Optional[Callable[[int], None]] = None,
     phases: Optional[List[Dict[str, float]]] = None,
+    should_quantize: bool = False,
 ) -> List[float]:
     """Run until the manager's committed step reaches ``steps``; returns
     each iteration's loss.  ``on_step(step)`` runs before each iteration
@@ -121,7 +122,9 @@ def train_loop(
     ``compute`` (forward + backward, the quorum overlapping it),
     ``allreduce`` (bucketing, copies to host, ring submission) and
     ``commit`` (the vote, which waits for the rings and the copy-back, and
-    the optimizer step)."""
+    the optimizer step).  ``should_quantize`` averages the gradients
+    through the quantized wire (``TORCHFT_QUANT_KIND``, int8 by default):
+    quantized on the card, then the windowed quantized pipeline."""
     losses: List[float] = []
     fence = _fence(batches[0][0].device) if phases is not None else None
     while manager.current_step() < steps:
@@ -135,7 +138,7 @@ def train_loop(
         loss.backward()
         if fence:
             marks.append(fence())
-        allreduce_gradients(manager, model)
+        allreduce_gradients(manager, model, should_quantize=should_quantize)
         if fence:
             marks.append(fence())
         committed = opt.step()
@@ -191,13 +194,15 @@ def run_fleet(
     kill_at: Optional[Tuple[int, int]] = None,
     init_state: Optional[dict] = None,
     timeout: float = 300.0,
+    should_quantize: bool = False,
 ) -> List[ReplicaResult]:
     """Train ``replicas`` replica groups as threads of this process, each
     with its own Manager, TCPCommunicator and HTTPTransport, against an
     in-process lighthouse that needs every replica for a quorum.
     ``kill_at=(replica, step)`` kills that replica once before that step;
     it restarts with a fresh model and heals from a live peer.
-    ``init_state`` (a ``state_dict``) replaces the seeded init."""
+    ``init_state`` (a ``state_dict``) replaces the seeded init;
+    ``should_quantize`` is passed to :func:`train_loop`."""
     from torchft_tpu_torch.communicator import TCPCommunicator
     from torchft_tpu_torch.lighthouse import LighthouseServer
 
@@ -242,17 +247,20 @@ def run_fleet(
                         raise InjectedKill(f"replica {idx} killed at step {step}")
 
             try:
-                losses = train_loop(
+                losses: Optional[List[float]] = train_loop(
                     manager, model, OptimizerWrapper(manager, inner), batches, steps,
-                    _hook, phases,
+                    _hook, phases, should_quantize,
                 )
             except InjectedKill:
+                losses = None
+            if losses is None:
                 # a dead process stops heartbeating at once: tear the
                 # manager down and start over with a fresh model
                 restarts += 1
                 manager.shutdown()
                 # free the dead incarnation before building the next one
-                # (the manager's closures hold the model in a cycle)
+                # (the manager's closures hold the model in a cycle), out of
+                # the except block, whose traceback still holds the frames
                 del manager, model, inner, save, load
                 gc.collect()
                 continue
