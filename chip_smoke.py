@@ -11,9 +11,11 @@ It builds the port's CUDA kernels from ``torchft_tpu_torch/csrc/`` (one
 1. flash kernel phase — holds each flash-attention kernel (fwd, dq, dkv)
    against its plain PyTorch version on the card at the Llama-3-8B
    attention shapes (B=1, S=2048, H=32, KV=8, D=128, bf16, causal) and at
-   two more cases (a non-causal Sq != Sk case with ragged tiles, and a GQA
-   groups=1 case at D=64), and times kernel, plain version and the
-   ``F.scaled_dot_product_attention`` yardstick;
+   three more cases (a non-causal Sq != Sk case with ragged tiles, a GQA
+   groups=1 case at D=64, and a causal B=2 case whose S=1000 ends inside a
+   tile of every head), and times kernel, plain version and the
+   ``F.scaled_dot_product_attention`` yardstick; prints the forward's
+   achieved TFLOP/s and share of its bound on the main case;
 2. quant kernel phase — holds the rowwise quantize, fused reduce and
    dequantize kernels against their plain versions exactly (payload bytes
    equal, scales and f32 outputs bit-equal), for int8 and fp8, at the main
@@ -60,17 +62,19 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 ITERS = 10  # timed launches per kernel (plain versions: 2)
 STEPS = 5  # train steps; replica 1 is killed before step 2
 LAYERS = 2  # Llama-3-8B depth cut from 32 so two replicas fit one card
-SOURCE = "torchft_tpu_torch/csrc/flash_attention.cu"
-REPLACES = {
-    "fwd": "torchft_tpu/ops/flash_attention.py:48",
-    "dq": "torchft_tpu/ops/flash_attention.py:213",
-    "dkv": "torchft_tpu/ops/flash_attention.py:243",
-}
-QUANT_SOURCE = "torchft_tpu_torch/csrc/quant.cu"
-QUANT_REPLACES = {
-    "quantize": "torchft_tpu/ops/pallas_quant.py:79",
-    "reduce": "torchft_tpu/ops/pallas_quant.py:189",
-    "dequantize": "torchft_tpu/ops/pallas_quant.py:86",
+# Every kernel of the main path: its CUDA source, and the ``def`` of the
+# Pallas TPU kernel it replaces (file:line in the JAX package).
+KERNELS = {
+    "flash_fwd": ("torchft_tpu_torch/csrc/flash_fwd_sm90.cu",
+                  "torchft_tpu/ops/flash_attention.py:48"),
+    "flash_dq": ("torchft_tpu_torch/csrc/flash_attention.cu",
+                 "torchft_tpu/ops/flash_attention.py:213"),
+    "flash_dkv": ("torchft_tpu_torch/csrc/flash_attention.cu",
+                  "torchft_tpu/ops/flash_attention.py:243"),
+    "quant_quantize": ("torchft_tpu_torch/csrc/quant.cu", "torchft_tpu/ops/pallas_quant.py:79"),
+    "quant_reduce": ("torchft_tpu_torch/csrc/quant.cu", "torchft_tpu/ops/pallas_quant.py:189"),
+    "quant_dequantize": ("torchft_tpu_torch/csrc/quant.cu",
+                         "torchft_tpu/ops/pallas_quant.py:86"),
 }
 QUANT_ITERS = 100  # timed launches per quant case below the main size
 # Quant cases: ``n`` gradients through quantize and the round trip, and one
@@ -90,6 +94,7 @@ CASES = [
     MAIN_CASE,
     dict(name="full_rect_ragged", B=1, H=32, KV=8, Sq=1000, Sk=1800, D=128, causal=False),
     dict(name="gqa1_d64", B=2, H=8, KV=8, Sq=1024, Sk=1024, D=64, causal=True),
+    dict(name="causal_ragged_b2", B=2, H=8, KV=2, Sq=1000, Sk=1000, D=128, causal=True),
 ]
 
 
@@ -113,11 +118,10 @@ def _pairs(case) -> int:
     return case["B"] * case["H"] * per_head
 
 
-def _bound(case, kernel: str):
-    """(bound_ms, bound_by): the larger of bytes moved (inputs read once,
-    outputs written once) at the HBM rate and bf16 FLOPs at the tensor-core
-    peak.  FLOPs per (q, k) pair and head dim: fwd 4 (q·k, p·v); dq 6
-    (q·k, do·v, ds·k); dkv 8 (q·k, do·v, pᵀ·do, dsᵀ·q)."""
+def _work(case, kernel: str):
+    """(bytes, FLOPs) a flash kernel must move and do: inputs read once,
+    outputs written once; FLOPs per (q, k) pair and head dim: fwd 4 (q·k,
+    p·v); dq 6 (q·k, do·v, ds·k); dkv 8 (q·k, do·v, pᵀ·do, dsᵀ·q)."""
     B, H, KV, Sq, Sk, D = (case[k] for k in ("B", "H", "KV", "Sq", "Sk", "D"))
     q_bytes = B * H * Sq * D * 2
     kv_bytes = B * KV * Sk * D * 2
@@ -128,7 +132,13 @@ def _bound(case, kernel: str):
         nbytes, flops = 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes, 6
     else:
         nbytes, flops = 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes, 8
-    flops *= _pairs(case) * D
+    return nbytes, flops * _pairs(case) * D
+
+
+def _bound(case, kernel: str):
+    """(bound_ms, bound_by): the larger of the bytes at the HBM rate and
+    the bf16 FLOPs at the tensor-core peak."""
+    nbytes, flops = _work(case, kernel)
     t_bytes, t_flops = nbytes / PEAK_BYTES, flops / PEAK_BF16_FLOPS
     return max(t_bytes, t_flops) * 1e3, ("operations" if t_flops >= t_bytes else "bytes")
 
@@ -246,6 +256,11 @@ def kernel_phase(fa, iters: int) -> dict:
                               bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
         out[case["name"]] = rows
         print(f"kernel case {case['name']}: {json.dumps(rows)}", flush=True)
+    fwd = out[MAIN_CASE["name"]]["fwd"]
+    tflops = _work(MAIN_CASE, "fwd")[1] / (fwd["ms"] * 1e-3) / 1e12
+    print(f"flash_fwd on {MAIN_CASE['name']}: {fwd['ms']:.4f} ms, {tflops:.1f} TFLOP/s of causal "
+          f"work, {100 * fwd['bound_ms'] / fwd['ms']:.1f}% of its bound "
+          f"({fwd['bound_ms']:.4f} ms); SDPA forward {fwd['library_ms']:.4f} ms", flush=True)
     return out
 
 
@@ -454,13 +469,13 @@ def main() -> int:
           flush=True)
 
     t0 = time.perf_counter()
-    sources = [fa.KERNEL_SOURCE, qk.KERNEL_SOURCE]
+    sources = [*fa.KERNEL_SOURCES, qk.KERNEL_SOURCE]
     cuda_build.build(sources)
     build_s = time.perf_counter() - t0
     print(f"built {', '.join(s + '.cu' for s in sources)} in {build_s:.1f} s", flush=True)
     for source in sources:
         for line in cuda_build.build_log(source).splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers", "spill")):
                 print(f"ptxas {source}: {line.strip()}", flush=True)
 
     kernels = kernel_phase(fa, ITERS)
@@ -483,14 +498,14 @@ def main() -> int:
     main_rows = kernels[MAIN_CASE["name"]]
     quant_rows = quant[f"{MAIN_QUANT['name']} int8"]
     line = {"kernels": [
-        dict(name=f"flash_{name}", route="cuda", source=SOURCE, replaces=REPLACES[name],
-             launches=float_t["launches"][name], **main_rows[name])
-        for name in ("fwd", "dq", "dkv")
-    ] + [
-        dict(name=f"quant_{name}", route="cuda", source=QUANT_SOURCE,
-             replaces=QUANT_REPLACES[name], launches=quant_t["launches"][name],
-             **quant_rows[name])
-        for name in ("quantize", "reduce", "dequantize")
+        dict(name=f"{prefix}_{name}", route="cuda", source=KERNELS[f"{prefix}_{name}"][0],
+             replaces=KERNELS[f"{prefix}_{name}"][1], launches=phase["launches"][name],
+             **rows[name])
+        for prefix, names, phase, rows in (
+            ("flash", ("fwd", "dq", "dkv"), float_t, main_rows),
+            ("quant", ("quantize", "reduce", "dequantize"), quant_t, quant_rows),
+        )
+        for name in names
     ]}
     print(json.dumps(line), flush=True)
     print(card, flush=True)  # nvidia-smi's own line: name, power limit

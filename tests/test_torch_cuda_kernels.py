@@ -48,14 +48,18 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("causal,Sq,Sk,H,KV,D", [
-    (True, 1024, 1024, 32, 8, 128),
-    (False, 500, 900, 8, 8, 64),
-    (True, 130, 130, 4, 1, 64),
+@pytest.mark.parametrize("B,causal,Sq,Sk,H,KV,D", [
+    (1, True, 1024, 1024, 32, 8, 128),
+    (1, False, 500, 900, 8, 8, 64),
+    (1, True, 130, 130, 4, 1, 64),
+    # the forward's 3-D tensor maps: ragged rows zero-filled per head, B > 1
+    (2, True, 1000, 1000, 8, 2, 128),
+    # one 128-row tile, half of it past Sq and Sk
+    (1, False, 64, 64, 1, 1, 128),
 ])
-def test_kernels_match_plain(cuda_device, causal, Sq, Sk, H, KV, D) -> None:
+def test_kernels_match_plain(cuda_device, B, causal, Sq, Sk, H, KV, D) -> None:
     randn = _randn_bf16(torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
-    q, do, k, v = randn(1, H, Sq, D), randn(1, H, Sq, D), randn(1, KV, Sk, D), randn(1, KV, Sk, D)
+    q, do, k, v = randn(B, H, Sq, D), randn(B, H, Sq, D), randn(B, KV, Sk, D), randn(B, KV, Sk, D)
     scale = D ** -0.5
     o_ref, lse_ref = tfa.flash_fwd_plain(q, k, v, scale, causal, 256, 256)
     o, lse = tfa.flash_fwd(q, k, v, scale, causal)
@@ -104,6 +108,25 @@ def test_kernel_wrappers_count_launches_and_refuse_f32(cuda_device) -> None:
     assert tfa.launches["fwd"] == 1
     with pytest.raises(ValueError, match="bfloat16"):
         tfa.flash_fwd(q.float(), k.float(), k.float(), 0.125, True)
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.flash_fwd(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                      k[..., :32].contiguous(), 0.125, True)
+    assert tfa.launches["fwd"] == 1
+
+
+@pytest.mark.cuda
+def test_forward_launches_the_sm90_kernel(cuda_device) -> None:
+    """``flash_fwd`` on a CUDA tensor goes through ``tft_flash_fwd_sm90``
+    (csrc/flash_fwd_sm90.cu), one launch per call, with no fallback."""
+    q = torch.randn(2, 4, 256, 128, device=cuda_device, dtype=torch.bfloat16)
+    k = torch.randn(2, 2, 256, 128, device=cuda_device, dtype=torch.bfloat16)
+    tfa.reset_launches()
+    o, lse = tfa.flash_fwd(q, k, k, 128 ** -0.5, True)
+    torch.cuda.synchronize()
+    assert tfa.launches == {"fwd": 1, "dq": 0, "dkv": 0}
+    assert hasattr(tfa._lib(tfa.FWD_SOURCE), "tft_flash_fwd_sm90")
+    assert not hasattr(tfa._lib(tfa.BWD_SOURCE), "tft_flash_fwd")
+    assert o.shape == q.shape and lse.shape == (2, 4, 256) and torch.isfinite(lse).all()
 
 
 @pytest.mark.cuda

@@ -1,11 +1,11 @@
-// Causal / full GQA flash attention for Hopper (sm_90a): forward, dq, dkv.
+// Causal / full GQA flash attention backward for Hopper (sm_90a): dq, dkv.
 //
-// Replaces the three Pallas TPU kernels of torchft_tpu/ops/flash_attention.py:
-//   fwd  -> _fwd_kernel (launched by _fwd)
+// Replaces two Pallas TPU kernels of torchft_tpu/ops/flash_attention.py:
 //   dq   -> _dq_kernel  (first pallas_call of _bwd)
 //   dkv  -> _dkv_kernel (second pallas_call of _bwd)
+// The forward (_fwd_kernel) is csrc/flash_fwd_sm90.cu.
 //
-// Layout: heads-major and contiguous.  q, o, do, dq are [B, H, Sq, D]; k, v,
+// Layout: heads-major and contiguous.  q, do, dq are [B, H, Sq, D]; k, v,
 // dk, dv are [B, KV, Sk, D]; lse and delta are [B, H, Sq] f32.  q-head h
 // reads kv-head h / (H / KV), so grouped K/V are never repeated.  Inputs are
 // bf16; scores, softmax statistics and every accumulator are f32.
@@ -23,10 +23,10 @@
 // through shared memory between the products and the row-wise softmax.
 //
 // Grid mapping (the TPU's sequential grid axes become in-block loops):
-//   fwd, dq: one block per (q-tile, q-head, batch), looping over k-tiles.
-//   dkv:     one block per (k-tile, kv-head, batch), looping over every
-//            q-head of the GQA group x every q-tile, so the group sum stays
-//            inside the block with no atomics.
+//   dq:  one block per (q-tile, q-head, batch), looping over k-tiles.
+//   dkv: one block per (k-tile, kv-head, batch), looping over every q-head
+//        of the GQA group x every q-tile, so the group sum stays inside the
+//        block with no atomics.
 //
 // Every entry point returns cudaGetLastError() after its launch (0 = ok),
 // or -1 for a head dim this file was not instantiated for.
@@ -61,16 +61,6 @@ constexpr int LD_S = BK + 4;  // f32 score tiles [BQ][BK]
 constexpr int LD_P = BK + 8;  // bf16 probability tiles [BQ][BK]
 
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> AccFrag;
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // rows [row0, row0 + 64) of a contiguous [nrows, D] bf16 matrix into a
 // padded shared tile; rows past the end are zero-filled
@@ -159,92 +149,6 @@ __device__ void warp_acc(float* C, const bf16* P, const bf16* B, int warp) {
 __device__ __forceinline__ float masked_score(float s, float scale, int qrow, int kcol,
                                               int Sk, bool causal) {
   return (kcol >= Sk || (causal && kcol > qrow)) ? NEG_INF : s * scale;
-}
-
-template <int D>
-struct FwdSmem {
-  static constexpr size_t bytes = 3 * 64 * Ld<D>::X * sizeof(bf16)  // q, k, v
-                                  + 64 * LD_S * sizeof(float)        // scores
-                                  + 64 * LD_P * sizeof(bf16)         // probabilities
-                                  + 64 * Ld<D>::ACC * sizeof(float)  // output acc
-                                  + 2 * 64 * sizeof(float);          // m, l
-};
-
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-           const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
-           int H, int KV, int Sq, int Sk, float scale, int causal) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* k_s = q_s + 64 * Ld<D>::X;
-  bf16* v_s = k_s + 64 * Ld<D>::X;
-  float* s_s = reinterpret_cast<float*>(v_s + 64 * Ld<D>::X);
-  bf16* p_s = reinterpret_cast<bf16*>(s_s + 64 * LD_S);
-  float* o_s = reinterpret_cast<float*>(p_s + 64 * LD_P);
-  float* m_s = o_s + 64 * Ld<D>::ACC;
-  float* l_s = m_s + 64;
-
-  // the longest causal rows first: the last q-tiles walk the most k-tiles
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const int q0 = qt * BQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const size_t qoff = ((size_t)b * H + h) * Sq;
-  const size_t koff = ((size_t)b * KV + kvh) * Sk;
-
-  load_tile<D>(q_s, q + qoff * D, q0, Sq);
-  zero_f32(o_s, 64 * Ld<D>::ACC);
-  for (int r = threadIdx.x; r < 64; r += NTHREADS) {
-    m_s[r] = NEG_INF;
-    l_s[r] = 0.f;
-  }
-  // causally dead k-tiles (wholly above the diagonal) are never visited
-  const int k_end = causal ? min(Sk, q0 + BQ) : Sk;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();  // previous tile's readers are done with k_s / v_s
-    load_tile<D>(k_s, k + koff * D, k0, Sk);
-    load_tile<D>(v_s, v + koff * D, k0, Sk);
-    __syncthreads();
-    warp_abT<D>(s_s, q_s, k_s, warp);
-    __syncwarp();
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = warp * 16 + rr;
-      const int qrow = q0 + r;
-      const float s0 = masked_score(s_s[r * LD_S + lane], scale, qrow, k0 + lane, Sk, causal);
-      const float s1 =
-          masked_score(s_s[r * LD_S + lane + 32], scale, qrow, k0 + lane + 32, Sk, causal);
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, warp_max(fmaxf(s0, s1)));
-      const float p0 = expf(s0 - m_new);
-      const float p1 = expf(s1 - m_new);
-      const float row_sum = warp_sum(p0 + p1);
-      const float corr = expf(m_prev - m_new);
-      // p . V takes p rounded to bf16; the denominator sums it in f32
-      p_s[r * LD_P + lane] = __float2bfloat16(p0);
-      p_s[r * LD_P + lane + 32] = __float2bfloat16(p1);
-      for (int c = lane; c < D; c += 32) o_s[r * Ld<D>::ACC + c] *= corr;
-      if (lane == 0) {
-        m_s[r] = m_new;
-        l_s[r] = l_s[r] * corr + row_sum;
-      }
-    }
-    __syncwarp();
-    warp_acc<D, false>(o_s, p_s, v_s, warp);
-  }
-  __syncwarp();
-  for (int rr = 0; rr < 16; ++rr) {
-    const int r = warp * 16 + rr;
-    const int qrow = q0 + r;
-    if (qrow >= Sq) break;
-    const float l = l_s[r];
-    const float denom = l > 0.f ? l : 1.f;  // fully-masked rows guard
-    const float inv = 1.f / denom;
-    bf16* dst = o + (qoff + qrow) * D;
-    for (int c = lane; c < D; c += 32) dst[c] = __float2bfloat16(o_s[r * Ld<D>::ACC + c] * inv);
-    if (lane == 0) lse[qoff + qrow] = m_s[r] + logf(denom);
-  }
 }
 
 template <int D>
@@ -412,20 +316,6 @@ dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* _
 }
 
 template <int D>
-int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H,
-               int KV, int Sq, int Sk, float scale, int causal, cudaStream_t stream) {
-  const int smem = (int)FwdSmem<D>::bytes;
-  cudaError_t err =
-      cudaFuncSetAttribute(fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  fwd_kernel<D><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), static_cast<float*>(lse), H, KV, Sq, Sk, scale, causal);
-  return (int)cudaGetLastError();
-}
-
-template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* lse, const void* dout,
               const void* delta, void* dq, int B, int H, int KV, int Sq, int Sk, float scale,
               int causal, cudaStream_t stream) {
@@ -461,16 +351,6 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* lse, con
 }  // namespace
 
 extern "C" {
-
-int tft_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H,
-                  int KV, int Sq, int Sk, int D, float scale, int causal, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64: return launch_fwd<64>(q, k, v, o, lse, B, H, KV, Sq, Sk, scale, causal, s);
-    case 128: return launch_fwd<128>(q, k, v, o, lse, B, H, KV, Sq, Sk, scale, causal, s);
-    default: return -1;
-  }
-}
 
 int tft_flash_dq(const void* q, const void* k, const void* v, const void* lse, const void* dout,
                  const void* delta, void* dq, int B, int H, int KV, int Sq, int Sk, int D,

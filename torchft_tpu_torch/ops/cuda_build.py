@@ -3,9 +3,10 @@
 Each ``torchft_tpu_torch/csrc/<name>.cu`` has a plain C interface and is
 compiled by ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/torchft_tpu_torch/`` at the repository root, keyed on a hash of the
-source, then loaded with ``ctypes``.  The build happens at first use, never
-at import, so the package imports on hosts without CUDA; sources that need a
-build are compiled in parallel, one ``nvcc`` each.
+source and of the shared ``csrc/*.cuh`` headers, then loaded with
+``ctypes``.  The build happens at first use, never at import, so the
+package imports on hosts without CUDA; sources that need a build are
+compiled in parallel, one ``nvcc`` each.
 """
 
 from __future__ import annotations
@@ -41,7 +42,11 @@ def _nvcc() -> str:
 
 
 def _artifact(name: str) -> Path:
+    """Build path of ``csrc/<name>.cu``, keyed on the source, every
+    ``csrc/*.cuh`` header it may include, and the flags."""
     digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 

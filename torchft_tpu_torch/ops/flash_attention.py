@@ -6,13 +6,14 @@ construction keeps it on chip: online softmax with f32 statistics and
 accumulators, bf16 tensor-core products, the score matrix rebuilt tile by
 tile in the backward from the saved logsumexp.
 
-Three hand-written CUDA kernels in ``csrc/flash_attention.cu`` replace the
-three Pallas TPU kernels:
+Three hand-written CUDA kernels replace the three Pallas TPU kernels:
 
-- ``flash_fwd``  (``_fwd_kernel``): o and lse = m + log l;
-- ``flash_dq``   (``_dq_kernel``):  dq = Σ_k ds·k;
+- ``flash_fwd``  (``_fwd_kernel``): o and lse = m + log l, in
+  ``csrc/flash_fwd_sm90.cu`` (wgmma products, a TMA ring of K/V tiles, the
+  softmax in registers; Hopper helpers in ``csrc/sm90.cuh``);
+- ``flash_dq``   (``_dq_kernel``):  dq = Σ_k ds·k, in ``csrc/flash_attention.cu``;
 - ``flash_dkv``  (``_dkv_kernel``): dv = Σ pᵀ·do, dk = Σ dsᵀ·q, summed over
-  the whole GQA group inside one block.
+  the whole GQA group inside one block, in ``csrc/flash_attention.cu``.
 
 ``delta = rowsum(do·o) − dlse`` stays a plain torch op, as the JAX package
 computes it outside Pallas.  Beside each kernel sits its plain PyTorch
@@ -37,8 +38,10 @@ import torch
 from torchft_tpu_torch.ops import cuda_build
 
 _NEG_INF = -1e30
-KERNEL_SOURCE = "flash_attention"
-KERNEL_HEAD_DIMS = (64, 128)  # head dims the CUDA source instantiates
+FWD_SOURCE = "flash_fwd_sm90"  # csrc/<name>.cu of the forward kernel
+BWD_SOURCE = "flash_attention"  # and of the dq and dkv kernels
+KERNEL_SOURCES = (FWD_SOURCE, BWD_SOURCE)
+KERNEL_HEAD_DIMS = (64, 128)  # head dims the CUDA sources instantiate
 
 # launch counts of each kernel since the last reset_launches()
 launches: Dict[str, int] = {"fwd": 0, "dq": 0, "dkv": 0}
@@ -182,25 +185,30 @@ def flash_dkv_plain(q, k, v, lse, do, delta, sm_scale, causal, block_q, block_k)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+# each source's C entry points and their count of leading pointer arguments
+_ENTRY_POINTS = {
+    FWD_SOURCE: {"tft_flash_fwd_sm90": 5},  # q k v o lse
+    BWD_SOURCE: {"tft_flash_dq": 7, "tft_flash_dkv": 8},  # q k v lse do delta (dq | dk dv)
+}
 _lib_lock = threading.Lock()
-_lib_cache: Optional[ctypes.CDLL] = None
+_libs: Dict[str, ctypes.CDLL] = {}
 
 
-def _lib() -> ctypes.CDLL:
-    global _lib_cache
+def _lib(source: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<source>.cu``, built at first use."""
     with _lib_lock:
-        if _lib_cache is None:
-            lib = cuda_build.load(KERNEL_SOURCE)
+        lib = _libs.get(source)
+        if lib is None:
+            lib = cuda_build.load(source)
             dims = [_I] * 5 + [_I, _F, _I, _P]  # B H KV Sq Sk, D scale causal stream
-            lib.tft_flash_fwd.argtypes = [_P] * 5 + dims
-            lib.tft_flash_dq.argtypes = [_P] * 7 + dims
-            lib.tft_flash_dkv.argtypes = [_P] * 8 + dims
-            for fn in (lib.tft_flash_fwd, lib.tft_flash_dq, lib.tft_flash_dkv):
+            for name, pointers in _ENTRY_POINTS[source].items():
+                fn = getattr(lib, name)
+                fn.argtypes = [_P] * pointers + dims
                 fn.restype = _I
             lib.tft_cuda_error_string.argtypes = [_I]
             lib.tft_cuda_error_string.restype = ctypes.c_char_p
-            _lib_cache = lib
-        return _lib_cache
+            _libs[source] = lib
+        return lib
 
 
 def _check(
@@ -237,7 +245,7 @@ def _check(
 
 def _raise_on(rc: int, name: str, lib: ctypes.CDLL) -> None:
     if rc:
-        msg = "unsupported head dim" if rc < 0 else lib.tft_cuda_error_string(rc).decode()
+        msg = "unsupported head dim" if rc == -1 else lib.tft_cuda_error_string(rc).decode()
         raise RuntimeError(f"flash {name} kernel launch failed ({rc}): {msg}")
 
 
@@ -246,15 +254,16 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def flash_fwd(q, k, v, sm_scale, causal, block_q=64, block_k=64):
-    """Forward kernel: (o, lse [B,H,Sq] f32).  ``block_q/k`` tile only the
-    plain version taken for CPU tensors; the kernel's tiles are its own."""
+    """Forward kernel (wgmma + TMA, ``csrc/flash_fwd_sm90.cu``): (o, lse
+    [B,H,Sq] f32).  ``block_q/k`` tile only the plain version taken for CPU
+    tensors; the kernel's tiles are its own (128 q rows × 128 keys)."""
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, sm_scale, causal, block_q, block_k)
     B, H, KV, Sq, Sk, D = _check(q, k, causal, {"v": (v, tuple(k.shape), torch.bfloat16)})
     o = torch.empty_like(q)
     lse = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
-    lib = _lib()
-    rc = lib.tft_flash_fwd(
+    lib = _lib(FWD_SOURCE)
+    rc = lib.tft_flash_fwd_sm90(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         B, H, KV, Sq, Sk, D, float(sm_scale), int(causal), _stream(q),
     )
@@ -279,7 +288,7 @@ def flash_dq(q, k, v, lse, do, delta, sm_scale, causal, block_q=64, block_k=64):
         return flash_dq_plain(q, k, v, lse, do, delta, sm_scale, causal, block_q, block_k)
     B, H, KV, Sq, Sk, D = _check(q, k, causal, _bwd_operands(q, k, v, lse, do, delta))
     dq = torch.empty_like(q)
-    lib = _lib()
+    lib = _lib(BWD_SOURCE)
     rc = lib.tft_flash_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(), do.data_ptr(),
         delta.data_ptr(), dq.data_ptr(),
@@ -296,7 +305,7 @@ def flash_dkv(q, k, v, lse, do, delta, sm_scale, causal, block_q=64, block_k=64)
         return flash_dkv_plain(q, k, v, lse, do, delta, sm_scale, causal, block_q, block_k)
     B, H, KV, Sq, Sk, D = _check(q, k, causal, _bwd_operands(q, k, v, lse, do, delta))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    lib = _lib()
+    lib = _lib(BWD_SOURCE)
     rc = lib.tft_flash_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(), do.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -402,7 +411,7 @@ def flash_attention(
 
     q: [B, S, H, D]; k/v: [B, Sk, KV, D] with H % KV == 0 (GQA, un-repeated).
     Returns [B, S, H, D].  S must be divisible by the (clamped) block sizes,
-    as in the JAX package; the CUDA kernels tile by 64 regardless."""
+    as in the JAX package; the CUDA kernels use their own tiles regardless."""
     o, _ = flash_attention_lse(
         q, k, v, causal=causal, sm_scale=sm_scale, block_q=block_q, block_k=block_k
     )
