@@ -14,8 +14,9 @@ It builds the port's CUDA kernels from ``torchft_tpu_torch/csrc/`` (one
    three more cases (a non-causal Sq != Sk case with ragged tiles, a GQA
    groups=1 case at D=64, and a causal B=2 case whose S=1000 ends inside a
    tile of every head), and times kernel, plain version and the
-   ``F.scaled_dot_product_attention`` yardstick; prints the forward's
-   achieved TFLOP/s and share of its bound on the main case;
+   ``F.scaled_dot_product_attention`` yardstick; on the main case it checks
+   that two dkv launches give bit-identical dk and dv, and prints the
+   forward's and dkv's achieved TFLOP/s and share of their bounds;
 2. quant kernel phase — holds the rowwise quantize, fused reduce and
    dequantize kernels against their plain versions exactly (payload bytes
    equal, scales and f32 outputs bit-equal), for int8 and fp8, at the main
@@ -69,7 +70,7 @@ KERNELS = {
                   "torchft_tpu/ops/flash_attention.py:48"),
     "flash_dq": ("torchft_tpu_torch/csrc/flash_attention.cu",
                  "torchft_tpu/ops/flash_attention.py:213"),
-    "flash_dkv": ("torchft_tpu_torch/csrc/flash_attention.cu",
+    "flash_dkv": ("torchft_tpu_torch/csrc/flash_dkv_sm90.cu",
                   "torchft_tpu/ops/flash_attention.py:243"),
     "quant_quantize": ("torchft_tpu_torch/csrc/quant.cu", "torchft_tpu/ops/pallas_quant.py:79"),
     "quant_reduce": ("torchft_tpu_torch/csrc/quant.cu", "torchft_tpu/ops/pallas_quant.py:189"),
@@ -195,6 +196,12 @@ def kernel_phase(fa, iters: int) -> dict:
         dk_ref, dv_ref = fa.flash_dkv_plain(q, k, v, lse_ref, do, delta, scale, causal, bq, bk)
         dq = fa.flash_dq(q, k, v, lse_ref, do, delta, scale, causal)
         dk, dv = fa.flash_dkv(q, k, v, lse_ref, do, delta, scale, causal)
+        if case is MAIN_CASE:
+            # the GQA group sum runs in a fixed order, whichever block ends last
+            again = fa.flash_dkv(q, k, v, lse_ref, do, delta, scale, causal)
+            for name, a, b in (("dk", dk, again[0]), ("dv", dv, again[1])):
+                if not torch.equal(a.view(torch.int16), b.view(torch.int16)):
+                    raise AssertionError(f"dkv is not deterministic: two launches differ in {name}")
 
         # the chain training runs: autograd through the kernels' own o and
         # lse (and an lse cotangent) against the plain fwd -> dq/dkv chain
@@ -256,11 +263,18 @@ def kernel_phase(fa, iters: int) -> dict:
                               bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
         out[case["name"]] = rows
         print(f"kernel case {case['name']}: {json.dumps(rows)}", flush=True)
-    fwd = out[MAIN_CASE["name"]]["fwd"]
-    tflops = _work(MAIN_CASE, "fwd")[1] / (fwd["ms"] * 1e-3) / 1e12
-    print(f"flash_fwd on {MAIN_CASE['name']}: {fwd['ms']:.4f} ms, {tflops:.1f} TFLOP/s of causal "
-          f"work, {100 * fwd['bound_ms'] / fwd['ms']:.1f}% of its bound "
-          f"({fwd['bound_ms']:.4f} ms); SDPA forward {fwd['library_ms']:.4f} ms", flush=True)
+    main = out[MAIN_CASE["name"]]
+    for name, yardstick, design in (
+        ("fwd", "SDPA forward", ""),
+        ("dkv", "SDPA whole backward",
+         "; M3: one block per q-head, the last of each GQA group summing it"),
+    ):
+        row = main[name]
+        tflops = _work(MAIN_CASE, name)[1] / (row["ms"] * 1e-3) / 1e12
+        print(f"flash_{name} on {MAIN_CASE['name']}: {row['ms']:.4f} ms, {tflops:.1f} TFLOP/s of "
+              f"causal work, {100 * row['bound_ms'] / row['ms']:.1f}% of its bound "
+              f"({row['bound_ms']:.4f} ms); {yardstick} {row['library_ms']:.4f} ms{design}",
+              flush=True)
     return out
 
 
@@ -475,7 +489,7 @@ def main() -> int:
     print(f"built {', '.join(s + '.cu' for s in sources)} in {build_s:.1f} s", flush=True)
     for source in sources:
         for line in cuda_build.build_log(source).splitlines():
-            if any(w in line for w in ("entry function", "registers", "spill")):
+            if any(w in line for w in ("entry function", "registers", "spill", "Performance")):
                 print(f"ptxas {source}: {line.strip()}", flush=True)
 
     kernels = kernel_phase(fa, ITERS)

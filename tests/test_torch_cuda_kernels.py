@@ -56,6 +56,15 @@ def cuda_device():
     (2, True, 1000, 1000, 8, 2, 128),
     # one 128-row tile, half of it past Sq and Sk
     (1, False, 64, 64, 1, 1, 128),
+    # dk/dv: Sk not a multiple of its 128 keys, Sq not one of its 64 q rows,
+    # every GQA group size (G = 8 is H=32, KV=4), Sq > Sk and Sq < Sk
+    # without the mask, D = 64 at B = 2
+    (1, True, 520, 520, 32, 4, 128),
+    (1, True, 330, 330, 4, 2, 128),
+    (1, False, 900, 500, 16, 8, 128),
+    (1, False, 200, 700, 16, 16, 128),
+    (2, True, 300, 300, 8, 8, 64),
+    (2, False, 450, 260, 16, 2, 64),
 ])
 def test_kernels_match_plain(cuda_device, B, causal, Sq, Sk, H, KV, D) -> None:
     randn = _randn_bf16(torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
@@ -148,6 +157,43 @@ def _bit_equal(got: torch.Tensor, want: torch.Tensor) -> bool:
     return got.shape == want.shape and torch.equal(
         got.contiguous().view(torch.uint8), want.contiguous().view(torch.uint8)
     )
+
+
+def _dkv_inputs(device, B, H, KV, S, D):
+    """Causal dk/dv operands, lse and delta from the forward kernel."""
+    randn = _randn_bf16(torch.Generator(device=device).manual_seed(2), device)
+    q, do, k, v = randn(B, H, S, D), randn(B, H, S, D), randn(B, KV, S, D), randn(B, KV, S, D)
+    scale = D ** -0.5
+    o, lse = tfa.flash_fwd(q, k, v, scale, True)
+    return q, k, v, lse, do, tfa.backward_delta(do, o).contiguous(), scale
+
+
+@pytest.mark.cuda
+def test_dkv_is_deterministic(cuda_device) -> None:
+    """The GQA group sum runs in a fixed order whichever block finishes
+    last: five launches at the Llama-3-8B attention shapes give bit-identical
+    dk and dv."""
+    args = _dkv_inputs(cuda_device, 1, 32, 8, 2048, 128)
+    first = tfa.flash_dkv(*args, True)
+    for _ in range(4):
+        again = tfa.flash_dkv(*args, True)
+        assert _bit_equal(again[0], first[0]) and _bit_equal(again[1], first[1])
+
+
+@pytest.mark.cuda
+def test_dkv_launches_the_sm90_kernel(cuda_device) -> None:
+    """``flash_dkv`` on a CUDA tensor goes through ``tft_flash_dkv_sm90``
+    (csrc/flash_dkv_sm90.cu), one launch per call; the wmma kernel is gone
+    from csrc/flash_attention.cu."""
+    args = _dkv_inputs(cuda_device, 2, 4, 2, 256, 128)
+    tfa.reset_launches()
+    dk, dv = tfa.flash_dkv(*args, True)
+    torch.cuda.synchronize()
+    assert tfa.launches == {"fwd": 0, "dq": 0, "dkv": 1}
+    assert hasattr(tfa._lib(tfa.DKV_SOURCE), "tft_flash_dkv_sm90")
+    assert not hasattr(tfa._lib(tfa.BWD_SOURCE), "tft_flash_dkv")
+    assert dk.shape == dv.shape == (2, 2, 256, 128)
+    assert torch.isfinite(dk.float()).all() and torch.isfinite(dv.float()).all()
 
 
 def _quant_input(gen, n, special, device):

@@ -1,42 +1,37 @@
-// Causal / full GQA flash attention backward for Hopper (sm_90a): dq, dkv.
+// Causal / full GQA flash attention backward for Hopper (sm_90a): dq.
 //
-// Replaces two Pallas TPU kernels of torchft_tpu/ops/flash_attention.py:
-//   dq   -> _dq_kernel  (first pallas_call of _bwd)
-//   dkv  -> _dkv_kernel (second pallas_call of _bwd)
-// The forward (_fwd_kernel) is csrc/flash_fwd_sm90.cu.
+// Replaces the Pallas TPU kernel _dq_kernel of
+// torchft_tpu/ops/flash_attention.py (the first pallas_call of _bwd).  The
+// forward (_fwd_kernel) is csrc/flash_fwd_sm90.cu and dk/dv (_dkv_kernel)
+// csrc/flash_dkv_sm90.cu.
 //
-// Layout: heads-major and contiguous.  q, do, dq are [B, H, Sq, D]; k, v,
-// dk, dv are [B, KV, Sk, D]; lse and delta are [B, H, Sq] f32.  q-head h
-// reads kv-head h / (H / KV), so grouped K/V are never repeated.  Inputs are
+// Layout: heads-major and contiguous.  q, do, dq are [B, H, Sq, D]; k and v
+// are [B, KV, Sk, D]; lse and delta are [B, H, Sq] f32.  q-head h reads
+// kv-head h / (H / KV), so grouped K/V are never repeated.  Inputs are
 // bf16; scores, softmax statistics and every accumulator are f32.
 //
-// What bounds them on an H100: causal GQA attention at the Llama-3-8B
+// What bounds it on an H100: causal GQA attention at the Llama-3-8B
 // shapes (S=2048, H=32, KV=8, D=128) does ~800 FLOPs per byte it must move,
 // well above the ~295 FLOP/byte ridge of bf16, so the bound is operations:
 // the tensor cores' rate.  What the design does about it: one thread block
-// owns a 64-row tile and walks the other operand's 64-row tiles, so the
-// [S, S] score matrix never reaches device memory and every byte loaded to
-// shared memory feeds 64 rows of products; causally dead tiles are skipped.
-// This first version reaches a fraction of the bound: its products run as
-// bf16 wmma 16x16x16 fragments (not wgmma), loads are synchronous (no TMA
-// pipeline), and the score, probability and accumulator tiles round-trip
-// through shared memory between the products and the row-wise softmax.
+// owns a 64-row q-tile and walks the 64-row k-tiles, so the [S, S] score
+// matrix never reaches device memory and every byte loaded to shared memory
+// feeds 64 rows of products; causally dead tiles are skipped.  This first
+// version reaches a fraction of the bound: its products run as bf16 wmma
+// 16x16x16 fragments (not wgmma), loads are synchronous (no TMA pipeline),
+// and the score, probability and accumulator tiles round-trip through
+// shared memory between the products and the row-wise softmax.
 //
-// Grid mapping (the TPU's sequential grid axes become in-block loops):
-//   dq:  one block per (q-tile, q-head, batch), looping over k-tiles.
-//   dkv: one block per (k-tile, kv-head, batch), looping over every q-head
-//        of the GQA group x every q-tile, so the group sum stays inside the
-//        block with no atomics.
+// Grid mapping (the TPU's sequential grid axes become in-block loops): one
+// block per (q-tile, q-head, batch), looping over k-tiles.
 //
-// Every entry point returns cudaGetLastError() after its launch (0 = ok),
-// or -1 for a head dim this file was not instantiated for.
+// tft_flash_dq returns cudaGetLastError() after its launch (0 = ok), or -1
+// for a head dim this file was not instantiated for.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 using namespace nvcuda;
 
@@ -116,19 +111,15 @@ __device__ void warp_abT(float* out, const bf16* A, const bf16* B, int warp) {
   }
 }
 
-// C[16w + i][0..D) += sum_k A(16w + i, k) * B[k][0..D) over k < 64, where
-// A is a bf16 [64][64] tile read row-major (A(m, k) = P[m][k]) or, with
-// TRANSPOSE_A, column-major (A(m, k) = P[k][m]); B is a padded [64][D] tile
-// and C a padded f32 [64][D] accumulator in shared memory
-template <int D, bool TRANSPOSE_A>
+// C[16w + i][0..D) += sum_k P[16w + i][k] * B[k][0..D) over k < 64, where
+// P is a bf16 [64][64] tile, B a padded [64][D] tile and C a padded f32
+// [64][D] accumulator in shared memory
+template <int D>
 __device__ void warp_acc(float* C, const bf16* P, const bf16* B, int warp) {
-  typedef typename std::conditional<TRANSPOSE_A, wmma::col_major, wmma::row_major>::type LayoutA;
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LayoutA> a[4];
+  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[4];
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    const bf16* src = TRANSPOSE_A ? P + kk * 16 * LD_P + warp * 16
-                                  : P + warp * 16 * LD_P + kk * 16;
-    wmma::load_matrix_sync(a[kk], src, LD_P);
+    wmma::load_matrix_sync(a[kk], P + warp * 16 * LD_P + kk * 16, LD_P);
   }
 #pragma unroll
   for (int j = 0; j < D / 16; ++j) {
@@ -214,7 +205,7 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
       }
     }
     __syncwarp();
-    warp_acc<D, false>(dq_s, ds_s, k_s, warp);  // dq += ds . k
+    warp_acc<D>(dq_s, ds_s, k_s, warp);  // dq += ds . k
   }
   __syncwarp();
   for (int rr = 0; rr < 16; ++rr) {
@@ -223,95 +214,6 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __
     if (qrow >= Sq) break;
     bf16* dst = dq + (qoff + qrow) * D;
     for (int c = lane; c < D; c += 32) dst[c] = __float2bfloat16(dq_s[r * Ld<D>::ACC + c]);
-  }
-}
-
-template <int D>
-struct DkvSmem {
-  static constexpr size_t bytes = 4 * 64 * Ld<D>::X * sizeof(bf16)      // k, v, q, do
-                                  + 2 * 64 * LD_S * sizeof(float)        // s, dp
-                                  + 2 * 64 * LD_P * sizeof(bf16)         // p, ds
-                                  + 2 * 64 * Ld<D>::ACC * sizeof(float)  // dk, dv acc
-                                  + 2 * 64 * sizeof(float);              // lse, delta
-};
-
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-           const float* __restrict__ lse, const bf16* __restrict__ dout,
-           const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
-           int H, int KV, int Sq, int Sk, float scale, int causal) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem);
-  bf16* v_s = k_s + 64 * Ld<D>::X;
-  bf16* q_s = v_s + 64 * Ld<D>::X;
-  bf16* do_s = q_s + 64 * Ld<D>::X;
-  float* s_s = reinterpret_cast<float*>(do_s + 64 * Ld<D>::X);
-  float* dp_s = s_s + 64 * LD_S;
-  bf16* p_s = reinterpret_cast<bf16*>(dp_s + 64 * LD_S);
-  bf16* ds_s = p_s + 64 * LD_P;
-  float* dk_s = reinterpret_cast<float*>(ds_s + 64 * LD_P);
-  float* dv_s = dk_s + 64 * Ld<D>::ACC;
-  float* lse_s = dv_s + 64 * Ld<D>::ACC;
-  float* delta_s = lse_s + 64;
-
-  // causal: the first k-tiles are reached by the most q-tiles
-  const int kt = blockIdx.x;
-  const int kvh = blockIdx.y, b = blockIdx.z;
-  const int groups = H / KV;
-  const int k0 = kt * BK;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const size_t koff = ((size_t)b * KV + kvh) * Sk;
-
-  load_tile<D>(k_s, k + koff * D, k0, Sk);
-  load_tile<D>(v_s, v + koff * D, k0, Sk);
-  zero_f32(dk_s, 64 * Ld<D>::ACC);
-  zero_f32(dv_s, 64 * Ld<D>::ACC);
-  // q-tiles wholly above the diagonal see none of this k-tile
-  const int q_begin = causal ? (k0 / BQ) * BQ : 0;
-  for (int g = 0; g < groups; ++g) {
-    const int h = kvh * groups + g;
-    const size_t qoff = ((size_t)b * H + h) * Sq;
-    for (int q0 = q_begin; q0 < Sq; q0 += BQ) {
-      __syncthreads();  // previous iteration's readers are done
-      load_tile<D>(q_s, q + qoff * D, q0, Sq);
-      load_tile<D>(do_s, dout + qoff * D, q0, Sq);
-      load_rows(lse_s, lse + qoff, q0, Sq);
-      load_rows(delta_s, delta + qoff, q0, Sq);
-      __syncthreads();
-      warp_abT<D>(s_s, q_s, k_s, warp);    // rows: this warp's q rows
-      warp_abT<D>(dp_s, do_s, v_s, warp);
-      __syncwarp();
-      for (int rr = 0; rr < 16; ++rr) {
-        const int r = warp * 16 + rr;
-        const int qrow = q0 + r;
-        const bool row_ok = qrow < Sq;
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int c = lane + 32 * half;
-          const float s = masked_score(s_s[r * LD_S + c], scale, qrow, k0 + c, Sk, causal);
-          const float p = row_ok ? expf(s - lse_s[r]) : 0.f;
-          const float ds = p * (dp_s[r * LD_S + c] - delta_s[r]) * scale;
-          p_s[r * LD_P + c] = __float2bfloat16(p);
-          ds_s[r * LD_P + c] = __float2bfloat16(ds);
-        }
-      }
-      __syncthreads();  // every q row of p / ds feeds every k row below
-      warp_acc<D, true>(dv_s, p_s, do_s, warp);  // dv += p^T . do
-      warp_acc<D, true>(dk_s, ds_s, q_s, warp);  // dk += ds^T . q
-    }
-  }
-  __syncwarp();
-  for (int rr = 0; rr < 16; ++rr) {
-    const int r = warp * 16 + rr;
-    const int krow = k0 + r;
-    if (krow >= Sk) break;
-    bf16* dk_dst = dk + (koff + krow) * D;
-    bf16* dv_dst = dv + (koff + krow) * D;
-    for (int c = lane; c < D; c += 32) {
-      dk_dst[c] = __float2bfloat16(dk_s[r * Ld<D>::ACC + c]);
-      dv_dst[c] = __float2bfloat16(dv_s[r * Ld<D>::ACC + c]);
-    }
   }
 }
 
@@ -331,23 +233,6 @@ int launch_dq(const void* q, const void* k, const void* v, const void* lse, cons
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_dkv(const void* q, const void* k, const void* v, const void* lse, const void* dout,
-               const void* delta, void* dk, void* dv, int B, int H, int KV, int Sq, int Sk,
-               float scale, int causal, cudaStream_t stream) {
-  const int smem = (int)DkvSmem<D>::bytes;
-  cudaError_t err =
-      cudaFuncSetAttribute(dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sk + BK - 1) / BK, KV, B);
-  dkv_kernel<D><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const float*>(lse), static_cast<const bf16*>(dout),
-      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, KV,
-      Sq, Sk, scale, causal);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -361,21 +246,6 @@ int tft_flash_dq(const void* q, const void* k, const void* v, const void* lse, c
       return launch_dq<64>(q, k, v, lse, dout, delta, dq, B, H, KV, Sq, Sk, scale, causal, s);
     case 128:
       return launch_dq<128>(q, k, v, lse, dout, delta, dq, B, H, KV, Sq, Sk, scale, causal, s);
-    default: return -1;
-  }
-}
-
-int tft_flash_dkv(const void* q, const void* k, const void* v, const void* lse,
-                  const void* dout, const void* delta, void* dk, void* dv, int B, int H, int KV,
-                  int Sq, int Sk, int D, float scale, int causal, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64:
-      return launch_dkv<64>(q, k, v, lse, dout, delta, dk, dv, B, H, KV, Sq, Sk, scale, causal,
-                            s);
-    case 128:
-      return launch_dkv<128>(q, k, v, lse, dout, delta, dk, dv, B, H, KV, Sq, Sk, scale, causal,
-                             s);
     default: return -1;
   }
 }

@@ -263,55 +263,16 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
   }
 }
 
-// cuTensorMapEncodeTiled, fetched from the driver through the runtime so
-// the library needs no -lcuda
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                              &found);
-#endif
-    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// a 3-D map over a contiguous [heads, rows, D] bf16 tensor with [128][64]
-// boxes swizzled by 128 bytes; zero fill past each head's last row
-bool make_map(EncodeTiled encode, CUtensorMap* map, const void* base, int D, int rows,
-              int heads) {
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)heads};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)rows * D * 2};
-  const cuuint32_t box[3] = {BOX, 128, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H,
                int KV, int Sq, int Sk, float scale, int causal, cudaStream_t stream) {
   if (B == 0 || H == 0 || Sq == 0) return 0;
-  EncodeTiled encode = encode_tiled();
+  sm90::EncodeTiled encode = sm90::encode_tiled();
   if (encode == nullptr) return -3;
   CUtensorMap q_map, k_map, v_map;
-  if (!make_map(encode, &q_map, q, D, Sq, B * H) || !make_map(encode, &k_map, k, D, Sk, B * KV) ||
-      !make_map(encode, &v_map, v, D, Sk, B * KV)) {
+  if (!sm90::make_map(encode, &q_map, q, D, Sq, B * H, BQ) ||
+      !sm90::make_map(encode, &k_map, k, D, Sk, B * KV, BK) ||
+      !sm90::make_map(encode, &v_map, v, D, Sk, B * KV, BK)) {
     return -2;
   }
   const int smem = Smem<D>::bytes;

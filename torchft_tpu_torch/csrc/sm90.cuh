@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's attention kernels:
-// mbarriers, TMA tile loads, wgmma shared-memory descriptors and the
-// wgmma.mma_async products for bf16 inputs with f32 accumulators.
+// mbarriers, TMA tile loads and the host code that encodes their tensor
+// maps, wgmma shared-memory descriptors and the wgmma.mma_async products for
+// bf16 inputs with f32 accumulators.
 //
 // Conventions (PTX ISA, "Asynchronous Warpgroup Level Matrix Instructions"):
 // - A tile loaded by TMA with CU_TENSOR_MAP_SWIZZLE_128B is stored as rows
@@ -120,6 +121,21 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo, uint
          static_cast<uint64_t>(1) << 62;  // layout type 1: 128-byte swizzle
 }
 
+// the descriptor of the same operand ``bytes`` further on (a multiple of
+// 16): shared addresses stay under 256 KB, so the 14-bit start address
+// field does not carry into the strides
+__device__ __forceinline__ uint64_t desc_add(uint64_t desc, uint32_t bytes) {
+  return desc + (bytes >> 4);
+}
+
+// a copy of ``x`` the compiler cannot see through: descriptors derived from
+// it inside a loop are rebuilt there with one add each, instead of being
+// hoisted out of the loop and held in registers the accumulators need
+__device__ __forceinline__ uint64_t opaque(uint64_t x) {
+  asm volatile("" : "+l"(x));
+  return x;
+}
+
 // before the first wgmma, and between ordinary writes of its accumulator or
 // A registers and the wgmma that reads them
 __device__ __forceinline__ void wgmma_fence() {
@@ -226,5 +242,50 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
 #undef SM90_ACC8
 #undef SM90_ACC32
 #undef SM90_ACC64
+
+// ---------------------------------------------------------------------------
+// TMA tensor maps (host)
+// ---------------------------------------------------------------------------
+
+// cuTensorMapEncodeTiled, fetched from the driver through the runtime so
+// the library needs no -lcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a 3-D map over a contiguous [heads, rows, D] bf16 tensor with
+// [box_rows][64] boxes (64 columns: 128 bytes, the swizzle span) swizzled by
+// 128 bytes; zero fill past each head's last row
+inline bool make_map(EncodeTiled encode, CUtensorMap* map, const void* base, int D, int rows,
+                     int heads, int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)rows * D * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
 }  // namespace sm90

@@ -13,7 +13,9 @@ Three hand-written CUDA kernels replace the three Pallas TPU kernels:
   softmax in registers; Hopper helpers in ``csrc/sm90.cuh``);
 - ``flash_dq``   (``_dq_kernel``):  dq = Σ_k ds·k, in ``csrc/flash_attention.cu``;
 - ``flash_dkv``  (``_dkv_kernel``): dv = Σ pᵀ·do, dk = Σ dsᵀ·q, summed over
-  the whole GQA group inside one block, in ``csrc/flash_attention.cu``.
+  the whole GQA group, in ``csrc/flash_dkv_sm90.cu`` (wgmma on transposed
+  scores, a TMA ring of Q/dO tiles, dK and dV in registers; one block per
+  q-head, the group summed in a fixed order by the last block to finish).
 
 ``delta = rowsum(do·o) − dlse`` stays a plain torch op, as the JAX package
 computes it outside Pallas.  Beside each kernel sits its plain PyTorch
@@ -39,8 +41,9 @@ from torchft_tpu_torch.ops import cuda_build
 
 _NEG_INF = -1e30
 FWD_SOURCE = "flash_fwd_sm90"  # csrc/<name>.cu of the forward kernel
-BWD_SOURCE = "flash_attention"  # and of the dq and dkv kernels
-KERNEL_SOURCES = (FWD_SOURCE, BWD_SOURCE)
+BWD_SOURCE = "flash_attention"  # of the dq kernel
+DKV_SOURCE = "flash_dkv_sm90"  # of the dk/dv kernel
+KERNEL_SOURCES = (FWD_SOURCE, BWD_SOURCE, DKV_SOURCE)
 KERNEL_HEAD_DIMS = (64, 128)  # head dims the CUDA sources instantiate
 
 # launch counts of each kernel since the last reset_launches()
@@ -188,7 +191,8 @@ _F = ctypes.c_float
 # each source's C entry points and their count of leading pointer arguments
 _ENTRY_POINTS = {
     FWD_SOURCE: {"tft_flash_fwd_sm90": 5},  # q k v o lse
-    BWD_SOURCE: {"tft_flash_dq": 7, "tft_flash_dkv": 8},  # q k v lse do delta (dq | dk dv)
+    BWD_SOURCE: {"tft_flash_dq": 7},  # q k v lse do delta dq
+    DKV_SOURCE: {"tft_flash_dkv_sm90": 10},  # q k v lse do delta dk dv partial counters
 }
 _lib_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -207,6 +211,9 @@ def _lib(source: str) -> ctypes.CDLL:
                 fn.restype = _I
             lib.tft_cuda_error_string.argtypes = [_I]
             lib.tft_cuda_error_string.restype = ctypes.c_char_p
+            if source == DKV_SOURCE:
+                lib.tft_flash_dkv_sm90_counters.argtypes = [_I] * 3  # B KV Sk
+                lib.tft_flash_dkv_sm90_counters.restype = _I
             _libs[source] = lib
         return lib
 
@@ -300,15 +307,27 @@ def flash_dq(q, k, v, lse, do, delta, sm_scale, causal, block_q=64, block_k=64):
 
 
 def flash_dkv(q, k, v, lse, do, delta, sm_scale, causal, block_q=64, block_k=64):
-    """dkv kernel: (dk, dv) [B,KV,Sk,D]."""
+    """dk/dv kernel (wgmma + TMA, ``csrc/flash_dkv_sm90.cu``): (dk, dv)
+    [B,KV,Sk,D], each kv-head summing its GQA group.  One block per
+    (k-tile, q-head, batch); for G = H / KV > 1 each writes an f32 partial
+    to scratch, and the last block of each group sums them in a fixed
+    order.  ``block_q/k`` tile only the plain version taken for CPU
+    tensors."""
     if q.device.type == "cpu":
         return flash_dkv_plain(q, k, v, lse, do, delta, sm_scale, causal, block_q, block_k)
     B, H, KV, Sq, Sk, D = _check(q, k, causal, _bwd_operands(q, k, v, lse, do, delta))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    lib = _lib(BWD_SOURCE)
-    rc = lib.tft_flash_dkv(
+    lib = _lib(DKV_SOURCE)
+    partial = counters = None
+    if H > KV:
+        partial = torch.empty(2 * B * H * Sk * D, dtype=torch.float32, device=q.device)
+        n_counters = lib.tft_flash_dkv_sm90_counters(B, KV, Sk)
+        counters = torch.zeros(n_counters, dtype=torch.int32, device=q.device)
+    rc = lib.tft_flash_dkv_sm90(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(), do.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        None if partial is None else partial.data_ptr(),
+        None if counters is None else counters.data_ptr(),
         B, H, KV, Sq, Sk, D, float(sm_scale), int(causal), _stream(q),
     )
     _raise_on(rc, "dkv", lib)
