@@ -15,8 +15,9 @@ It builds the port's CUDA kernels from ``torchft_tpu_torch/csrc/`` (one
    groups=1 case at D=64, and a causal B=2 case whose S=1000 ends inside a
    tile of every head), and times kernel, plain version and the
    ``F.scaled_dot_product_attention`` yardstick; on the main case it checks
-   that two dkv launches give bit-identical dk and dv, and prints the
-   forward's and dkv's achieved TFLOP/s and share of their bounds;
+   that two dq launches give bit-identical dq and two dkv launches
+   bit-identical dk and dv, and prints the forward's, dq's and dkv's
+   achieved TFLOP/s and share of their bounds;
 2. quant kernel phase — holds the rowwise quantize, fused reduce and
    dequantize kernels against their plain versions exactly (payload bytes
    equal, scales and f32 outputs bit-equal), for int8 and fp8, at the main
@@ -68,7 +69,7 @@ LAYERS = 2  # Llama-3-8B depth cut from 32 so two replicas fit one card
 KERNELS = {
     "flash_fwd": ("torchft_tpu_torch/csrc/flash_fwd_sm90.cu",
                   "torchft_tpu/ops/flash_attention.py:48"),
-    "flash_dq": ("torchft_tpu_torch/csrc/flash_attention.cu",
+    "flash_dq": ("torchft_tpu_torch/csrc/flash_dq_sm90.cu",
                  "torchft_tpu/ops/flash_attention.py:213"),
     "flash_dkv": ("torchft_tpu_torch/csrc/flash_dkv_sm90.cu",
                   "torchft_tpu/ops/flash_attention.py:243"),
@@ -197,11 +198,13 @@ def kernel_phase(fa, iters: int) -> dict:
         dq = fa.flash_dq(q, k, v, lse_ref, do, delta, scale, causal)
         dk, dv = fa.flash_dkv(q, k, v, lse_ref, do, delta, scale, causal)
         if case is MAIN_CASE:
-            # the GQA group sum runs in a fixed order, whichever block ends last
+            # dq: each block sums its own rows in registers; dkv: the GQA
+            # group sum runs in a fixed order, whichever block ends last
+            dq_again = fa.flash_dq(q, k, v, lse_ref, do, delta, scale, causal)
             again = fa.flash_dkv(q, k, v, lse_ref, do, delta, scale, causal)
-            for name, a, b in (("dk", dk, again[0]), ("dv", dv, again[1])):
+            for name, a, b in (("dq", dq, dq_again), ("dk", dk, again[0]), ("dv", dv, again[1])):
                 if not torch.equal(a.view(torch.int16), b.view(torch.int16)):
-                    raise AssertionError(f"dkv is not deterministic: two launches differ in {name}")
+                    raise AssertionError(f"{name} is not deterministic: two launches differ")
 
         # the chain training runs: autograd through the kernels' own o and
         # lse (and an lse cotangent) against the plain fwd -> dq/dkv chain
@@ -266,6 +269,7 @@ def kernel_phase(fa, iters: int) -> dict:
     main = out[MAIN_CASE["name"]]
     for name, yardstick, design in (
         ("fwd", "SDPA forward", ""),
+        ("dq", "SDPA whole backward", ""),
         ("dkv", "SDPA whole backward",
          "; M3: one block per q-head, the last of each GQA group summing it"),
     ):

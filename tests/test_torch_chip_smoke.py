@@ -50,9 +50,10 @@ def test_the_table_covers_every_source_and_all_six_kernels() -> None:
     sources = {source for source, _ in KERNELS.values()}
     on_disk = {str(p.relative_to(REPO)) for p in (REPO / "torchft_tpu_torch" / "csrc").glob("*.cu")}
     assert sources == on_disk
-    # dk/dv runs on its own Hopper source, dq still on the wmma one
+    # every flash kernel runs on its own Hopper source; the wmma one is gone
     assert KERNELS["flash_dkv"][0] == "torchft_tpu_torch/csrc/flash_dkv_sm90.cu"
-    assert KERNELS["flash_dq"][0] == "torchft_tpu_torch/csrc/flash_attention.cu"
+    assert KERNELS["flash_dq"][0] == "torchft_tpu_torch/csrc/flash_dq_sm90.cu"
+    assert "torchft_tpu_torch/csrc/flash_attention.cu" not in sources
 
 
 @pytest.mark.parametrize("name", sorted(KERNELS))

@@ -134,7 +134,7 @@ def test_forward_launches_the_sm90_kernel(cuda_device) -> None:
     torch.cuda.synchronize()
     assert tfa.launches == {"fwd": 1, "dq": 0, "dkv": 0}
     assert hasattr(tfa._lib(tfa.FWD_SOURCE), "tft_flash_fwd_sm90")
-    assert not hasattr(tfa._lib(tfa.BWD_SOURCE), "tft_flash_fwd")
+    assert not hasattr(tfa._lib(tfa.DQ_SOURCE), "tft_flash_fwd")
     assert o.shape == q.shape and lse.shape == (2, 4, 256) and torch.isfinite(lse).all()
 
 
@@ -159,8 +159,8 @@ def _bit_equal(got: torch.Tensor, want: torch.Tensor) -> bool:
     )
 
 
-def _dkv_inputs(device, B, H, KV, S, D):
-    """Causal dk/dv operands, lse and delta from the forward kernel."""
+def _bwd_inputs(device, B, H, KV, S, D):
+    """Causal backward operands, lse and delta from the forward kernel."""
     randn = _randn_bf16(torch.Generator(device=device).manual_seed(2), device)
     q, do, k, v = randn(B, H, S, D), randn(B, H, S, D), randn(B, KV, S, D), randn(B, KV, S, D)
     scale = D ** -0.5
@@ -173,7 +173,7 @@ def test_dkv_is_deterministic(cuda_device) -> None:
     """The GQA group sum runs in a fixed order whichever block finishes
     last: five launches at the Llama-3-8B attention shapes give bit-identical
     dk and dv."""
-    args = _dkv_inputs(cuda_device, 1, 32, 8, 2048, 128)
+    args = _bwd_inputs(cuda_device, 1, 32, 8, 2048, 128)
     first = tfa.flash_dkv(*args, True)
     for _ in range(4):
         again = tfa.flash_dkv(*args, True)
@@ -183,17 +183,43 @@ def test_dkv_is_deterministic(cuda_device) -> None:
 @pytest.mark.cuda
 def test_dkv_launches_the_sm90_kernel(cuda_device) -> None:
     """``flash_dkv`` on a CUDA tensor goes through ``tft_flash_dkv_sm90``
-    (csrc/flash_dkv_sm90.cu), one launch per call; the wmma kernel is gone
-    from csrc/flash_attention.cu."""
-    args = _dkv_inputs(cuda_device, 2, 4, 2, 256, 128)
+    (csrc/flash_dkv_sm90.cu), one launch per call; the dq source has no
+    dk/dv kernel."""
+    args = _bwd_inputs(cuda_device, 2, 4, 2, 256, 128)
     tfa.reset_launches()
     dk, dv = tfa.flash_dkv(*args, True)
     torch.cuda.synchronize()
     assert tfa.launches == {"fwd": 0, "dq": 0, "dkv": 1}
     assert hasattr(tfa._lib(tfa.DKV_SOURCE), "tft_flash_dkv_sm90")
-    assert not hasattr(tfa._lib(tfa.BWD_SOURCE), "tft_flash_dkv")
+    assert not hasattr(tfa._lib(tfa.DQ_SOURCE), "tft_flash_dkv")
     assert dk.shape == dv.shape == (2, 2, 256, 128)
     assert torch.isfinite(dk.float()).all() and torch.isfinite(dv.float()).all()
+
+
+@pytest.mark.cuda
+def test_dq_is_deterministic(cuda_device) -> None:
+    """Each block sums its own rows' dq over the k-tiles in registers, in a
+    fixed order: five launches at the Llama-3-8B attention shapes give
+    bit-identical dq."""
+    args = _bwd_inputs(cuda_device, 1, 32, 8, 2048, 128)
+    first = tfa.flash_dq(*args, True)
+    for _ in range(4):
+        assert _bit_equal(tfa.flash_dq(*args, True), first)
+
+
+@pytest.mark.cuda
+def test_dq_launches_the_sm90_kernel(cuda_device) -> None:
+    """``flash_dq`` on a CUDA tensor goes through ``tft_flash_dq_sm90``
+    (csrc/flash_dq_sm90.cu), one launch per call; the wmma entry point is
+    gone."""
+    args = _bwd_inputs(cuda_device, 2, 4, 2, 256, 128)
+    tfa.reset_launches()
+    dq = tfa.flash_dq(*args, True)
+    torch.cuda.synchronize()
+    assert tfa.launches == {"fwd": 0, "dq": 1, "dkv": 0}
+    lib = tfa._lib(tfa.DQ_SOURCE)
+    assert hasattr(lib, "tft_flash_dq_sm90") and not hasattr(lib, "tft_flash_dq")
+    assert dq.shape == (2, 4, 256, 128) and torch.isfinite(dq.float()).all()
 
 
 def _quant_input(gen, n, special, device):

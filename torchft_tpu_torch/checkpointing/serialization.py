@@ -38,6 +38,11 @@ import torch
 
 MAGIC = b"TFTC\x01"
 
+# Top-level packages whose classes a JAX-package snapshot's skeleton names
+# (its ``_ArrayPlaceholder`` lives in ``torchft_tpu``).  The skeleton
+# unpickler refuses them by name, before anything is imported.
+_FOREIGN_PACKAGES = ("torchft_tpu", "jax", "jaxlib", "ml_dtypes")
+
 # Target striped-heal chunk size.  Smaller chunks stripe/steal at finer
 # granularity (better load balance, cheaper mid-heal failover) at the cost
 # of more requests/frames; the default keeps per-chunk overhead <1% on
@@ -323,6 +328,21 @@ def _read_exact(stream: BinaryIO, n: int) -> bytes:
     return out
 
 
+class _SkeletonUnpickler(pickle.Unpickler):
+    """Unpickles a skeleton, refusing any class of the JAX package (and of
+    jax, jaxlib, ml_dtypes) without importing it: a snapshot written by
+    ``torchft_tpu`` holds that package's placeholders, and a heal across
+    the two packages is not supported."""
+
+    def find_class(self, module: str, name: str) -> Any:
+        if module.split(".", 1)[0] in _FOREIGN_PACKAGES:
+            raise ValueError(
+                f"checkpoint skeleton names {module}.{name}: the snapshot was written by "
+                "the JAX package (torchft_tpu), and a heal across packages is not supported"
+            )
+        return super().find_class(module, name)
+
+
 def load_pytree(stream: BinaryIO, leaf_hook: Any = None) -> Any:
     """Inverse of :func:`save_pytree`, reading payloads straight into
     preallocated arrays (``readinto``, no intermediate copies).
@@ -336,7 +356,7 @@ def load_pytree(stream: BinaryIO, leaf_hook: Any = None) -> Any:
     if magic != MAGIC:
         raise ValueError(f"bad checkpoint magic {magic!r}")
     (skel_len,) = struct.unpack("<I", _read_exact(stream, 4))
-    skeleton = pickle.loads(_read_exact(stream, skel_len))
+    skeleton = _SkeletonUnpickler(io.BytesIO(_read_exact(stream, skel_len))).load()
     (narrays,) = struct.unpack("<I", _read_exact(stream, 4))
 
     placeholders: List[_ArrayPlaceholder] = [None] * narrays  # type: ignore[list-item]

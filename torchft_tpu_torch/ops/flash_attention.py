@@ -11,7 +11,9 @@ Three hand-written CUDA kernels replace the three Pallas TPU kernels:
 - ``flash_fwd``  (``_fwd_kernel``): o and lse = m + log l, in
   ``csrc/flash_fwd_sm90.cu`` (wgmma products, a TMA ring of K/V tiles, the
   softmax in registers; Hopper helpers in ``csrc/sm90.cuh``);
-- ``flash_dq``   (``_dq_kernel``):  dq = Σ_k ds·k, in ``csrc/flash_attention.cu``;
+- ``flash_dq``   (``_dq_kernel``):  dq = Σ_k ds·k, in ``csrc/flash_dq_sm90.cu``
+  (wgmma products, a TMA ring of K/V tiles, dS packed in registers as the
+  A operand of dQ += dS·K, dQ in registers; no cross-block sum);
 - ``flash_dkv``  (``_dkv_kernel``): dv = Σ pᵀ·do, dk = Σ dsᵀ·q, summed over
   the whole GQA group, in ``csrc/flash_dkv_sm90.cu`` (wgmma on transposed
   scores, a TMA ring of Q/dO tiles, dK and dV in registers; one block per
@@ -41,9 +43,9 @@ from torchft_tpu_torch.ops import cuda_build
 
 _NEG_INF = -1e30
 FWD_SOURCE = "flash_fwd_sm90"  # csrc/<name>.cu of the forward kernel
-BWD_SOURCE = "flash_attention"  # of the dq kernel
+DQ_SOURCE = "flash_dq_sm90"  # of the dq kernel
 DKV_SOURCE = "flash_dkv_sm90"  # of the dk/dv kernel
-KERNEL_SOURCES = (FWD_SOURCE, BWD_SOURCE, DKV_SOURCE)
+KERNEL_SOURCES = (FWD_SOURCE, DQ_SOURCE, DKV_SOURCE)
 KERNEL_HEAD_DIMS = (64, 128)  # head dims the CUDA sources instantiate
 
 # launch counts of each kernel since the last reset_launches()
@@ -191,7 +193,7 @@ _F = ctypes.c_float
 # each source's C entry points and their count of leading pointer arguments
 _ENTRY_POINTS = {
     FWD_SOURCE: {"tft_flash_fwd_sm90": 5},  # q k v o lse
-    BWD_SOURCE: {"tft_flash_dq": 7},  # q k v lse do delta dq
+    DQ_SOURCE: {"tft_flash_dq_sm90": 7},  # q k v lse do delta dq
     DKV_SOURCE: {"tft_flash_dkv_sm90": 10},  # q k v lse do delta dk dv partial counters
 }
 _lib_lock = threading.Lock()
@@ -290,13 +292,16 @@ def _bwd_operands(q, k, v, lse, do, delta):
 
 
 def flash_dq(q, k, v, lse, do, delta, sm_scale, causal, block_q=64, block_k=64):
-    """dq kernel: dq [B,H,Sq,D]."""
+    """dq kernel (wgmma + TMA, ``csrc/flash_dq_sm90.cu``): dq [B,H,Sq,D].
+    One block per (128 q-rows, q-head, batch) sums its rows' dq over the
+    k-tiles in registers.  ``block_q/k`` tile only the plain version taken
+    for CPU tensors."""
     if q.device.type == "cpu":
         return flash_dq_plain(q, k, v, lse, do, delta, sm_scale, causal, block_q, block_k)
     B, H, KV, Sq, Sk, D = _check(q, k, causal, _bwd_operands(q, k, v, lse, do, delta))
     dq = torch.empty_like(q)
-    lib = _lib(BWD_SOURCE)
-    rc = lib.tft_flash_dq(
+    lib = _lib(DQ_SOURCE)
+    rc = lib.tft_flash_dq_sm90(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(), do.data_ptr(),
         delta.data_ptr(), dq.data_ptr(),
         B, H, KV, Sq, Sk, D, float(sm_scale), int(causal), _stream(q),
