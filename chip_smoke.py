@@ -24,8 +24,14 @@ It builds the port's CUDA kernels from ``torchft_tpu_torch/csrc/`` (one
    path's shapes (quantize: the 1,486,901,248 gradients of the train
    phases' model; reduce: one 4 MiB pipeline window, [2, 2048, 1024]; the
    public round trip quantize → dequantize at the same size) and at a
-   ragged case, a w=3 case and a case with NaN, ±inf and zero rows; times
-   kernel, plain version and, for dequantize, one ``torch.mul``;
+   ragged case, a w=3 case, a case with NaN, ±inf and zero rows and a wide
+   case (one 64 MiB window, [2, 32768, 1024]); two reduce launches must be
+   bit-identical; times kernel, plain version and, for dequantize, one
+   ``torch.mul``.  The reduce's ``ms`` is its device time with a cold L2: a
+   CUDA graph of wrapper calls that rotate over copies of the inputs
+   larger than the L2, replayed between CUDA events, so neither the
+   wrapper's host cost nor a warm cache is in it; ``call_ms`` is the time
+   of one eager wrapper call, as the pipeline makes it;
 3. float train phase — the port's main path: two replica groups as threads
    (each its own Manager, TCPCommunicator and HTTPTransport) train Llama at
    Llama-3-8B width cut to 2 layers, bf16, B=1, S=2048, for 5 steps; replica
@@ -74,7 +80,8 @@ KERNELS = {
     "flash_dkv": ("torchft_tpu_torch/csrc/flash_dkv_sm90.cu",
                   "torchft_tpu/ops/flash_attention.py:243"),
     "quant_quantize": ("torchft_tpu_torch/csrc/quant.cu", "torchft_tpu/ops/pallas_quant.py:79"),
-    "quant_reduce": ("torchft_tpu_torch/csrc/quant.cu", "torchft_tpu/ops/pallas_quant.py:189"),
+    "quant_reduce": ("torchft_tpu_torch/csrc/quant_reduce_sm90.cu",
+                     "torchft_tpu/ops/pallas_quant.py:189"),
     "quant_dequantize": ("torchft_tpu_torch/csrc/quant.cu",
                          "torchft_tpu/ops/pallas_quant.py:86"),
 }
@@ -83,14 +90,24 @@ QUANT_ITERS = 100  # timed launches per quant case below the main size
 # reduce of ``w`` contributions of ``rows`` rows.  "main" is the train
 # phases' shapes: every gradient of the 2-layer model, and one 4 MiB window
 # (4096 rows) of the pipeline split over 2 ranks; its last window holds
-# 1040 rows per rank, the "ragged" reduce.
+# 1040 rows per rank, the "ragged" reduce.  "wide" is one window at
+# TORCHFT_QUANT_WINDOW_MB=64, where bytes, not launch latency, set the time.
 MAIN_QUANT = dict(name="main", n=1_486_901_248, w=2, rows=2048, special=False)
 QUANT_CASES = [
     MAIN_QUANT,
     dict(name="ragged", n=1000 * 1024 + 517, w=2, rows=1040, special=False),
     dict(name="w3", n=2048 * 1024 - 1, w=3, rows=2048, special=False),
     dict(name="nan_inf_zero", n=64 * 1024, w=2, rows=64, special=True),
+    dict(name="wide", n=32768 * 1024, w=2, rows=32768, special=False),
 ]
+L2_BYTES = 50e6  # H100 L2 cache
+# The reduce's device time: between two uses of one buffer the rotation
+# touches at least COLD_BYTES, so every launch finds its operands out of
+# the L2; the graph holds REDUCE_GRAPH_LAUNCHES launches (a multiple of the
+# sets) and is replayed REDUCE_GRAPH_REPLAYS times between the events.
+COLD_BYTES = 2 * L2_BYTES
+REDUCE_GRAPH_LAUNCHES = 16
+REDUCE_GRAPH_REPLAYS = 10
 MAIN_CASE = dict(name="llama3_8b", B=1, H=32, KV=8, Sq=2048, Sk=2048, D=128, causal=True)
 CASES = [
     MAIN_CASE,
@@ -329,6 +346,63 @@ def _quant_bound(kernel: str, case) -> tuple:
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def _rotation(w: int, rows: int) -> tuple:
+    """(sets, launches, bytes) of the reduce's cold-L2 timing: ``sets``
+    distinct copies of the inputs ([w, rows, 1024] payload, [w, rows]
+    scales), used in turn by ``launches`` graph launches that each write an
+    output of their own ([rows, 1024] + [rows]); ``bytes`` is what the
+    launches touch between two uses of one input set."""
+    set_bytes = (w + 1) * rows * (1024 + 4)
+    sets = max(2, -(-int(COLD_BYTES) // set_bytes))
+    launches = -(-REDUCE_GRAPH_LAUNCHES // sets) * sets
+    return sets, launches, sets * set_bytes
+
+
+def _reduce_inputs(qk, case, kind: str) -> tuple:
+    """The reduce's w contributions of ``rows`` rows, each quantized from
+    its own seed (the second holds NaN, ±inf and zero rows when
+    ``special``): (qs [w, rows, 1024], scales [w, rows, 1])."""
+    w, rows = case["w"], case["rows"]
+    parts = [qk.quantize_rowwise_plain(
+        _quant_input(rows * 1024, case["special"] and c == 1, 1 + c), kind=kind)
+        for c in range(w)]
+    return torch.stack([p[0][:rows] for p in parts]), torch.stack([p[1][:rows] for p in parts])
+
+
+def _reduce_device_ms(qk, qs, scs, kind: str, want: tuple) -> tuple:
+    """Device ms of one reduce launch with a cold L2, and its rotation
+    (sets, bytes).  The wrapper's calls are captured once in a CUDA graph
+    (their host cost is paid at capture) and the graph is replayed between
+    CUDA events.  Every captured launch's output is held exactly against
+    ``want``, the plain version's."""
+    sets, launches, nbytes = _rotation(qs.shape[0], qs.shape[1])
+    copies = [(qs.clone(), scs.clone()) for _ in range(sets)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # a warm-up off the capture stream
+        qk.reduce_quantized_device(*copies[0], kind=kind)
+    torch.cuda.current_stream().wait_stream(side)
+    graph, outs = torch.cuda.CUDAGraph(), []
+    with torch.cuda.graph(graph):
+        for i in range(launches):
+            outs.append(qk.reduce_quantized_device(*copies[i % sets], kind=kind))
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(REDUCE_GRAPH_REPLAYS):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (REDUCE_GRAPH_REPLAYS * launches)
+    for i, (q, s) in enumerate(outs):
+        _exact(f"graph launch {i} q", q, want[0])
+        _exact(f"graph launch {i} scales", s, want[1])
+    del graph, outs, copies
+    torch.cuda.empty_cache()
+    return ms, sets, nbytes
+
+
 def quant_phase(qk, iters: int) -> dict:
     """Per case and wire kind: each quant kernel held exactly against its
     plain version, with kernel / plain / library ms and the bound.  The
@@ -339,7 +413,7 @@ def quant_phase(qk, iters: int) -> dict:
         big = case is MAIN_QUANT
         reps = iters if big else QUANT_ITERS
         for kind in ("int8", "fp8"):
-            n, w, rows = case["n"], case["w"], case["rows"]
+            n = case["n"]
             x = _quant_input(n, case["special"], 0)
             q, s = qk.quantize_rowwise_device(x, kind=kind)
             q_ref, s_ref = qk.quantize_rowwise_plain(x, kind=kind)
@@ -371,18 +445,18 @@ def quant_phase(qk, iters: int) -> dict:
             }
             del x, q, s
             torch.cuda.empty_cache()
-            parts = [qk.quantize_rowwise_plain(
-                _quant_input(rows * 1024, case["special"] and c == 1, 1 + c), kind=kind)
-                for c in range(w)]
-            qs = torch.stack([p[0][:rows] for p in parts])
-            scs = torch.stack([p[1][:rows] for p in parts])
-            del parts
+            qs, scs = _reduce_inputs(qk, case, kind)
             red = qk.reduce_quantized_device(qs, scs, kind=kind)
+            again = qk.reduce_quantized_device(qs, scs, kind=kind)
             red_ref = qk.reduce_quantized_plain(qs, scs, kind=kind)
-            errs["reduce"] = max(_exact(f"{case['name']} {kind} reduce q", red[0], red_ref[0]),
-                                 _exact(f"{case['name']} {kind} reduce scales", red[1], red_ref[1]))
+            label = f"{case['name']} {kind} reduce"
+            errs["reduce"] = max(_exact(f"{label} q", red[0], red_ref[0]),
+                                 _exact(f"{label} scales", red[1], red_ref[1]))
+            _exact(f"{label}: two launches, q", again[0], red[0])
+            _exact(f"{label}: two launches, scales", again[1], red[1])
+            reduce_ms, sets, rotated = _reduce_device_ms(qk, qs, scs, kind, red_ref)
             timings["reduce"] = (
-                _time_ms(lambda: qk.reduce_quantized_device(qs, scs, kind=kind), QUANT_ITERS),
+                reduce_ms,
                 _time_ms(lambda: qk.reduce_quantized_plain(qs, scs, kind=kind), 10, 2),
                 None,
             )
@@ -392,9 +466,15 @@ def quant_phase(qk, iters: int) -> dict:
                 bound_ms, bound_by = _quant_bound(name, case)
                 rows_out[name] = dict(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
                                       bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+            rows_out["reduce"].update(
+                call_ms=_time_ms(lambda: qk.reduce_quantized_device(qs, scs, kind=kind),
+                                 QUANT_ITERS),
+                rotated_mb=rotated / 1e6, rotated_sets=sets,
+                pct_of_bound=100 * rows_out["reduce"]["bound_ms"] / reduce_ms,
+            )
             out[f"{case['name']} {kind}"] = rows_out
             print(f"quant case {case['name']} {kind}: {json.dumps(rows_out)}", flush=True)
-            del qs, scs, red, red_ref
+            del qs, scs, red, again, red_ref
             torch.cuda.empty_cache()
     return out
 
@@ -487,7 +567,7 @@ def main() -> int:
           flush=True)
 
     t0 = time.perf_counter()
-    sources = [*fa.KERNEL_SOURCES, qk.KERNEL_SOURCE]
+    sources = [*fa.KERNEL_SOURCES, *qk.KERNEL_SOURCES]
     cuda_build.build(sources)
     build_s = time.perf_counter() - t0
     print(f"built {', '.join(s + '.cu' for s in sources)} in {build_s:.1f} s", flush=True)
@@ -515,10 +595,11 @@ def main() -> int:
     # them as often); quant kernels: launches of the quantized phase
     main_rows = kernels[MAIN_CASE["name"]]
     quant_rows = quant[f"{MAIN_QUANT['name']} int8"]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     line = {"kernels": [
         dict(name=f"{prefix}_{name}", route="cuda", source=KERNELS[f"{prefix}_{name}"][0],
              replaces=KERNELS[f"{prefix}_{name}"][1], launches=phase["launches"][name],
-             **rows[name])
+             **{k: rows[name][k] for k in keys})
         for prefix, names, phase, rows in (
             ("flash", ("fwd", "dq", "dkv"), float_t, main_rows),
             ("quant", ("quantize", "reduce", "dequantize"), quant_t, quant_rows),

@@ -10,10 +10,11 @@ Tolerance: bf16 kernels vs their plain versions on the same card, compared
 in f32.  o, dq, dk and dv: elementwise 5e-3 absolute + 2e-2 relative (the
 two sum in different orders, so their bf16 outputs may differ by one ulp,
 2^-7 relative) and normwise relative error at most 1e-2.  lse is f32 on
-both sides: 1e-3 absolute.  The quantize, reduce and dequantize kernels
-run the same single IEEE operations in the same order as their plain
-versions, so they are held exactly: payload bytes equal, scales and f32
-outputs bit-equal (NaN included).
+both sides: 1e-3 absolute.  The quantize and dequantize kernels run the
+same single IEEE operations in the same order as their plain versions, and
+the reduce computes the same correctly rounded results by cheaper
+operations where they provably agree, so all three are held exactly:
+payload bytes equal, scales and f32 outputs bit-equal (NaN included).
 """
 
 import pytest
@@ -267,3 +268,102 @@ def test_quant_wrappers_refuse_what_the_kernels_do_not_take(cuda_device) -> None
     q, s = tq.quantize_rowwise_device(torch.zeros(10, device=cuda_device))
     with pytest.raises(ValueError, match="int8"):
         tq.reduce_quantized_device(q[None].view(torch.uint8), s[None], kind="int8")
+    tq.reset_launches()
+    with pytest.raises(ValueError, match="w=0"):
+        tq.reduce_quantized_device(q[None][:0], s[None][:0], kind="int8")
+    # a payload one byte into its buffer: the bulk copies need 16-byte alignment
+    buf = torch.zeros(2 * 32 * 1024 + 1, dtype=torch.int8, device=cuda_device)
+    misaligned = buf[1:].view(2, 32, 1024)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tq.reduce_quantized_device(misaligned, torch.ones(2, 32, 1, device=cuda_device))
+    assert tq.launches["reduce"] == 0
+
+
+def _reduce_operands(gen, w, rows, kind, special, device):
+    """w contributions of ``rows`` rows, each quantized by the plain
+    version from its own data.  ``special``: rows 0, 1, 2 (mod 4) hold a
+    NaN, a +inf and a -inf in one contribution each, and rows 3 (mod 4) are
+    zero in every contribution, so their sum is zero."""
+    qs, scs = [], []
+    for c in range(w):
+        x = torch.randn(rows, 1024, generator=gen, device=device)
+        x *= torch.logspace(-3, 3, 1024, device=device)
+        if special:
+            r = torch.arange(rows, device=device)
+            x[r[r % 4 == 0], (7 * c) % 1024] = float("nan") if c == w // 2 else 1.0
+            x[r[r % 4 == 1], 100 + c] = float("inf") if c == 0 else -2.0
+            x[r[r % 4 == 2], 513] = float("-inf") if c == w - 1 else 3.0
+            x[r[r % 4 == 3]] = 0.0
+        q, s = tq.quantize_rowwise_plain(x.reshape(-1), kind=kind)
+        qs.append(q[:rows])
+        scs.append(s[:rows])
+    return torch.stack(qs), torch.stack(scs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+@pytest.mark.parametrize("special", [False, True], ids=["finite", "nan-inf-zero"])
+@pytest.mark.parametrize("rows", [1, 7, 33, 1040, 2048])
+# 17 contributions go round the ring of (at most 4) stages more than once
+@pytest.mark.parametrize("w", [1, 2, 3, 8, 17])
+def test_reduce_kernel_matches_plain(cuda_device, kind, special, rows, w) -> None:
+    """The bulk-copy reduce equals its plain version bit for bit at every
+    ring depth, on whole and cut tiles of 8 rows (rows % 4 != 0 too, where
+    the scales cannot be bulk-copied), and two launches are bit-identical."""
+    gen = torch.Generator(device=cuda_device).manual_seed(w * 10_000 + rows)
+    qs, scs = _reduce_operands(gen, w, rows, kind, special, cuda_device)
+    tq.reset_launches()
+    got = tq.reduce_quantized_device(qs, scs, kind=kind)
+    again = tq.reduce_quantized_device(qs, scs.reshape(w, rows), kind=kind)
+    want = tq.reduce_quantized_plain(qs, scs, kind=kind)
+    torch.cuda.synchronize()
+    assert _bit_equal(got[0], want[0]) and _bit_equal(got[1], want[1])
+    assert _bit_equal(again[0], got[0]) and _bit_equal(again[1], got[1])
+    assert tq.launches == {"quantize": 0, "reduce": 2, "dequantize": 0}
+
+
+def _tie_operands(kind, rows, device):
+    """Two contributions whose sums lie exactly on the wire's rounding
+    boundaries: the row's absmax makes its scale 1, so each quotient is the
+    sum itself.  int8: b0 + b1/2, half-integers (rounded half to even);
+    e4m3: a + h, h half the spacing of a's binade, midpoints between two
+    e4m3 values."""
+    gen = torch.Generator().manual_seed(11)
+    if kind == "int8":
+        a = torch.randint(-63, 64, (rows, 1024), generator=gen).float()
+        h = torch.randint(-127, 128, (rows, 1024), generator=gen).float()
+        a[:, 0], h[:, 0] = 127.0, 0.0
+        scales = torch.tensor([1.0, 0.5])
+    else:
+        exp = torch.randint(-5, 8, (rows, 1024), generator=gen).float()
+        mant = torch.randint(0, 7, (rows, 1024), generator=gen).float()  # 7: the next binade
+        sign = torch.randint(0, 2, (rows, 1024), generator=gen).float() * 2 - 1
+        a = sign * (1 + mant / 8) * 2.0 ** exp
+        h = sign * 2.0 ** (exp - 4)
+        a[:, 0], h[:, 0] = 448.0, 0.0
+        scales = torch.tensor([1.0, 1.0])
+    dtype = torch.int8 if kind == "int8" else torch.float8_e4m3fn
+    qs = torch.stack([a, h]).to(dtype).to(device)
+    assert torch.equal(qs.float().cpu(), torch.stack([a, h]))  # every value on the wire
+    return qs, scales.reshape(2, 1, 1).expand(2, rows, 1).contiguous().to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+def test_reduce_kernel_rounds_ties_as_the_division_does(cuda_device, kind) -> None:
+    """Every quotient on a rounding boundary: the kernel's product path
+    must hand each of them to the division and round half to even."""
+    qs, scs = _tie_operands(kind, 64, cuda_device)
+    got = tq.reduce_quantized_device(qs, scs, kind=kind)
+    want = tq.reduce_quantized_plain(qs, scs, kind=kind)
+    torch.cuda.synchronize()
+    assert torch.equal(want[1].cpu(), torch.ones(64, 1))  # scale 1: the quotients are the sums
+    assert _bit_equal(got[0], want[0]) and _bit_equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_reduce_launches_the_sm90_kernel(cuda_device) -> None:
+    """The reduce runs csrc/quant_reduce_sm90.cu; the old kernel is gone
+    from csrc/quant.cu."""
+    assert hasattr(tq._lib(tq.REDUCE_SOURCE), "tft_reduce_quantized_sm90")
+    assert not hasattr(tq._lib(tq.KERNEL_SOURCE), "tft_reduce_quantized")

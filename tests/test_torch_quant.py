@@ -178,7 +178,7 @@ def test_plain_quantize_matches_jax(numpy_jax_wire, kind, n, special) -> None:
 
 
 @pytest.mark.parametrize("kind", KINDS)
-@pytest.mark.parametrize("w", [2, 3])
+@pytest.mark.parametrize("w", [1, 2, 3, 8])
 @pytest.mark.parametrize("special", [False, True], ids=["finite", "nan-inf-zero"])
 def test_plain_reduce_matches_jax(numpy_jax_wire, kind, w, special) -> None:
     contribs = [_data(20 + i, 32 * 1024, special and i == 0) for i in range(w)]
@@ -222,3 +222,5 @@ def test_wrappers_validate_and_count_nothing_on_the_cpu() -> None:
         tops.dequantize_rowwise_device(q.float(), s, 100)
     with pytest.raises(ValueError, match="do not match"):
         tops.reduce_quantized_device(q[None], torch.zeros(3))
+    with pytest.raises(ValueError, match="w=0"):
+        tops.reduce_quantized_device(q[None][:0], s[None][:0])

@@ -1,9 +1,9 @@
-// Rowwise int8 / fp8 quantize, fused reduce and dequantize for Hopper (sm_90a).
+// Rowwise int8 / fp8 quantize and dequantize for Hopper (sm_90a).
 //
-// Replaces the three Pallas TPU kernels of torchft_tpu/ops/pallas_quant.py:
+// Replaces two of the three Pallas TPU kernels of torchft_tpu/ops/pallas_quant.py:
 //   quantize   -> _quant_kernel   (launched by _pallas_quantize)
-//   reduce     -> _reduce_kernel  (launched by _pallas_reduce)
 //   dequantize -> _dequant_kernel (launched by _pallas_dequant)
+// The third, the fused reduce (_reduce_kernel), is csrc/quant_reduce_sm90.cu.
 //
 // Layout: a flat f32 buffer of n elements is viewed as rows of ROW = 1024;
 // the payload is [rows, 1024] bytes (int8, or float8_e4m3fn bit patterns)
@@ -21,89 +21,23 @@
 // is a warp-shuffle reduction with no shared memory and no block barrier,
 // and the payload is written once.  Eight rows (warps) per block.
 //
-// Bit-identity with the host wire (torchft_tpu_torch/quantization.py):
-//   - products and sums use __fmul_rn / __fadd_rn, so nvcc never contracts
-//     them into a fused multiply-add; contributions are summed onto +0 in
-//     ascending w, as numpy's sum does (so a sum of -0 products is +0);
-//   - scale = absmax / Q and q = x / safe are IEEE divisions (__fdiv_rn),
-//     never a multiply by a reciprocal;
-//   - int8 rounds half to even (rintf), fp8 converts with saturating
-//     round to nearest even after the clip to +-448;
-//   - absmax keeps NaN (numpy's max does; fmaxf would drop it), an int8
-//     NaN becomes 0 (numpy's cast on x86), an fp8 NaN keeps its sign bit;
-//   - an all-zero row gets scale 0 and q 0 (safe = 1).
+// The wire arithmetic, and what keeps it bit-identical with the host wire,
+// is csrc/quant.cuh.
 //
 // Every entry point returns cudaGetLastError() after its launch (0 = ok),
 // or -1 for an unknown wire kind or a bad size.
 
-#include <cuda_fp16.h>
-#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "quant.cuh"
+
 namespace {
 
-constexpr int ROW = 1024;
+using namespace tftq;
+
 constexpr int WARPS = 8;  // rows per block: warp i of the block owns one row
 constexpr int THREADS = WARPS * 32;
-constexpr int VEC = 4;                   // consecutive elements per lane per step
-constexpr int STEPS = ROW / (32 * VEC);  // 8: lane l holds [128 s + 4 l, +4) for each step s
-constexpr int KIND_INT8 = 0;
-constexpr int KIND_FP8 = 1;
-
-__device__ __forceinline__ float nan_max(float a, float b) { return (a != a || a > b) ? a : b; }
-
-__device__ __forceinline__ float warp_absmax(float m) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) m = nan_max(m, __shfl_xor_sync(0xffffffffu, m, off));
-  return m;
-}
-
-template <int KIND>
-__device__ __forceinline__ uint32_t encode(float v) {
-  if (KIND == KIND_INT8) {
-    if (v != v) return 0u;
-    v = fminf(fmaxf(rintf(v), -127.f), 127.f);
-    return static_cast<uint32_t>(static_cast<uint8_t>(static_cast<int8_t>(static_cast<int>(v))));
-  } else {
-    if (v != v) return signbit(v) ? 0xffu : 0x7fu;
-    v = fminf(fmaxf(v, -448.f), 448.f);
-    return static_cast<uint32_t>(__nv_cvt_float_to_fp8(v, __NV_SATFINITE, __NV_E4M3));
-  }
-}
-
-template <int KIND>
-__device__ __forceinline__ float decode(uint32_t byte) {
-  if (KIND == KIND_INT8) {
-    return static_cast<float>(static_cast<int8_t>(static_cast<uint8_t>(byte)));
-  } else {
-    __half_raw h = __nv_cvt_fp8_to_halfraw(static_cast<__nv_fp8_storage_t>(byte), __NV_E4M3);
-    return __half2float(__half(h));
-  }
-}
-
-// Requantize one row held in registers (v[s][k] is element 128 s + 4 lane + k)
-// and store its payload and scale.
-template <int KIND>
-__device__ __forceinline__ void store_row(float (&v)[STEPS][VEC], uint8_t* __restrict__ q_row,
-                                          float* __restrict__ scale_out, int lane) {
-  float m = 0.f;
-#pragma unroll
-  for (int s = 0; s < STEPS; ++s)
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) m = nan_max(m, fabsf(v[s][k]));
-  m = warp_absmax(m);
-  const float scale = __fdiv_rn(m, KIND == KIND_INT8 ? 127.f : 448.f);
-  const float safe = scale > 0.f ? scale : 1.f;
-#pragma unroll
-  for (int s = 0; s < STEPS; ++s) {
-    uint32_t packed = 0;
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) packed |= encode<KIND>(__fdiv_rn(v[s][k], safe)) << (8 * k);
-    *reinterpret_cast<uint32_t*>(q_row + s * 128 + lane * VEC) = packed;
-  }
-  if (lane == 0) *scale_out = scale;
-}
 
 template <int KIND>
 __global__ void __launch_bounds__(THREADS)
@@ -129,35 +63,6 @@ __global__ void __launch_bounds__(THREADS)
     }
   }
   store_row<KIND>(v, q + base, scales + row, lane);
-}
-
-template <int KIND>
-__global__ void __launch_bounds__(THREADS)
-    reduce_kernel(const uint8_t* __restrict__ qs, const float* __restrict__ scales,
-                  uint8_t* __restrict__ q, float* __restrict__ out_scales, int w, int64_t rows) {
-  const int lane = threadIdx.x & 31;
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * WARPS + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  float t[STEPS][VEC];
-#pragma unroll
-  for (int s = 0; s < STEPS; ++s)
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) t[s][k] = 0.f;
-  for (int c = 0; c < w; ++c) {
-    const int64_t src = static_cast<int64_t>(c) * rows + row;
-    const float s_c = __ldg(scales + src);
-    const uint8_t* q_row = qs + src * ROW;
-#pragma unroll
-    for (int s = 0; s < STEPS; ++s) {
-      const uint32_t packed = __ldg(reinterpret_cast<const uint32_t*>(q_row + s * 128 + lane * VEC));
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) {
-        const float p = __fmul_rn(decode<KIND>((packed >> (8 * k)) & 0xffu), s_c);
-        t[s][k] = __fadd_rn(t[s][k], p);
-      }
-    }
-  }
-  store_row<KIND>(t, q + row * ROW, out_scales + row, lane);
 }
 
 template <int KIND>
@@ -205,26 +110,6 @@ int tft_quantize_rowwise(const void* x, void* q, void* scales, long long n, long
     quantize_kernel<KIND_INT8><<<blocks_for(rows), THREADS, 0, st>>>(xp, qp, sp, n, rows);
   } else if (kind == KIND_FP8) {
     quantize_kernel<KIND_FP8><<<blocks_for(rows), THREADS, 0, st>>>(xp, qp, sp, n, rows);
-  } else {
-    return -1;
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// qs [w, rows, 1024], scales f32 [w, rows] -> q [rows, 1024], out_scales f32 [rows].
-int tft_reduce_quantized(const void* qs, const void* scales, void* q, void* out_scales, int w,
-                         long long rows, int kind, void* stream) {
-  if (w < 1 || rows < 0) return -1;
-  if (rows == 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const uint8_t* qsp = static_cast<const uint8_t*>(qs);
-  const float* sp = static_cast<const float*>(scales);
-  uint8_t* qp = static_cast<uint8_t*>(q);
-  float* op = static_cast<float*>(out_scales);
-  if (kind == KIND_INT8) {
-    reduce_kernel<KIND_INT8><<<blocks_for(rows), THREADS, 0, st>>>(qsp, sp, qp, op, w, rows);
-  } else if (kind == KIND_FP8) {
-    reduce_kernel<KIND_FP8><<<blocks_for(rows), THREADS, 0, st>>>(qsp, sp, qp, op, w, rows);
   } else {
     return -1;
   }

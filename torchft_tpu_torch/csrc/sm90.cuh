@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks shared by the port's attention kernels:
-// mbarriers, TMA tile loads and the host code that encodes their tensor
-// maps, wgmma shared-memory descriptors and the wgmma.mma_async products for
-// bf16 inputs with f32 accumulators.
+// Hopper (sm_90a) building blocks shared by the port's attention kernels
+// and its quantized reduce: mbarriers, TMA tile loads and 1-D bulk copies,
+// the host code that encodes the tile loads' tensor maps, wgmma
+// shared-memory descriptors and the wgmma.mma_async products for bf16
+// inputs with f32 accumulators.
 //
 // Conventions (PTX ISA, "Asynchronous Warpgroup Level Matrix Instructions"):
 // - A tile loaded by TMA with CU_TENSOR_MAP_SWIZZLE_128B is stored as rows
@@ -100,6 +101,19 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Copy ``bytes`` contiguous bytes of global memory at ``src`` into shared
+// memory at ``dst`` with one bulk copy (no tensor map); its bytes complete a
+// transaction count on ``bar``.  Both addresses 16-byte aligned, ``bytes`` a
+// multiple of 16.
+__device__ __forceinline__ void bulk_load_1d(void* dst, const void* src, uint32_t bytes,
+                                             uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
 

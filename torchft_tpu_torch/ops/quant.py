@@ -3,8 +3,10 @@
 The port of ``torchft_tpu/ops/pallas_quant.py``.  Gradients are quantized
 on the card before they leave device memory, so the host (and then the
 wire) moves a 1-byte payload plus f32 rowwise scales — a quarter of the f32
-bytes.  Three hand-written CUDA kernels in ``csrc/quant.cu`` replace the
-three Pallas TPU kernels:
+bytes.  Three hand-written CUDA kernels replace the three Pallas TPU
+kernels, quantize and dequantize in ``csrc/quant.cu``, the reduce in
+``csrc/quant_reduce_sm90.cu`` (a ring of bulk copies), all on the wire
+arithmetic of ``csrc/quant.cuh``:
 
 - ``quantize_rowwise_device``   (``_quant_kernel``):  f32 [n] → payload
   [rows, 1024] + scales [rows, 1];
@@ -36,7 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -49,7 +51,9 @@ INT8 = "int8"
 FP8 = "fp8"
 FP8_MAX = 448.0  # float8_e4m3fn max magnitude
 
-KERNEL_SOURCE = "quant"
+KERNEL_SOURCE = "quant"  # quantize, dequantize
+REDUCE_SOURCE = "quant_reduce_sm90"
+KERNEL_SOURCES = (KERNEL_SOURCE, REDUCE_SOURCE)
 _KIND_CODE = {INT8: 0, FP8: 1}
 
 # launch counts of each kernel since the last reset_launches()
@@ -153,24 +157,31 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _lib_lock = threading.Lock()
-_lib_cache: Optional[ctypes.CDLL] = None
+_lib_cache: Dict[str, ctypes.CDLL] = {}
+# per source: its entry points with their argument types, and its
+# error-string export
+_ENTRIES = {
+    KERNEL_SOURCE: ((("tft_quantize_rowwise", [_P, _P, _P, _L, _L, _I, _P]),
+                     ("tft_dequantize_rowwise", [_P, _P, _P, _L, _I, _P])),
+                    "tft_quant_error_string"),
+    REDUCE_SOURCE: ((("tft_reduce_quantized_sm90", [_P, _P, _P, _P, _I, _L, _I, _P]),),
+                    "tft_quant_reduce_error_string"),
+}
 
 
-def _lib() -> ctypes.CDLL:
-    global _lib_cache
+def _lib(source: str) -> ctypes.CDLL:
     with _lib_lock:
-        if _lib_cache is None:
-            lib = cuda_build.load(KERNEL_SOURCE)
-            lib.tft_quantize_rowwise.argtypes = [_P, _P, _P, _L, _L, _I, _P]
-            lib.tft_reduce_quantized.argtypes = [_P, _P, _P, _P, _I, _L, _I, _P]
-            lib.tft_dequantize_rowwise.argtypes = [_P, _P, _P, _L, _I, _P]
-            for fn in (lib.tft_quantize_rowwise, lib.tft_reduce_quantized,
-                       lib.tft_dequantize_rowwise):
-                fn.restype = _I
-            lib.tft_quant_error_string.argtypes = [_I]
-            lib.tft_quant_error_string.restype = ctypes.c_char_p
-            _lib_cache = lib
-        return _lib_cache
+        lib = _lib_cache.get(source)
+        if lib is None:
+            lib = cuda_build.load(source)
+            entries, error_string = _ENTRIES[source]
+            for name, argtypes in entries:
+                fn = getattr(lib, name)
+                fn.argtypes, fn.restype = argtypes, _I
+            lib.error_string = getattr(lib, error_string)
+            lib.error_string.argtypes, lib.error_string.restype = [_I], ctypes.c_char_p
+            _lib_cache[source] = lib
+        return lib
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, device: torch.device) -> None:
@@ -184,7 +195,7 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, device: torch.device)
 
 def _raise_on(rc: int, name: str, lib: ctypes.CDLL) -> None:
     if rc:
-        msg = "bad argument" if rc < 0 else lib.tft_quant_error_string(rc).decode()
+        msg = "bad argument" if rc < 0 else lib.error_string(rc).decode()
         raise RuntimeError(f"quant {name} kernel launch failed ({rc}): {msg}")
 
 
@@ -209,7 +220,7 @@ def quantize_rowwise_device(
     rows = padded_rows(n)
     q = torch.empty(rows, ROW_SIZE, dtype=_wire_dtype(kind), device=flat.device)
     scales = torch.empty(rows, 1, dtype=torch.float32, device=flat.device)
-    lib = _lib()
+    lib = _lib(KERNEL_SOURCE)
     rc = lib.tft_quantize_rowwise(
         flat.data_ptr(), q.data_ptr(), scales.data_ptr(), n, rows, _KIND_CODE[kind],
         _stream(flat),
@@ -228,6 +239,8 @@ def reduce_quantized_device(
     if qs.dim() != 3:
         raise ValueError(f"qs must be [w, rows, row_size], got {tuple(qs.shape)}")
     w, rows, row_size = qs.shape
+    if w < 1:
+        raise ValueError("reduce_quantized_device needs at least one contribution, got w=0")
     if scales.numel() != w * rows:
         raise ValueError(f"scales {tuple(scales.shape)} do not match qs {tuple(qs.shape)}")
     if qs.device.type == "cpu":
@@ -238,8 +251,8 @@ def reduce_quantized_device(
     _check("scales", scales, torch.float32, qs.device)
     q = torch.empty(rows, ROW_SIZE, dtype=qs.dtype, device=qs.device)
     out_scales = torch.empty(rows, 1, dtype=torch.float32, device=qs.device)
-    lib = _lib()
-    rc = lib.tft_reduce_quantized(
+    lib = _lib(REDUCE_SOURCE)
+    rc = lib.tft_reduce_quantized_sm90(
         qs.data_ptr(), scales.data_ptr(), q.data_ptr(), out_scales.data_ptr(), w, rows,
         _KIND_CODE[kind], _stream(qs),
     )
@@ -263,7 +276,7 @@ def dequantize_rowwise_device(q: torch.Tensor, scales: torch.Tensor, n: int) -> 
     _check("q", q, q.dtype, q.device)
     _check("scales", scales, torch.float32, q.device)
     out = torch.empty(n, dtype=torch.float32, device=q.device)
-    lib = _lib()
+    lib = _lib(KERNEL_SOURCE)
     rc = lib.tft_dequantize_rowwise(
         q.data_ptr(), scales.data_ptr(), out.data_ptr(), n, _KIND_CODE[kind], _stream(q),
     )
