@@ -32,19 +32,31 @@ It builds the port's CUDA kernels from ``torchft_tpu_torch/csrc/`` (one
    larger than the L2, replayed between CUDA events, so neither the
    wrapper's host cost nor a warm cache is in it; ``call_ms`` is the time
    of one eager wrapper call, as the pipeline makes it;
-3. float train phase — the port's main path: two replica groups as threads
-   (each its own Manager, TCPCommunicator and HTTPTransport) train Llama at
-   Llama-3-8B width cut to 2 layers, bf16, B=1, S=2048, for 5 steps; replica
-   1 is killed before step 2, restarts and heals from replica 0.  Every loss
-   must be finite, both replicas must end at the same step with equal
-   parameter hashes, and every flash kernel must have launched;
-4. quantized train phase — the same fleet with ``should_quantize=True``
-   (int8 wire): gradients quantized on the card, the windowed quantized
-   pipeline with its per-window reduce on the card.  The same checks, and
-   the quantize and reduce kernels must have launched.
+3. native hand-off check — builds the port's C++ runtime
+   (``torchft_tpu_torch/csrc/native/``, g++, timed) and checks that a pinned
+   host tensor, bf16 included, reaches it as a view of its own memory and
+   that a tensor on the card is refused;
+4. float train phases — the port's main path: two replica groups as threads
+   (each its own Manager, manager sidecar, communicator and HTTPTransport)
+   train Llama at Llama-3-8B width cut to 2 layers, bf16, B=1, S=2048, for 5
+   steps; replica 1 is killed before step 2, restarts and heals from
+   replica 0.  The fleet runs once with every plane on the C++ tier
+   (``tier="cpp"``, named, never resolved: a failed native build fails the
+   run) and once on the Python tier.  Every loss must be finite, both
+   replicas must end at the same step with equal parameter hashes, every
+   replica must have run the named tier's lighthouse, sidecar and
+   communicator, and every flash kernel must have launched;
+5. quantized train phases — the same two fleets with
+   ``should_quantize=True`` (int8 wire): gradients quantized on the card,
+   the windowed quantized pipeline with its per-window reduce on the card.
+   The same checks, and the quantize and reduce kernels must have launched.
 
-Any failure raises, so the exit code is non-zero.  The last line of
-standard output is ``{"ok": true, "device": {...}}``.
+Per sync, the C++ tier's parameter hash must equal the Python tier's.  The
+train phases run with ``obs.spans`` on; each prints the ``commit`` split
+(seconds per steady step in ``manager::quorum_rpc``, ``comm::op``,
+``manager::fence`` and ``manager::should_commit``) and the heal's seconds
+and bytes.  Any failure raises, so the exit code is non-zero.  The last line
+of standard output is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -69,6 +81,24 @@ PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 ITERS = 10  # timed launches per kernel (plain versions: 2)
 STEPS = 5  # train steps; replica 1 is killed before step 2
+# (results key, should_quantize, tier) of each train phase, in run order;
+# the kernels line takes its launches from the C++ tier's phases
+TRAIN_PHASES = (
+    ("train_cpp", False, "cpp"),
+    ("train_python", False, "python"),
+    ("train_quantized_cpp", True, "cpp"),
+    ("train_quantized_python", True, "python"),
+)
+PLANES = {
+    "cpp": dict(lighthouse="CppLighthouseServer", manager_server="CppManagerServer",
+                communicator="CppCommunicator"),
+    "python": dict(lighthouse="LighthouseServer", manager_server="ManagerServer",
+                   communicator="TCPCommunicator"),
+}
+# the spans that split ``commit``: the quorum RPC, each collective on the
+# communicator's op thread, the vote's fence on the pending works, the vote
+SPLIT_SPANS = ("manager::quorum_rpc", "comm::op", "manager::fence", "manager::should_commit")
+SPAN_CAP = 200_000  # the quantized phase records ~1,400 comm ops a step
 LAYERS = 2  # Llama-3-8B depth cut from 32 so two replicas fit one card
 # Every kernel of the main path: its CUDA source, and the ``def`` of the
 # Pallas TPU kernel it replaces (file:line in the JAX package).
@@ -479,10 +509,62 @@ def quant_phase(qk, iters: int) -> dict:
     return out
 
 
-def train_phase(train_ddp, fa, qk, card: str, should_quantize: bool) -> dict:
+def commit_split(spans, windows, replicas: int) -> list:
+    """Per iteration window ``(start, end)``: the seconds in each of
+    :data:`SPLIT_SPANS` that started inside it, summed over the fleet and
+    divided by ``replicas`` (the per-replica mean: the spans carry no
+    replica, and the replicas step in lockstep)."""
+    out = []
+    for start, end in windows:
+        row = dict.fromkeys(SPLIT_SPANS, 0.0)
+        for rec in spans:
+            if rec["name"] in row and start <= rec["t"] < end:
+                row[rec["name"]] += rec["dur"] / replicas
+        out.append(row)
+    return out
+
+
+def check_cross_tier(results: dict) -> dict:
+    """Per sync, the C++ tier's parameter sha256 must equal the Python
+    tier's; returns {sync: {tier: sha256}}."""
+    hashes: dict = {}
+    for key, quantized, tier in TRAIN_PHASES:
+        sync = "quantized" if quantized else "float"
+        hashes.setdefault(sync, {})[tier] = results[key]["params_sha256"]
+    for sync, by_tier in hashes.items():
+        if len(set(by_tier.values())) != 1:
+            raise AssertionError(f"{sync} sync: the tiers end with different parameters {by_tier}")
+    return hashes
+
+
+def native_phase(native) -> dict:
+    """Build the C++ runtime (timed) and check the hand-off of host
+    tensors: a pinned tensor, bf16 included, reaches it as a view of its own
+    memory, and a tensor on the card is refused."""
+    t0 = time.perf_counter()
+    path = native.build()
+    build_s = time.perf_counter() - t0
+    if not native.available():
+        raise AssertionError(f"the native runtime does not load: {native._lib_error}")
+    for dtype in (torch.float32, torch.bfloat16):
+        host = torch.empty(1 << 20, dtype=dtype, pin_memory=True)
+        view = native.as_host_array(host)
+        if view.ctypes.data != host.data_ptr() or view.nbytes != host.nbytes:
+            raise AssertionError(f"a pinned {dtype} tensor was copied on its way to the C++ tier")
+    try:
+        native.as_host_array(torch.empty(4, device="cuda"))
+    except native.CommunicatorError:
+        pass
+    else:
+        raise AssertionError("the C++ tier took a tensor on the card")
+    return dict(library=str(path), build_s=build_s)
+
+
+def train_phase(train_ddp, fa, qk, spans, card: str, should_quantize: bool, tier: str) -> dict:
     """The port's main path: 2 replica threads at Llama-3-8B width with a
     kill and heal, averaging gradients in f32/bf16 or through the int8
-    quantized wire; the launch counts cover exactly this run."""
+    quantized wire, every plane on ``tier``; the launch counts and the
+    spans cover exactly this run."""
     steps, layers = STEPS, LAYERS
     cfg = train_ddp.model_config("llama3_8b", layers)
     device = torch.device("cuda")
@@ -491,15 +573,17 @@ def train_phase(train_ddp, fa, qk, card: str, should_quantize: bool) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    spans.clear()
     fa.reset_launches()
     qk.reset_launches()
     t0 = time.perf_counter()
     results = train_ddp.run_fleet(
         cfg, device, replicas=2, steps=steps, batch=1, seq=2048, kill_at=(1, 2),
-        should_quantize=should_quantize,
+        should_quantize=should_quantize, tier=tier,
     )
     wall_s = time.perf_counter() - t0
     launches = {**fa.launches, **qk.launches}
+    split = commit_split(spans.snapshot(), results[0].step_windows, len(results))
     for i, r in enumerate(results):
         if not all(math.isfinite(x) for x in r.losses):
             raise AssertionError(f"replica {i}: non-finite loss in {r.losses}")
@@ -507,6 +591,12 @@ def train_phase(train_ddp, fa, qk, card: str, should_quantize: bool) -> dict:
             raise AssertionError(f"replica {i} ended at step {r.final_step}, not {steps}")
     if results[1].restarts != 1:
         raise AssertionError(f"replica 1 restarted {results[1].restarts} times, expected 1")
+    for i, r in enumerate(results):
+        if r.planes != PLANES[tier]:
+            raise AssertionError(f"replica {i} ran {r.planes}, not the {tier} tier")
+    heal = results[1].heal
+    if heal is None or heal.bytes_total <= 0:
+        raise AssertionError("replica 1 restarted but recorded no heal")
     shas = {r.params_sha256 for r in results}
     if len(shas) != 1:
         raise AssertionError(f"replicas diverged: parameter sha256 {shas}")
@@ -523,8 +613,11 @@ def train_phase(train_ddp, fa, qk, card: str, should_quantize: bool) -> dict:
         name: sorted(p[name] for p in last)[len(last) // 2]
         for name in ("compute", "allreduce", "commit")
     }
+    steady_split = split[-3:]
     return dict(
         card=card,
+        tier=tier,
+        planes=results[0].planes,
         sync="quantized int8" if should_quantize else "float (bf16 and f32 buckets)",
         model="llama3_8b width, %d layers, bf16" % layers,
         params=sum(t.numel() for t in results[0].state.values()),
@@ -537,6 +630,13 @@ def train_phase(train_ddp, fa, qk, card: str, should_quantize: bool) -> dict:
         step_ms_median_last3=step_s * 1e3,
         phase_ms_median_last3={k: v * 1e3 for k, v in phases.items()},
         phase_s_replica0=results[0].phase_s,
+        # seconds per replica in each span, per iteration of replica 0
+        commit_split_s=split,
+        commit_split_ms_median_last3={
+            name: sorted(row[name] for row in steady_split)[len(steady_split) // 2] * 1e3
+            for name in SPLIT_SPANS
+        },
+        heal=dict(seconds=heal.duration_s, bytes=heal.bytes_total, sources=heal.num_sources),
         tokens_per_s_per_replica=2048 / step_s,
         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
         wall_s=wall_s,
@@ -553,7 +653,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     # the port itself; in a directory without it this import fails
-    from torchft_tpu_torch import train_ddp
+    from torchft_tpu_torch import native, train_ddp
+    from torchft_tpu_torch.obs import spans
     from torchft_tpu_torch.ops import cuda_build
     from torchft_tpu_torch.ops import flash_attention as fa
     from torchft_tpu_torch.ops import quant as qk
@@ -578,15 +679,27 @@ def main() -> int:
 
     kernels = kernel_phase(fa, ITERS)
     quant = quant_phase(qk, ITERS)
-    results = {"card": card, "build_s": build_s, "kernels": kernels, "quant": quant}
-    for key, quantized in (("train", False), ("train_quantized", True)):
-        results[key] = train_phase(train_ddp, fa, qk, card, quantized)
+    handoff = native_phase(native)
+    print(f"native runtime: built {handoff['library']} in {handoff['build_s']:.1f} s (g++); "
+          "pinned f32/bf16 tensors hand off as views, a tensor on the card is refused",
+          flush=True)
+    results = {"card": card, "build_s": build_s, "native": handoff, "kernels": kernels,
+               "quant": quant}
+    spans.configure(True, cap=SPAN_CAP)
+    for key, quantized, tier in TRAIN_PHASES:
+        results[key] = train_phase(train_ddp, fa, qk, spans, card, quantized, tier)
         print(f"{key}: {json.dumps(results[key])}", flush=True)
-    float_t, quant_t = results["train"], results["train_quantized"]
-    print("step ms (median of the last 3): float %.1f, quantized %.1f; phases float %s, "
-          "quantized %s" % (float_t["step_ms_median_last3"], quant_t["step_ms_median_last3"],
-                            json.dumps(float_t["phase_ms_median_last3"]),
-                            json.dumps(quant_t["phase_ms_median_last3"])), flush=True)
+        t = results[key]
+        print(f"{key} ({tier} tier, {t['sync']}): step {t['step_ms_median_last3']:.1f} ms, "
+              f"phases {json.dumps(t['phase_ms_median_last3'])}, commit split (ms per replica) "
+              f"{json.dumps(t['commit_split_ms_median_last3'])}; heal {t['heal']['seconds']:.3f} s "
+              f"for {t['heal']['bytes']} bytes; wall {t['wall_s']:.1f} s", flush=True)
+    spans.configure(False)
+    hashes = check_cross_tier(results)
+    for sync, by_tier in hashes.items():
+        print(f"{sync} sync parameter sha256: cpp {by_tier['cpp']}, python {by_tier['python']} "
+              "(equal)", flush=True)
+    float_t, quant_t = results["train_cpp"], results["train_quantized_cpp"]
     if args.out:
         with open(args.out, "w") as f:
             json.dump(results, f, indent=1)

@@ -112,3 +112,56 @@ def test_source_exists_and_replaces_points_at_a_pallas_kernel_def(name) -> None:
     assert kernel in _pallas_kernel_names(tree), f"{kernel} is not handed to a pallas_call"
     # the port's name and the TPU kernel's name agree: fwd -> _fwd_kernel
     assert kernel.removeprefix("_").removesuffix("_kernel") in name.replace("quantize", "quant")
+
+
+def test_four_train_phases_name_their_tier(chip_smoke) -> None:
+    """Float and quantized, each on the C++ tier and on the Python tier;
+    every phase names its tier (never ``auto``, which falls back quietly)."""
+    phases = [(q, t) for _, q, t in chip_smoke.TRAIN_PHASES]
+    assert sorted(phases) == [(False, "cpp"), (False, "python"), (True, "cpp"), (True, "python")]
+    assert len({key for key, _, _ in chip_smoke.TRAIN_PHASES}) == 4
+    assert chip_smoke.PLANES["cpp"] == dict(
+        lighthouse="CppLighthouseServer", manager_server="CppManagerServer",
+        communicator="CppCommunicator")
+    assert chip_smoke.PLANES["python"] == dict(
+        lighthouse="LighthouseServer", manager_server="ManagerServer",
+        communicator="TCPCommunicator")
+    source = (REPO / "chip_smoke.py").read_text()
+    assert "tier=tier" in source and '"auto"' not in source
+
+
+@pytest.mark.parametrize("name", [
+    "manager::quorum_rpc", "comm::op", "manager::fence", "manager::should_commit"])
+def test_split_reads_spans_that_the_port_records(chip_smoke, name) -> None:
+    """Each span of the ``commit`` split is one the port records (and the
+    JAX package too: the split adds no span of its own)."""
+    assert name in chip_smoke.SPLIT_SPANS
+    needle = f'obs_span("{name}"'
+    assert needle in "".join(
+        p.read_text() for p in (REPO / "torchft_tpu_torch").rglob("*.py"))
+    assert needle in "".join(p.read_text() for p in (REPO / "torchft_tpu").rglob("*.py"))
+
+
+def test_commit_split_sums_each_window_per_replica(chip_smoke) -> None:
+    spans = [
+        {"name": "comm::op", "t": 1.0, "dur": 0.4},
+        {"name": "comm::op", "t": 1.5, "dur": 0.2},
+        {"name": "manager::fence", "t": 1.9, "dur": 1.0},
+        {"name": "manager::should_commit", "t": 2.5, "dur": 0.1},
+        {"name": "comm::rendezvous", "t": 1.1, "dur": 5.0},  # not in the split
+    ]
+    rows = chip_smoke.commit_split(spans, [(1.0, 2.0), (2.0, 3.0)], replicas=2)
+    assert rows[0] == pytest.approx({"manager::quorum_rpc": 0.0, "comm::op": 0.3,
+                                     "manager::fence": 0.5, "manager::should_commit": 0.0})
+    assert rows[1] == pytest.approx({"manager::quorum_rpc": 0.0, "comm::op": 0.0,
+                                     "manager::fence": 0.0, "manager::should_commit": 0.05})
+
+
+def test_cross_tier_hash_check(chip_smoke) -> None:
+    results = {key: {"params_sha256": ("q" if quantized else "f")}
+               for key, quantized, _ in chip_smoke.TRAIN_PHASES}
+    assert chip_smoke.check_cross_tier(results) == {
+        "float": {"cpp": "f", "python": "f"}, "quantized": {"cpp": "q", "python": "q"}}
+    results["train_quantized_python"] = {"params_sha256": "other"}
+    with pytest.raises(AssertionError, match="quantized sync"):
+        chip_smoke.check_cross_tier(results)

@@ -146,3 +146,62 @@ def test_train_ddp_refuses_to_run_without_cuda_unless_asked() -> None:
 
     with pytest.raises(RuntimeError, match="--device cpu"):
         train_ddp.main(["--model", "llama_debug", "--steps", "1"])
+
+
+def test_cpp_tier_loads_the_ports_own_library_even_with_the_jax_knob_set() -> None:
+    """After a C++-tier allreduce in a fresh interpreter that cannot import
+    the JAX package, with ``TORCHFT_NATIVE_DIR`` pointing at the JAX
+    package's ``native/``: the one native library mapped into the process is
+    the port's, under ``build/torchft_tpu_torch/``, built from
+    ``torchft_tpu_torch/csrc/native/``, and ``torchft_tpu`` is absent from
+    ``sys.modules``."""
+    script = textwrap.dedent(
+        f"""
+        import sys
+        for name in {list(FORBIDDEN)!r}:
+            sys.modules[name] = None  # any import of it now raises
+        sys.path.insert(0, {str(REPO)!r})
+        from concurrent.futures import ThreadPoolExecutor
+        import numpy as np
+        from torchft_tpu_torch import native
+
+        store = native.CppStoreServer("127.0.0.1:0")
+
+        def rank(r):
+            comm = native.CppCommunicator(timeout_s=20.0)
+            comm.configure(f"127.0.0.1:{{store.port}}/iso", replica_id=f"r{{r}}", rank=r,
+                           world_size=2)
+            try:
+                return comm.allreduce(np.full(8, r + 1.0, np.float32)).wait(timeout=20.0)
+            finally:
+                comm.shutdown()
+
+        with ThreadPoolExecutor(2) as pool:
+            outs = list(pool.map(rank, range(2)))
+        store.shutdown()
+        assert all(o.tolist() == [3.0] * 8 for o in outs), outs
+        with open("/proc/self/maps") as f:
+            libs = {{line.split()[-1] for line in f if "libtpuft" in line}}
+        print("LIBS", sorted(libs))
+        print("SOURCE", native.SOURCE_DIR)
+        print("ARTIFACT", native._artifact())
+        print("JAX_LOADED", sorted(m for m in sys.modules
+                                   if m.split(".")[0] == "torchft_tpu"
+                                   and sys.modules[m] is not None))
+        """
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["TORCHFT_NATIVE_DIR"] = str(REPO / "native")
+    proc = subprocess.run(
+        [sys.executable, "-c", script], capture_output=True, text=True, timeout=300, env=env,
+        cwd=str(REPO),
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    lines = dict(line.split(" ", 1) for line in proc.stdout.splitlines() if " " in line)
+    libs = ast.literal_eval(lines["LIBS"])
+    artifact = Path(lines["ARTIFACT"])
+    assert libs == [str(artifact)], libs
+    assert artifact.parent == REPO / "build" / "torchft_tpu_torch"
+    assert artifact.name.startswith("libtpuft_torch-")
+    assert Path(lines["SOURCE"]) == PKG / "csrc" / "native"
+    assert ast.literal_eval(lines["JAX_LOADED"]) == []

@@ -1,6 +1,7 @@
 """The port's train loop (torchft_tpu_torch/train_ddp.py) end to end on the
 CPU at ``llama_debug`` size: replica groups as threads of one process, each
-with its own Manager, TCPCommunicator and HTTPTransport.
+with its own Manager, manager sidecar, communicator and HTTPTransport, on
+the tier ``tier.py`` resolves (the C++ tier wherever it builds).
 
 - A healthy 2-replica run ends with equal parameter hashes.
 - A recovery run (replica 1 killed before step 2, restarted, healed from

@@ -322,9 +322,12 @@ class HTTPTransport(CheckpointTransport[T]):
         (e.g. a ``copy_`` into the healing replica's live tensor) maps
         each leaf on arrival so its host copy dies immediately."""
         base = f"{metadata}/checkpoint/{step}"
+        t0 = time.monotonic()
         if self._num_chunks == 0:
             with urlopen(f"{base}/full", timeout=timeout) as resp:
-                return load_pytree(resp, leaf_hook=leaf_hook)  # type: ignore[return-value]
+                state = load_pytree(resp, leaf_hook=leaf_hook)
+                self._single_source_metrics(step, metadata, int(resp.headers["X-Total-Len"]), t0)
+                return state  # type: ignore[return-value]
 
         # chunked mode: parallel range fetches landing in one preallocated
         # buffer (no per-chunk bytes objects, no join copy)
@@ -364,7 +367,20 @@ class HTTPTransport(CheckpointTransport[T]):
             raise errors[0]
         if not all(done):
             raise TimeoutError("chunked checkpoint fetch timed out")
-        return load_pytree(_ViewReader(view), leaf_hook=leaf_hook)  # type: ignore[return-value]
+        state = load_pytree(_ViewReader(view), leaf_hook=leaf_hook)
+        self._single_source_metrics(step, metadata, total_len, t0)
+        return state  # type: ignore[return-value]
+
+    def _single_source_metrics(self, step: int, source: str, nbytes: int, t0: float) -> None:
+        """``last_heal_metrics`` of a heal from one source (the striped
+        path fills its own)."""
+        self.last_heal_metrics = HealMetrics(
+            step=step,
+            num_sources=1,
+            bytes_total=nbytes,
+            duration_s=time.monotonic() - t0,
+            per_source_bytes={source: nbytes},
+        )
 
     def recv_checkpoint_striped(
         self,

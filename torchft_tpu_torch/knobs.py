@@ -79,8 +79,6 @@ _k("TORCHFT_WATCHDOG_TIMEOUT_SEC", "float", "0 (off)",
    "Futures watchdog: log+dump stacks when an op exceeds this bound")
 _k("TORCHFT_TIER", "str", "auto",
    "Control-plane tier: cpp | python | auto (cpp when the native build loads)")
-_k("TORCHFT_NATIVE_DIR", "str", "<repo>/native",
-   "Directory holding the native tier build (libtpuft.so)")
 # --- hierarchical coordination plane (wire v4) ------------------------------
 _k("TORCHFT_AGG_ADDR", "str", "unset",
    "Zone aggregator address (host:port) this manager routes heartbeats through; unset = beat the lighthouse directly")

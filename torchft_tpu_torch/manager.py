@@ -22,8 +22,8 @@ fenced by the ddp composite work, so the reference's stream/event
 choreography collapses to thread joins (the ``_quorum_future``) and a plain
 recovery event.  bf16 buckets arrive as their bit pattern (``bf16.py``)
 and are divided as the JAX package divides ml_dtypes bf16.  The sharded
-outer sync and the native tier land in later slices of the port; their
-entry points raise ``NotImplementedError``.
+outer sync lands in a later slice of the port; its entry point raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -164,11 +164,14 @@ class Manager:
 
         self._timeout = _env_timeout(TIMEOUT_SEC_ENV, timeout)
         if comm is None:
-            # the Python TCP tier: the native (cpp) tier binding lands in a
-            # later slice of the port
-            from torchft_tpu_torch.communicator import TCPCommunicator
+            # tier-dispatched default: the native (cpp) mesh whenever the
+            # library loads and the topology permits, else the Python tier
+            # — so the train loop and the heal drain ride the production
+            # data plane without every caller wiring
+            # tier.make_communicator themselves
+            from torchft_tpu_torch import tier as tier_mod
 
-            comm = TCPCommunicator(timeout_s=self._timeout)
+            comm = tier_mod.make_communicator(timeout_s=self._timeout)
         self._comm = comm
         # attach the recorder to the data plane: epoch configure/abort/
         # poison and lane recovery record into the same per-replica ring
@@ -351,9 +354,9 @@ class Manager:
             if lighthouse_addr is None:
                 lighthouse_addr = os.environ[LIGHTHOUSE_ENV]
             bind_port = port or int(os.environ.get(MANAGER_PORT_ENV, 0))
-            # server_cls lets deployments swap in another sidecar with the
-            # same construction surface (the port's C++ sidecar binding
-            # lands with the native tier, in a later slice)
+            # server_cls lets deployments swap in the C++ sidecar
+            # (torchft_tpu_torch.native.CppManagerServer) — same construction
+            # surface
             from torchft_tpu_torch.wire import ROLE_ACTIVE, ROLE_SPARE
 
             self._manager_server = (server_cls or ManagerServer)(

@@ -6,7 +6,10 @@ ordinary torch train loop where fault tolerance is two extra verbs —
 step runs ``start_quorum``, forward and backward (flash attention on the
 CUDA kernels), the replica-dim gradient average over the host TCP ring, and
 an AdamW step gated by ``should_commit``; a restarted replica heals from a
-peer's live weights.  Run one process per replica group::
+peer's live weights.  The lighthouse, the manager sidecar and the ring run
+on the C++ tier wherever the port's native library builds, else on the
+Python tier (``TORCHFT_TIER=cpp|python|auto``, see :mod:`.tier`).  Run one
+process per replica group::
 
     python -m torchft_tpu_torch.lighthouse --min_replicas 1 --bind 0.0.0.0:29510 &
     TORCHFT_LIGHTHOUSE=localhost:29510 REPLICA_GROUP_ID=0 \\
@@ -37,7 +40,14 @@ import torch
 from torchft_tpu_torch.ddp import allreduce_gradients
 from torchft_tpu_torch.manager import Manager
 from torchft_tpu_torch.models.llama import Llama, LlamaConfig, llama3_8b, llama_debug
+from torchft_tpu_torch.observability import HealMetrics
 from torchft_tpu_torch.optim import OptimizerWrapper
+from torchft_tpu_torch.tier import (
+    default_tier,
+    make_communicator,
+    make_lighthouse,
+    manager_server_cls,
+)
 
 logger = logging.getLogger("train_ddp")
 
@@ -179,6 +189,14 @@ class ReplicaResult:
     phase_s: List[Dict[str, float]]
     # the final ``model.state_dict()`` (references, not copies)
     state: dict
+    # (start, end) ``time.monotonic()`` of each train-loop iteration of the
+    # last incarnation, the clock of ``obs.spans``
+    step_windows: List[Tuple[float, float]]
+    # class names of the planes the last incarnation ran on:
+    # "lighthouse", "manager_server", "communicator"
+    planes: Dict[str, str]
+    # the last incarnation's heal, if it healed (bytes and seconds)
+    heal: Optional[HealMetrics]
 
 
 def run_fleet(
@@ -195,24 +213,26 @@ def run_fleet(
     init_state: Optional[dict] = None,
     timeout: float = 300.0,
     should_quantize: bool = False,
+    tier: Optional[str] = None,
 ) -> List[ReplicaResult]:
     """Train ``replicas`` replica groups as threads of this process, each
-    with its own Manager, TCPCommunicator and HTTPTransport, against an
-    in-process lighthouse that needs every replica for a quorum.
-    ``kill_at=(replica, step)`` kills that replica once before that step;
-    it restarts with a fresh model and heals from a live peer.
-    ``init_state`` (a ``state_dict``) replaces the seeded init;
-    ``should_quantize`` is passed to :func:`train_loop`."""
-    from torchft_tpu_torch.communicator import TCPCommunicator
-    from torchft_tpu_torch.lighthouse import LighthouseServer
-
-    lighthouse = LighthouseServer(
+    with its own Manager, manager sidecar, communicator and HTTPTransport,
+    against an in-process lighthouse that needs every replica for a quorum.
+    ``tier`` ("cpp" or "python") names the tier of all three planes; None
+    resolves it as :mod:`.tier` does (``TORCHFT_TIER``, else cpp wherever
+    the native library builds).  ``kill_at=(replica, step)`` kills that
+    replica once before that step; it restarts with a fresh model and heals
+    from a live peer.  ``init_state`` (a ``state_dict``) replaces the seeded
+    init; ``should_quantize`` is passed to :func:`train_loop`."""
+    lighthouse = make_lighthouse(
         bind="127.0.0.1:0",
         min_replicas=replicas,
         join_timeout_ms=100,
         quorum_tick_ms=20,
         heartbeat_timeout_ms=5_000,
+        tier=tier,
     )
+    server_cls = manager_server_cls(tier)
     kill_lock = threading.Lock()
     pending_kill = [kill_at]
 
@@ -225,7 +245,7 @@ def run_fleet(
                 model.load_state_dict(init_state)
             save, load = state_fns(model, inner)
             manager = Manager(
-                comm=TCPCommunicator(timeout_s=timeout),
+                comm=make_communicator(timeout_s=timeout, tier=tier),
                 load_state_dict=load,
                 state_dict=save,
                 min_replica_size=replicas,
@@ -234,13 +254,16 @@ def run_fleet(
                 timeout=timeout,
                 quorum_timeout=timeout,
                 connect_timeout=timeout,
+                server_cls=server_cls,
             )
             marks: List[float] = []
+            mono: List[float] = []
             phases: List[Dict[str, float]] = []
             fence = _fence(device)
 
             def _hook(step: int) -> None:
                 marks.append(fence())
+                mono.append(time.monotonic())
                 with kill_lock:
                     if pending_kill[0] == (idx, step):
                         pending_kill[0] = None
@@ -265,6 +288,7 @@ def run_fleet(
                 gc.collect()
                 continue
             marks.append(fence())
+            mono.append(time.monotonic())
             result = ReplicaResult(
                 losses=losses,
                 final_step=manager.current_step(),
@@ -273,6 +297,13 @@ def run_fleet(
                 step_s=np.diff(marks).tolist(),
                 phase_s=phases,
                 state=model.state_dict(),
+                step_windows=list(zip(mono[:-1], mono[1:])),
+                planes={
+                    "lighthouse": type(lighthouse).__name__,
+                    "manager_server": type(manager._manager_server).__name__,
+                    "communicator": type(manager._comm).__name__,
+                },
+                heal=getattr(manager._checkpoint_transport, "last_heal_metrics", None),
             )
             manager.shutdown()
             return result
@@ -312,11 +343,16 @@ def main(argv: Optional[List[str]] = None) -> None:
     cfg = model_config(args.model, args.layers)
     model, inner = build(cfg, device, args.seed, args.lr)
     save, load = state_fns(model, inner)
+    tier = default_tier()  # the C++ plane when the native library loads
     manager = Manager(
+        # the comm's tier resolves separately (data_plane_tier): auto
+        # downgrades to python under forced-hierarchical topologies
+        comm=make_communicator(timeout_s=args.comm_timeout),
         load_state_dict=load,
         state_dict=save,
         min_replica_size=args.min_replicas,
         replica_id=f"train_ddp_{args.replica_group_id}",
+        server_cls=manager_server_cls(tier),
         timeout=args.comm_timeout,
     )
     opt = OptimizerWrapper(manager, inner)
