@@ -38,7 +38,7 @@ It builds the port's CUDA kernels from ``torchft_tpu_torch/csrc/`` (one
    that a tensor on the card is refused;
 4. float train phases — the port's main path: two replica groups as threads
    (each its own Manager, manager sidecar, communicator and HTTPTransport)
-   train Llama at Llama-3-8B width cut to 2 layers, bf16, B=1, S=2048, for 5
+   train Llama at Llama-3-8B width cut to 2 layers, bf16, B=1, S=2048, for 4
    steps; replica 1 is killed before step 2, restarts and heals from
    replica 0.  The fleet runs once with every plane on the C++ tier
    (``tier="cpp"``, named, never resolved: a failed native build fails the
@@ -51,8 +51,28 @@ It builds the port's CUDA kernels from ``torchft_tpu_torch/csrc/`` (one
    the windowed quantized pipeline with its per-window reduce on the card.
    The same checks, and the quantize and reduce kernels must have launched.
 
+6. DiLoCo and LocalSGD phases, every plane on the C++ tier, at the same
+   width, depth, batch and sequence, 2 replicas, inner AdamW, outer
+   ``OuterSGD(0.7, momentum=0.9, nesterov=True)``:
+   ``diloco_cpp`` — Streaming DiLoCo with the sharded outer sync,
+   ``sync_every=8``, 2 fragments, ``fragment_sync_delay=2``, alpha 0, until
+   4 committed outer steps; replica 1 is killed before its inner step 5,
+   restarts and heals at its next quorum; ``diloco_quantized_cpp`` — the
+   same over the int8 wire; ``localsgd_cpp`` — LocalSGD, ``sync_every=4``,
+   until 2 committed syncs, no fault.  Checks: every loss finite; both
+   replicas at the same committed step; (DiLoCo) replica 1 restarted once
+   and its heal carried every ``StreamingDiLoCoFragment_*`` state; per
+   fragment the backup's sha256 is equal across replicas and differs from
+   the initial weights; the fragment synced last has equal live parameters
+   across replicas; (LocalSGD) equal parameter hashes; the C++ tier's
+   planes ran; the flash kernels launched in each phase.  Each prints the
+   median inner step, the seconds per outer sync from ``outer_shard_wall_s``
+   and its scatter / update / gather split, the heal's seconds and bytes,
+   the peak device memory, the peak host RSS over the phase and tokens/s
+   per replica over the phase.
+
 Per sync, the C++ tier's parameter hash must equal the Python tier's.  The
-train phases run with ``obs.spans`` on; each prints the ``commit`` split
+DDP train phases run with ``obs.spans`` on; each prints the ``commit`` split
 (seconds per steady step in ``manager::quorum_rpc``, ``comm::op``,
 ``manager::fence`` and ``manager::should_commit``) and the heal's seconds
 and bytes.  Any failure raises, so the exit code is non-zero.  The last line
@@ -65,8 +85,10 @@ import argparse
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
+import threading
 import time
 
 import torch
@@ -80,7 +102,7 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 ITERS = 10  # timed launches per kernel (plain versions: 2)
-STEPS = 5  # train steps; replica 1 is killed before step 2
+STEPS = 4  # DDP train steps; replica 1 is killed before step 2
 # (results key, should_quantize, tier) of each train phase, in run order;
 # the kernels line takes its launches from the C++ tier's phases
 TRAIN_PHASES = (
@@ -98,6 +120,16 @@ PLANES = {
 # the spans that split ``commit``: the quorum RPC, each collective on the
 # communicator's op thread, the vote's fence on the pending works, the vote
 SPLIT_SPANS = ("manager::quorum_rpc", "comm::op", "manager::fence", "manager::should_commit")
+# (results key, run_diloco_fleet keywords) of each DiLoCo / LocalSGD phase,
+# all on the C++ tier: bench.py's phase D schedule, its int8 twin, LocalSGD
+DILOCO = dict(algo="diloco", sync_every=8, num_fragments=2, fragment_sync_delay=2,
+              outer_steps=4, kill_at=(1, 5))
+DILOCO_PHASES = (
+    ("diloco_cpp", dict(DILOCO, should_quantize=False)),
+    ("diloco_quantized_cpp", dict(DILOCO, should_quantize=True)),
+    ("localsgd_cpp", dict(algo="localsgd", sync_every=4, num_fragments=1,
+                          fragment_sync_delay=0, outer_steps=2, should_quantize=False)),
+)
 SPAN_CAP = 200_000  # the quantized phase records ~1,400 comm ops a step
 LAYERS = 2  # Llama-3-8B depth cut from 32 so two replicas fit one card
 # Every kernel of the main path: its CUDA source, and the ``def`` of the
@@ -644,6 +676,125 @@ def train_phase(train_ddp, fa, qk, spans, card: str, should_quantize: bool, tier
     )
 
 
+class HostRss:
+    """Peak resident set of this process while the block runs, and at its
+    start (what earlier phases left resident), sampled from
+    ``/proc/self/statm`` every 0.2 s (``getrusage``'s high-water mark is the
+    process's whole life, so it is reported beside it)."""
+
+    @staticmethod
+    def now() -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+    def __enter__(self) -> "HostRss":
+        self.start_bytes = self.peak_bytes = self.now()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self) -> None:
+        while True:
+            self.peak_bytes = max(self.peak_bytes, self.now())
+            if self._stop.wait(0.2):
+                return
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join(timeout=5)
+
+
+def _median(xs) -> float:
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else float("nan")
+
+
+def diloco_phase(train_diloco, train_ddp, fa, qk, card: str, fleet: dict) -> dict:
+    """DiLoCo or LocalSGD at Llama-3-8B width with 2 replicas, every plane
+    on the C++ tier; raises on any failed check.  The launch counts cover
+    exactly this run."""
+    import resource
+
+    cfg = train_ddp.model_config("llama3_8b", LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    qk.reset_launches()
+    t0 = time.perf_counter()
+    with HostRss() as rss:
+        results = train_diloco.run_diloco_fleet(
+            cfg, torch.device("cuda"), replicas=2, batch=1, seq=2048, tier="cpp", **fleet)
+    wall_s = time.perf_counter() - t0
+    launches = {**fa.launches, **qk.launches}
+    diloco = fleet["algo"] == "diloco"
+    for i, r in enumerate(results):
+        if not r.losses or not all(math.isfinite(x) for x in r.losses):
+            raise AssertionError(f"replica {i}: non-finite loss in {r.losses}")
+        if r.final_step != fleet["outer_steps"]:
+            raise AssertionError(f"replica {i} ended at step {r.final_step}, "
+                                 f"not {fleet['outer_steps']}")
+        if r.planes != PLANES["cpp"]:
+            raise AssertionError(f"replica {i} ran {r.planes}, not the cpp tier")
+    heal = None
+    if diloco:
+        if [r.restarts for r in results] != [0, 1]:
+            raise AssertionError(f"restarts {[r.restarts for r in results]}, expected [0, 1]")
+        heal = results[1].heal
+        if heal is None or heal.bytes_total <= 0 or min(results[1].fragment_heals) < 1:
+            raise AssertionError(f"replica 1's heal carried no fragment state: heal {heal}, "
+                                 f"fragment heals {results[1].fragment_heals}")
+        for f in range(fleet["num_fragments"]):
+            backups = {r.fragment_sha256[f] for r in results}
+            if len(backups) != 1:
+                raise AssertionError(f"fragment {f}: backups differ across replicas {backups}")
+            if backups == {results[0].initial_fragment_sha256[f]}:
+                raise AssertionError(f"fragment {f}: the backup is still the initial weights")
+        last = (results[0].final_step - 1) % fleet["num_fragments"]
+        live = {r.fragment_live_sha256[last] for r in results}
+        if len(live) != 1:
+            raise AssertionError(f"fragment {last}, synced last: live parameters differ {live}")
+    elif len({r.params_sha256 for r in results}) != 1:
+        raise AssertionError(f"LocalSGD replicas diverged: {[r.params_sha256 for r in results]}")
+    for name in ("fwd", "dq", "dkv"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched in the {fleet['algo']} phase")
+    r0 = results[0]
+    shard = [t for t in r0.outer_shard if "outer_shard_wall_s" in t]
+    split = {k: _median(t[f"outer_shard_{k}_s"] for t in shard)
+             for k in ("wall", "scatter", "update", "gather")} if shard else None
+    return dict(
+        card=card,
+        tier="cpp",
+        fleet=fleet,
+        model="llama3_8b width, %d layers, bf16" % LAYERS,
+        final_step=r0.final_step,
+        inner_steps=[r.inner_steps for r in results],
+        losses=[r.losses for r in results],
+        fragment_sha256=r0.fragment_sha256,
+        params_sha256=[r.params_sha256 for r in results],
+        restarts=[r.restarts for r in results],
+        fragment_heals=[r.fragment_heals for r in results],
+        inner_step_s_replica0=r0.inner_step_s,
+        inner_step_ms_median=_median(r0.inner_step_s) * 1e3,
+        wrapper_step_s_replica0=r0.wrapper_step_s,
+        # host seconds the train loop spent in wrapper.step() per committed sync
+        sync_s_per_commit=sum(r0.wrapper_step_s) / r0.final_step,
+        outer_shard_replica0=r0.outer_shard,
+        outer_shard_s_median=split,
+        heal=None if heal is None else dict(
+            seconds=heal.duration_s, bytes=heal.bytes_total, sources=heal.num_sources),
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+        peak_host_rss_gb=rss.peak_bytes / 1e9,
+        start_host_rss_gb=rss.start_bytes / 1e9,
+        ru_maxrss_gb=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9,
+        tokens_per_s_per_replica=r0.inner_steps * 2048 / wall_s,
+        wall_s=wall_s,
+        launches=launches,
+    )
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description="on-card smoke test of torchft_tpu_torch")
     parser.add_argument("--out", default=None, help="also write the results as JSON here")
@@ -653,7 +804,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     # the port itself; in a directory without it this import fails
-    from torchft_tpu_torch import native, train_ddp
+    from torchft_tpu_torch import native, train_ddp, train_diloco
     from torchft_tpu_torch.obs import spans
     from torchft_tpu_torch.ops import cuda_build
     from torchft_tpu_torch.ops import flash_attention as fa
@@ -699,6 +850,19 @@ def main() -> int:
     for sync, by_tier in hashes.items():
         print(f"{sync} sync parameter sha256: cpp {by_tier['cpp']}, python {by_tier['python']} "
               "(equal)", flush=True)
+    for key, fleet in DILOCO_PHASES:
+        results[key] = t = diloco_phase(train_diloco, train_ddp, fa, qk, card, fleet)
+        print(f"{key}: {json.dumps(t)}", flush=True)
+        heal = (f"heal {t['heal']['seconds']:.3f} s for {t['heal']['bytes']} bytes"
+                if t["heal"] else "no heal")
+        print(f"{key} (cpp tier): inner step {t['inner_step_ms_median']:.1f} ms (median), "
+              f"train loop held {t['sync_s_per_commit']:.3f} s per committed sync, outer sync "
+              "(s, median) "
+              f"{json.dumps(t['outer_shard_s_median'])}; {heal}; peak device "
+              f"{t['max_memory_allocated_gb']:.1f} GB, peak host RSS {t['peak_host_rss_gb']:.1f} GB "
+              f"({t['start_host_rss_gb']:.1f} GB at its start); "
+              f"{t['tokens_per_s_per_replica']:.1f} tokens/s per replica; wall {t['wall_s']:.1f} s",
+              flush=True)
     float_t, quant_t = results["train_cpp"], results["train_quantized_cpp"]
     if args.out:
         with open(args.out, "w") as f:

@@ -165,3 +165,37 @@ def test_cross_tier_hash_check(chip_smoke) -> None:
     results["train_quantized_python"] = {"params_sha256": "other"}
     with pytest.raises(AssertionError, match="quantized sync"):
         chip_smoke.check_cross_tier(results)
+
+
+def test_diloco_phases_are_bench_phase_d_and_its_twins(chip_smoke) -> None:
+    """The three DiLoCo / LocalSGD phases: bench.py's phase D schedule
+    (sync_every 8, 2 fragments, delay 2) with a kill, float and int8, and
+    LocalSGD; every keyword is one ``run_diloco_fleet`` takes, and the tier
+    is named by the phase runner, never resolved."""
+    import inspect
+
+    from torchft_tpu_torch import train_diloco
+
+    params = inspect.signature(train_diloco.run_diloco_fleet).parameters
+    phases = dict(chip_smoke.DILOCO_PHASES)
+    assert list(phases) == ["diloco_cpp", "diloco_quantized_cpp", "localsgd_cpp"]
+    for fleet in phases.values():
+        assert set(fleet) <= set(params) and "tier" not in fleet
+    for key in ("diloco_cpp", "diloco_quantized_cpp"):
+        fleet = phases[key]
+        assert (fleet["sync_every"], fleet["num_fragments"], fleet["fragment_sync_delay"],
+                fleet["outer_steps"], fleet["kill_at"]) == (8, 2, 2, 4, (1, 5))
+        assert fleet["should_quantize"] == (key == "diloco_quantized_cpp")
+    assert phases["localsgd_cpp"]["algo"] == "localsgd" and "kill_at" not in phases["localsgd_cpp"]
+    assert 'tier="cpp", **fleet' in (REPO / "chip_smoke.py").read_text()
+
+
+def test_host_rss_sampler_reads_this_process(chip_smoke) -> None:
+    import time
+
+    import numpy as np
+
+    with chip_smoke.HostRss() as rss:
+        block = np.ones(64 << 20, dtype=np.uint8)  # 64 MiB, touched
+        time.sleep(0.5)
+    assert rss.peak_bytes >= rss.start_bytes + block.nbytes // 2 and rss.start_bytes > 0

@@ -135,6 +135,20 @@ def test_reduce_scatter_quantized_matches_jax(store, reduce_mode, ws) -> None:
     _assert_bit_identical(port, ref)
 
 
+@pytest.mark.parametrize("ws", [2, 3])
+def test_reduce_scatter_quantized_fp8_matches_jax(store, reduce_mode, ws) -> None:
+    """The fp8 payload (e4m3 bit patterns in uint8 on the port's host)
+    decodes to its values, not to its bytes, in the shard's sum."""
+    data = _inputs(ws)
+    port, ref = _both(
+        store, ws,
+        lambda c, r: tcoll.reduce_scatter_quantized(c, data[r], kind="fp8").wait(),
+        lambda c, r: jcoll.reduce_scatter_quantized(c, data[r], kind="fp8").wait(),
+        f"rs8{ws}",
+    )
+    _assert_bit_identical(port, ref)
+
+
 @pytest.mark.parametrize("kind", ["int8", "fp8"])
 @pytest.mark.parametrize("ws", [2, 3])
 def test_allreduce_prequantized_matches_jax(store, reduce_mode, ws, kind) -> None:

@@ -7,11 +7,13 @@ protocol, Python TCP communicator), so a port replica and a JAX replica
 speak one protocol, and ports what touches tensors: the ``Manager``'s heal
 path (torch tensors stream as checkpoint leaves), gradient averaging over
 ``.grad`` tensors (float, or quantized to int8/fp8 on the card), a
-``torch.optim`` wrapper, the Llama-3 model, and the flash-attention and
+``torch.optim`` wrapper, ``LocalSGD`` and (Streaming) ``DiLoCo`` with the
+sharded outer sync, the Llama-3 model, and the flash-attention and
 quantized-wire kernels, hand-written in CUDA for Hopper.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
-The train loop is ``python -m torchft_tpu_torch.train_ddp``.
+The train loops are ``python -m torchft_tpu_torch.train_ddp`` and
+``python -m torchft_tpu_torch.train_diloco``.
 """
 
 __version__ = "0.1.0"
@@ -22,6 +24,9 @@ _LAZY = {
     "WorldSizeMode": ("torchft_tpu_torch.manager", "WorldSizeMode"),
     "OptimizerWrapper": ("torchft_tpu_torch.optim", "OptimizerWrapper"),
     "allreduce_gradients": ("torchft_tpu_torch.ddp", "allreduce_gradients"),
+    "LocalSGD": ("torchft_tpu_torch.local_sgd", "LocalSGD"),
+    "DiLoCo": ("torchft_tpu_torch.local_sgd", "DiLoCo"),
+    "OuterSGD": ("torchft_tpu_torch.optim", "OuterSGD"),
     # data plane
     "Communicator": ("torchft_tpu_torch.communicator", "Communicator"),
     "TCPCommunicator": ("torchft_tpu_torch.communicator", "TCPCommunicator"),

@@ -1,7 +1,8 @@
 """Quantized collectives: int8/fp8 allreduce over the replica dimension.
 
-The port of the quantized-allreduce part of ``torchft_tpu/collectives.py``
-(the sharded outer sync comes with DiLoCo).  The pipeline: quantize →
+The port of ``torchft_tpu/collectives.py``: the quantized allreduce, and
+DiLoCo's sharded outer sync (:func:`outer_sharded_sync`, host numpy as in
+the JAX package).  The quantized pipeline: quantize →
 ``alltoall`` row shards → dequant-sum-requant of this rank's shard →
 allgather → dequantize.  Per-rank bytes drop from ~2·n·4 (f32 ring) to
 ~2·n·1 + scales.
@@ -39,10 +40,12 @@ import torch
 
 from torchft_tpu_torch import bf16, wire
 from torchft_tpu_torch.communicator import Communicator, CommunicatorError
+from torchft_tpu_torch.obs.spans import span as obs_span
 from torchft_tpu_torch.quantization import (
     DEFAULT_ROW_SIZE,
     FP8,
     INT8,
+    _to_f32,
     dequantize_rowwise,
     quantize_rowwise,
     reduce_quantized,
@@ -50,6 +53,7 @@ from torchft_tpu_torch.quantization import (
 )
 from torchft_tpu_torch.wire import (
     DEVICE_QUANT_PIPELINE_TAG_BASE,
+    OUTER_SHARD_TAG_BASE,
     QUANT_PIPELINE_TAG_BASE,
     QUANT_RING_TAG,
 )
@@ -229,47 +233,6 @@ def _prequantized_reduce_scatter_sync(
     return q_red, s_red, rows, rows_per_rank
 
 
-def _allgather_reduced_shards(
-    comm: Communicator,
-    q_red: np.ndarray,
-    s_red: np.ndarray,
-    rows: int,
-    rows_per_rank: int,
-    row_size: int,
-    n: int,
-    tag: int,
-    pipeline_err: Optional[BaseException],
-    kind: str = INT8,
-) -> np.ndarray:
-    """Shared tail of the single-window allreduce: allgather the reduced
-    shards and dequantize.  Always participates in the allgather — even
-    after an upstream failure (``pipeline_err``), a zero shard is
-    contributed so healthy peers are never wedged — then re-raises."""
-    all_shards = comm.allgather(_pack(q_red, s_red), tag=tag).wait()
-    if pipeline_err is not None:
-        raise pipeline_err
-    qs_full, ss_full = zip(
-        *(_unpack(s, rows_per_rank, row_size, kind) for s in all_shards)
-    )
-    q_full = np.concatenate(qs_full)[:rows]
-    s_full = np.concatenate(ss_full)[:rows]
-    return dequantize_rowwise(q_full, s_full, n, np.float32)
-
-
-def _zero_shard(
-    rows: int, row_size: int, ws: int, kind: str = INT8
-) -> Tuple[np.ndarray, np.ndarray, int, int]:
-    """Zero contribution with the shard geometry peers expect (``rows`` must
-    equal the unpadded row count every rank derived from its own input)."""
-    rows_per_rank = -(-rows // ws)
-    return (
-        np.zeros((rows_per_rank, row_size), wire_dtype(kind)),
-        np.zeros(rows_per_rank, np.float32),
-        rows,
-        rows_per_rank,
-    )
-
-
 # ---------------------------------------------------------------------------
 # windowed pipelined allreduce
 # ---------------------------------------------------------------------------
@@ -426,6 +389,366 @@ def _allreduce_pipelined_sync(
         raise err
     return out[:n]
 
+
+
+# ---------------------------------------------------------------------------
+# sharded outer sync: chunk-pipelined reduce_scatter → update → allgather
+# ---------------------------------------------------------------------------
+
+# Bytes of the FULL flat buffer covered by one pipeline chunk (each chunk's
+# per-shard slice is this divided by the shard count).  Smaller chunks start
+# the outer update sooner and overlap at finer grain; larger chunks amortize
+# the per-exchange RTT gates — on wan_1g-class links (10 ms RTT) chunks
+# below ~8 MB cost more in frame gates than the overlap buys back.
+OUTER_CHUNK_MB_ENV = "TORCHFT_OUTER_CHUNK_MB"
+DEFAULT_OUTER_CHUNK_MB = 16.0
+# Pipeline depth cap: tags are allocated 2 per chunk from the sharded-sync
+# tag base, and a deeper pipeline stops paying for itself anyway.
+_MAX_OUTER_CHUNKS = 64
+_OUTER_TAG_BASE = OUTER_SHARD_TAG_BASE
+
+
+def _outer_chunk_ranges(
+    per: int, unit: int, gsize: int, max_chunks: int = _MAX_OUTER_CHUNKS
+) -> List[Tuple[int, int]]:
+    """Pipeline chunk ranges WITHIN one shard's [0, per) element extent,
+    unit-aligned so quantization rows never split; identical on every
+    replica (pure function of the layout).  ``max_chunks`` bounds the
+    pipeline depth to the caller's tag window (2 tags per chunk)."""
+    try:
+        mb = float(
+            os.environ.get(OUTER_CHUNK_MB_ENV, "") or DEFAULT_OUTER_CHUNK_MB
+        )
+    except ValueError:
+        mb = DEFAULT_OUTER_CHUNK_MB
+    # per-shard slice of one chunk, in elements (f32), unit-aligned
+    want = int(mb * (1 << 20)) // 4 // max(1, gsize)
+    want = max(unit, want // unit * unit)
+    floor = -(-per // (max_chunks * unit)) * unit  # cap chunk count
+    step = max(want, floor, unit)
+    return [(c, min(c + step, per)) for c in range(0, per, step)]
+
+
+def outer_shard_layout(
+    n: int, gsize: int, should_quantize: bool, row_size: int = DEFAULT_ROW_SIZE
+) -> Tuple[int, int, int]:
+    """Per-replica shard layout of a flat ``n``-element f32 buffer over
+    ``gsize`` shard owners: returns ``(padded, per, unit)`` elements where
+    every shard is exactly ``per`` elements, ``padded = per * gsize``, and
+    boundaries are ``unit``-aligned (16 f32 = 64 B raw; one quantization
+    row when the wire is quantized, so each byte is quantized exactly once
+    and no row straddles shards).  Thin wrapper over the wire-level
+    :func:`communicator.outer_shard_parts` (mirrored in ``csrc/native/comm.h``)
+    so shard ownership stays tier-uniform."""
+    from torchft_tpu_torch.communicator import outer_shard_parts
+
+    unit = row_size if should_quantize else 16
+    parts = outer_shard_parts(n * 4, gsize, unit * 4)
+    per = (parts[0][1] - parts[0][0]) // 4
+    return per * gsize, per, unit
+
+
+def outer_sharded_sync(
+    comm: Communicator,
+    flat: np.ndarray,
+    update_cb: Callable[[int, int, np.ndarray], np.ndarray],
+    num_participants: int,
+    should_quantize: bool = False,
+    kind: str = INT8,
+    row_size: int = DEFAULT_ROW_SIZE,
+    timings: Optional[dict] = None,
+    tap: Optional[Callable[[np.ndarray], None]] = None,
+    weight: Optional[float] = None,
+    tag_base: int = _OUTER_TAG_BASE,
+    tag_span: int = wire.OUTER_SHARD_TAG_SPAN,
+) -> np.ndarray:
+    """ZeRO-1-style sharded outer sync: chunk-pipelined
+    ``reduce_scatter → sharded outer update → allgather(update)``.
+
+    ``flat`` is this replica's f32 pseudo-gradient (length n).  The buffer
+    is split into deterministic per-owner shards (:func:`outer_shard_layout`)
+    and each shard into pipeline chunks; per chunk the schedule is
+
+        alltoall(pseudo-grad slices)         # the reduce-scatter
+        avg = Σ contributions / participants
+        delta = update_cb(lo, hi, avg)       # the sharded outer step
+        allgather(delta)                     # owners' updates, fanned out
+
+    with chunk ``c+1``'s alltoall submitted before chunk ``c``'s update
+    runs, so the outer optimizer computes while later chunks are still
+    reducing on the op thread — the ``reduce_scatter_then`` hook.  Every
+    replica applies the identical wire-format delta (its own included), so
+    params stay bit-identical across replicas.
+
+    Hierarchical topologies compose: the host reduces once over shared
+    memory, HOST LEADERS run the chunk pipeline (shards owned per host via
+    ``leader_comm``), and the allgathered delta shm-broadcasts back out —
+    non-leaders move zero socket bytes and own no shard (``update_cb`` is
+    never invoked on them).
+
+    When quantized, the pseudo-gradient is rowwise-quantized ONCE for the
+    whole buffer (each byte quantized exactly once — shard and chunk
+    boundaries are row-aligned) and the delta rides the wire as one more
+    rowwise pass; error containment matches the pipelined allreduce: a
+    failed chunk degrades to a zero delta so peers never wedge, then the
+    first error re-raises after the schedule completes.
+
+    Returns the f32 delta of length ``len(flat)`` (apply as
+    ``params = backup + delta``).  Fills ``timings`` (if given) with
+    ``scatter_s`` / ``update_s`` / ``gather_s`` / ``wall_s`` /
+    ``overlap_ratio``.
+
+    ``tap``, if given, observes the assembled delta (identical bytes on
+    every replica by construction — the allgather fans out ONE wire-format
+    update) right before it is returned: the hot-spare delta feed rides
+    this hook so parked observers can keep a shadow bit-exact without
+    participating in the collective.  A tap failure never fails the sync.
+
+    ``tag_base`` / ``tag_span`` frame the chunk collectives: the default is
+    the legacy OUTER_SHARD window (byte-identical to the pre-stream path);
+    the streamed fragment scheduler passes a rotating per-fragment
+    STREAM_OUTER window (``wire.stream_frag_tag_window``) so consecutive
+    streamed syncs can never alias tags.  The pipeline depth is capped at
+    ``tag_span // 2`` chunks (2 tags per chunk).
+
+    ``weight``, if given, turns the sync into a capacity-WEIGHTED sum
+    (degraded-mode fleets): this replica's contribution is pre-scaled by
+    its normalized capacity share before quantization/transport and the
+    ``num_participants`` division drops out (weights sum to 1 across the
+    fleet by construction — every rank must pass a weight, or none).  The
+    delta stays bit-identical across replicas exactly as before: the
+    weighting changes the bytes each rank CONTRIBUTES, never how the
+    summed wire-format delta is applied.
+    """
+    t_wall = time.perf_counter()
+    if weight is not None:
+        flat = np.asarray(flat, dtype=np.float32) * np.float32(weight)
+        num_participants = 1  # weighted contributions need no division
+    n = flat.size
+    tm = {"scatter_s": 0.0, "update_s": 0.0, "gather_s": 0.0}
+    topo = _hier_topology(comm)
+    err: Optional[BaseException] = None
+    delta_full: Optional[np.ndarray] = None
+
+    if topo is None:
+        gsize = max(1, comm.size())
+        group: Communicator = comm
+        contrib: Optional[np.ndarray] = np.asarray(flat, dtype=np.float32)
+        owns = True
+    else:
+        # intra-host reduce once; leaders shard the outer step per host
+        gsize = len(topo["leader_ring"])
+        owns = bool(topo["is_leader"])
+        contrib = None
+        try:
+            contrib = comm.intra_reduce(  # type: ignore[attr-defined]
+                np.asarray(flat, dtype=np.float32)
+            ).wait()
+        except BaseException as e:  # noqa: BLE001 — degrade, keep schedule
+            err = e
+        group = comm.leader_comm() if owns else comm  # type: ignore[attr-defined]
+
+    padded, per, unit = outer_shard_layout(n, gsize, should_quantize, row_size)
+
+    if owns:
+        try:
+            if contrib is None:
+                raise err or CommunicatorError("intra-host reduce failed")
+            with obs_span("outer_shard::pipeline"):
+                delta_full = _outer_sharded_pipeline(
+                    group,
+                    contrib,
+                    padded,
+                    per,
+                    unit,
+                    update_cb,
+                    num_participants,
+                    should_quantize,
+                    kind,
+                    row_size,
+                    tm,
+                    tag_base=tag_base,
+                    tag_span=tag_span,
+                )
+        except BaseException as e:  # noqa: BLE001
+            err = err or e
+            delta_full = np.zeros(padded, dtype=np.float32)
+
+    if topo is not None:
+        # members receive the delta; leaders always broadcast (zeros after a
+        # failure) so host peers are never wedged — same containment
+        # contract as the hierarchical quantized allreduce
+        delta_full = comm.intra_broadcast(  # type: ignore[attr-defined]
+            delta_full, padded, np.float32
+        ).wait()
+    if err is not None:
+        raise err
+    assert delta_full is not None
+    tm["wall_s"] = time.perf_counter() - t_wall
+    busy = tm["scatter_s"] + tm["update_s"] + tm["gather_s"]
+    tm["overlap_ratio"] = round(busy / tm["wall_s"], 4) if tm["wall_s"] > 0 else 0.0
+    if timings is not None:
+        timings.update({k: round(v, 6) for k, v in tm.items()})
+    if tap is not None:
+        try:
+            tap(delta_full[:n])
+        except Exception:  # noqa: BLE001 — observers must not fail the sync
+            pass
+    return delta_full[:n]
+
+
+def _outer_sharded_pipeline(
+    group: Communicator,
+    contrib: np.ndarray,
+    padded: int,
+    per: int,
+    unit: int,
+    update_cb: Callable[[int, int, np.ndarray], np.ndarray],
+    num_participants: int,
+    should_quantize: bool,
+    kind: str,
+    row_size: int,
+    tm: dict,
+    tag_base: int = _OUTER_TAG_BASE,
+    tag_span: int = wire.OUTER_SHARD_TAG_SPAN,
+) -> np.ndarray:
+    """Shard-owner body of :func:`outer_sharded_sync` over ``group`` (the
+    flat communicator, or the leader view on hierarchical topologies)."""
+    gsize = max(1, group.size())
+    gidx = group.rank() if gsize > 1 else 0
+    buf = np.zeros(padded, dtype=np.float32)
+    buf[: contrib.size] = contrib
+    chunks = _outer_chunk_ranges(per, unit, gsize, max_chunks=tag_span // 2)
+    inv = 1.0 / max(1, num_participants)
+    delta_full = np.empty(padded, dtype=np.float32)
+    err: Optional[BaseException] = None
+
+    q_full: Optional[np.ndarray] = None
+    s_full: Optional[np.ndarray] = None
+    if should_quantize:
+        # quantize the whole contribution ONCE; every a2a slice below is a
+        # row-aligned view of this single pass
+        q_full, s_full = quantize_rowwise(buf, row_size, kind)
+
+    if gsize == 1 or getattr(group, "is_passthrough", False):
+        # degenerate single-owner group: no wire, but keep the per-chunk
+        # schedule (and, when quantized, the wire-format round trip) so the
+        # numerics match the multi-owner path's contract
+        for c0, c1 in chunks:
+            if should_quantize:
+                assert q_full is not None and s_full is not None
+                rows = slice(c0 // row_size, c1 // row_size)
+                avg = dequantize_rowwise(
+                    q_full[rows], s_full[rows], c1 - c0, np.float32
+                )
+                avg *= inv
+            else:
+                avg = buf[c0:c1] * inv
+            t0 = time.perf_counter()
+            delta = np.asarray(update_cb(c0, c1, avg), dtype=np.float32)
+            tm["update_s"] += time.perf_counter() - t0
+            if should_quantize:
+                dq, ds = quantize_rowwise(delta, row_size, kind)
+                delta = dequantize_rowwise(dq, ds, c1 - c0, np.float32)
+            delta_full[c0:c1] = delta
+        return delta_full
+
+    my_base = gidx * per
+
+    def _submit_a2a(ci: int) -> Work:
+        c0, c1 = chunks[ci]
+        if should_quantize:
+            assert q_full is not None and s_full is not None
+            parts = [
+                _pack(
+                    q_full[(p * per + c0) // row_size : (p * per + c1) // row_size],
+                    s_full[(p * per + c0) // row_size : (p * per + c1) // row_size],
+                )
+                for p in range(gsize)
+            ]
+        else:
+            parts = [buf[p * per + c0 : p * per + c1] for p in range(gsize)]
+        return group.alltoall(parts, tag=tag_base + 2 * ci)
+
+    a2a_work = _submit_a2a(0)
+    ag_works: List[Work] = []
+    for ci, (c0, c1) in enumerate(chunks):
+        rows = (c1 - c0) // row_size
+        t0 = time.perf_counter()
+        try:
+            gathered = a2a_work.wait()
+        except BaseException as e:  # noqa: BLE001 — degrade, keep schedule
+            err = err or e
+            gathered = None
+        tm["scatter_s"] += time.perf_counter() - t0
+        if ci + 1 < len(chunks):
+            a2a_work = _submit_a2a(ci + 1)
+        delta: Optional[np.ndarray] = None
+        if gathered is not None:
+            try:
+                if should_quantize:
+                    qs, scs = zip(
+                        *(_unpack(g, rows, row_size, kind) for g in gathered)
+                    )
+                    acc = np.einsum(
+                        "wrc,wr->rc",
+                        _to_f32(np.stack(qs)),
+                        np.stack(scs),
+                    ).reshape(-1)
+                else:
+                    acc = np.sum(np.stack(gathered), axis=0)
+                acc *= inv
+                t0 = time.perf_counter()
+                with obs_span("outer_shard::chunk_update", chunk=ci):
+                    delta = np.asarray(
+                        update_cb(my_base + c0, my_base + c1, acc),
+                        dtype=np.float32,
+                    )
+                tm["update_s"] += time.perf_counter() - t0
+            except BaseException as e:  # noqa: BLE001
+                err = err or e
+                delta = None
+        if delta is None:
+            delta = np.zeros(c1 - c0, dtype=np.float32)
+        if should_quantize:
+            dq, ds = quantize_rowwise(delta, row_size, kind)
+            ag_works.append(
+                group.allgather(_pack(dq, ds), tag=tag_base + 2 * ci + 1)
+            )
+        else:
+            ag_works.append(
+                group.allgather(delta, tag=tag_base + 2 * ci + 1)
+            )
+
+    for ci, work in enumerate(ag_works):
+        c0, c1 = chunks[ci]
+        rows = (c1 - c0) // row_size
+        t0 = time.perf_counter()
+        try:
+            all_deltas = work.wait()
+        except BaseException as e:  # noqa: BLE001
+            err = err or e
+            all_deltas = None
+        tm["gather_s"] += time.perf_counter() - t0
+        for p in range(gsize):
+            dst = delta_full[p * per + c0 : p * per + c1]
+            if all_deltas is None:
+                dst[:] = 0.0
+            elif should_quantize:
+                # every replica (the owner included) applies the WIRE
+                # delta, so params stay bit-identical across replicas
+                try:
+                    dq, ds = _unpack(all_deltas[p], rows, row_size, kind)
+                    dst[:] = dequantize_rowwise(dq, ds, c1 - c0, np.float32)
+                except BaseException as e:  # noqa: BLE001
+                    err = err or e
+                    dst[:] = 0.0
+            else:
+                dst[:] = all_deltas[p]
+
+    if err is not None:
+        raise err
+    return delta_full
 
 
 def _hier_topology(comm: Communicator) -> Optional[dict]:
@@ -638,7 +961,7 @@ def reduce_scatter_quantized(
                         comm, flat, row_size, tag=QUANT_RING_TAG, kind=kind
                     )
                 )
-            total = (q_red.astype(np.float32) * s_red[:, None]).reshape(-1)
+            total = (_to_f32(q_red) * s_red[:, None]).reshape(-1)
             fut.set_result(total)
         except BaseException as e:  # noqa: BLE001
             fut.set_exception(e)

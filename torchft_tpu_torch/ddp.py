@@ -17,6 +17,9 @@ a module's parameters; the replica-dim average runs on the host.
   the host, averaged by ``Manager.allreduce_prequantized`` (the windowed
   quantized pipeline, whose per-window reduce runs on the card too), and
   copied back into the ``.grad`` tensors.
+- Parameter averaging (:func:`allreduce_tensors`, LocalSGD's sync): the
+  same buckets and rings over the tensors themselves; the averaged host
+  tensors are returned, not written back.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import logging
 import os
 import threading
 from concurrent.futures import Future
-from typing import Dict, Iterable, List, Tuple, Union
+from typing import Callable, Dict, Iterable, List, Optional, Tuple, TypeVar, Union
 
 import numpy as np
 import torch
@@ -37,6 +40,8 @@ from torchft_tpu_torch.manager import Manager
 from torchft_tpu_torch.work import DummyWork, Work
 
 logger = logging.getLogger(__name__)
+
+T = TypeVar("T")
 
 # Split gradient buckets at this size (same knob, parse and default as the
 # JAX package).  MUST be uniform across replicas: bucket boundaries shape
@@ -111,16 +116,81 @@ def allreduce_gradients(
     if should_quantize:
         return _allreduce_gradients_device_quantized(manager, grads)
 
+    groups, works = _submit_buckets(manager, grads, should_quantize=False, register_pending=True)
+
+    def _copy_back() -> List[torch.Tensor]:
+        for g, avg in zip(grads, _gather(grads, groups, works)):
+            g.copy_(avg)  # casts back, moves H2D
+        return grads
+
+    return _composite(manager, _copy_back, grads)
+
+
+def allreduce_tensors(
+    manager: Manager,
+    tensors: List[torch.Tensor],
+    should_quantize: bool = False,
+    stream: Optional[int] = None,
+) -> Work:
+    """Average ``tensors`` themselves (not their ``.grad``) across the
+    participating replicas: the counterpart of ``allreduce_pytree``, on the
+    same buckets as :func:`allreduce_gradients`.
+
+    The Work's value is the list of averaged host tensors, in ``tensors``'
+    dtypes and shapes; nothing is written back (LocalSGD adopts them only
+    on a committed vote).  When averaging is the identity, or this step
+    already errored, the value is ``tensors`` themselves.
+    ``should_quantize`` sends each bucket through the host-quantized wire
+    (``Manager.allreduce(should_quantize=True)``).
+
+    ``stream``, when given, marks an ASYNC streamed submit (the
+    TORCHFT_STREAM_SYNC LocalSGD scheduler): exactly one Work — the
+    composite covering every bucket ring and the gather — registers in the
+    Manager's stream-fence registry instead of the pending works; the
+    bucket rings register nowhere."""
+    tensors = list(tensors)
+    if manager.errored() or manager.allreduce_is_identity() or not tensors:
+        out = DummyWork(tensors)
+        return out if stream is None else manager.stream_submitted(stream, out)
+
+    groups, works = _submit_buckets(
+        manager, tensors, should_quantize=should_quantize, register_pending=stream is None
+    )
+    return _composite(manager, lambda: _gather(tensors, groups, works), tensors, stream)
+
+
+def _gather(
+    tensors: List[torch.Tensor], groups: List[List[int]], works: List[Work]
+) -> List[torch.Tensor]:
+    """Each tensor's average: a host view into its bucket's result."""
+    out = list(tensors)
+    for group, work in zip(groups, works):
+        avg = _host_tensor(work.wait())
+        off = 0
+        for i in group:
+            n = tensors[i].numel()
+            out[i] = avg[off : off + n].view(tensors[i].shape)
+            off += n
+    return out
+
+
+def _submit_buckets(
+    manager: Manager, tensors: List[torch.Tensor], should_quantize: bool, register_pending: bool
+) -> Tuple[List[List[int]], List[Work]]:
+    """Flatten ``tensors`` into the dtype buckets of :func:`bucket_groups`,
+    copy each to (pinned) host memory and submit its ring.  Every
+    device→host copy starts up front (non-blocking into pinned memory, an
+    event behind each), so the transfers of later buckets overlap the
+    earlier rings; a bucket's ring is submitted once its event completes.
+    Returns the buckets (indices into ``tensors``) and their rings' Works."""
     groups = bucket_groups(
-        [g.numel() * g.element_size() for g in grads],
-        [str(g.dtype) for g in grads],
+        [t.numel() * t.element_size() for t in tensors],
+        [str(t.dtype) for t in tensors],
         _bucket_cap_bytes(),
     )
-    # start every device→host copy up front (non-blocking into pinned
-    # memory) so the transfers of later buckets overlap the earlier rings
     staged: List[Tuple[List[int], torch.Tensor, object]] = []
     for group in groups:
-        flat = torch.cat([grads[i].detach().reshape(-1) for i in group])
+        flat = torch.cat([tensors[i].detach().reshape(-1) for i in group])
         if flat.is_cuda:
             host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
             host.copy_(flat, non_blocking=True)
@@ -134,39 +204,40 @@ def allreduce_gradients(
     for _group, host, done in staged:
         if done is not None:
             done.synchronize()
-        # in_place: the bucket is ours and discarded after the copy-back
-        works.append(manager.allreduce(_host_array(host), in_place=True))
-
-    def _copy_back() -> None:
-        for (group, _host, _done), work in zip(staged, works):
-            avg = _host_tensor(work.wait())
-            off = 0
-            for i in group:
-                g = grads[i]
-                n = g.numel()
-                g.copy_(avg[off : off + n].view(g.shape))  # casts back, moves H2D
-                off += n
-
-    return _fenced(manager, grads, _copy_back)
+        # in_place: the bucket is ours and discarded after the gather
+        works.append(
+            manager.allreduce(
+                _host_array(host),
+                should_quantize=should_quantize,
+                in_place=True,
+                register_pending=register_pending,
+            )
+        )
+    return groups, works
 
 
-def _fenced(manager: Manager, grads: List[torch.Tensor], copy_back) -> Work:
-    """Run ``copy_back`` off-thread and register the composite with the
-    manager: the WHOLE pipeline (including the copy-back) is fenced at
-    commit, not just the wire — a copy-back failure after the vote would
-    otherwise apply unaveraged gradients on this replica only."""
-    fut: "Future[List[torch.Tensor]]" = Future()
+def _composite(manager: Manager, finish: Callable[[], T], fallback: T, stream: Optional[int] = None) -> Work:
+    """Run ``finish`` off-thread and register the composite with the
+    manager (the stream-fence registry when ``stream`` is given): the WHOLE
+    pipeline (including the copy-back or gather) is fenced at commit, not
+    just the wire — a copy-back failure after the vote would otherwise
+    apply unaveraged values on this replica only.  On an error the value is
+    ``fallback`` and the vote discards the step."""
+    fut: "Future[T]" = Future()
 
-    def _finish() -> None:
+    def _run() -> None:
         try:
-            copy_back()
+            fut.set_result(finish())
         except Exception as e:  # noqa: BLE001 — funnel, never raise
             manager.report_error(e)
-        fut.set_result(grads)
+            fut.set_result(fallback)
 
-    threading.Thread(target=_finish, name="tpuft_ddp_gather", daemon=True).start()
+    threading.Thread(target=_run, name="tpuft_ddp_gather", daemon=True).start()
     out = Work(fut)
-    manager._register_pending(out)
+    if stream is None:
+        manager._register_pending(out)
+    else:
+        manager.stream_submitted(stream, out)
     return out
 
 
@@ -230,12 +301,13 @@ def _allreduce_gradients_device_quantized(manager: Manager, grads: List[torch.Te
         manager.report_error(e)
         return DummyWork(grads)
 
-    def _copy_back() -> None:
+    def _copy_back() -> List[torch.Tensor]:
         avg = torch.from_numpy(work.wait())
         off = 0
         for g in grads:
             k = g.numel()
             g.copy_(avg[off : off + k].view(g.shape))  # casts, moves H2D
             off += k
+        return grads
 
-    return _fenced(manager, grads, _copy_back)
+    return _composite(manager, _copy_back, grads)

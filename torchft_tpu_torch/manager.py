@@ -1462,9 +1462,97 @@ class Manager:
         work is unresolved — a half-streamed sync NEVER commits; the caller
         must ``wait()`` the work at its bounded-staleness barrier before
         voting."""
-        raise NotImplementedError(
-            "the sharded outer sync lands in a later slice of the port"
-        )
+
+        def _failed_fast(w: Work) -> Work:
+            # fail-fast streamed submits still register + stamp FRAG_SUBMIT
+            # so the barrier's FRAG_ABORT always has its pair (see allreduce)
+            return w if stream is None else self.stream_submitted(stream, w)
+
+        if self.errored():
+            return _failed_fast(DummyWork(None))
+        try:
+            self.wait_quorum()
+        except Exception as e:  # noqa: BLE001 — funnel, never raise
+            self.report_error(e)
+            return _failed_fast(DummyWork(None))
+        num_participants = self.num_participants()
+        if not self.is_participating():
+            flat = np.zeros_like(flat)
+
+        # degraded fleet: the sharded outer sync runs as a WEIGHTED sum —
+        # every rank pre-scales its pseudo-gradient by its normalized
+        # capacity share and the division drops out (weights sum to 1).
+        # The engage decision is a pure function of quorum facts, so the
+        # whole fleet flips together; the allgathered wire-format delta
+        # stays bit-identical across replicas either way.
+        weight: Optional[float] = None
+        if self._capacity_weights_engaged():
+            weight = self._own_capacity_weight() if self.is_participating() else 0.0
+
+        from torchft_tpu_torch import wire as wire_mod
+        from torchft_tpu_torch.collectives import outer_sharded_sync
+
+        kind = quant_kind() if should_quantize else None
+        timings = self.last_quorum_timings
+        fut: concurrent.futures.Future = concurrent.futures.Future()
+        if stream is None:
+            tag_base, tag_span = (
+                wire_mod.OUTER_SHARD_TAG_BASE,
+                wire_mod.OUTER_SHARD_TAG_SPAN,
+            )
+        else:
+            # window keyed on (outer step + fragment): consecutive streamed
+            # syncs land in distinct windows even at num_fragments=1 (the
+            # step advances every committed round, and a failed round
+            # poisons the comm epoch, whose reconfigure flushes the old
+            # connections), and the key is quorum-shared state, so a healed
+            # replica picks the same window as the survivors — a local
+            # submit counter would drift permanently after a restart
+            tag_base, tag_span = wire_mod.stream_frag_tag_window(
+                self._step + stream
+            )
+
+        def _run() -> None:
+            tm: Dict[str, float] = {}
+            try:
+                delta = outer_sharded_sync(
+                    self._comm,
+                    flat,
+                    update_cb,
+                    num_participants,
+                    should_quantize=should_quantize,
+                    kind=kind or "int8",
+                    timings=tm,
+                    weight=weight,
+                    # delta-tap: stage the (replica-identical) delta bytes
+                    # for the spare feed; published only on a committed vote
+                    tap=(
+                        self._stage_outer_delta
+                        if self._spare_replica_ids
+                        else None
+                    ),
+                    tag_base=tag_base,
+                    tag_span=tag_span,
+                )
+                fut.set_result(delta)
+            except Exception as e:  # noqa: BLE001 — funnel, never raise
+                self.report_error(e)
+                fut.set_result(None)
+            finally:
+                if tm:
+                    stats = {f"outer_shard_{k}": v for k, v in tm.items()}
+                    timings.update(stats)
+                    self._outer_shard_stats = stats
+
+        threading.Thread(
+            target=_run, name="tpuft_outer_shard_sync", daemon=True
+        ).start()
+        out = Work(fut)
+        if stream is None:
+            self._register_pending(out)
+        else:
+            self.stream_submitted(stream, out)
+        return out
 
     def stream_submitted(self, frag: int, work: Work) -> Work:
         """Register an async streamed fragment sync in the stream-fence

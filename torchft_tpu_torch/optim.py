@@ -6,12 +6,17 @@ zeroes the gradients; ``step()`` runs the wrapped ``torch.optim``
 optimizer only when ``manager.should_commit()`` votes yes.  Parameters are
 updated in place, so a heal applied inside the vote is already what the
 update sees.
+
+:class:`OuterSGD` is DiLoCo's outer optimizer: a functional transform over
+flat f32 host arrays, because the sharded outer sync steps it per chunk on
+slices of its state.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Optional
+from typing import Any, Callable, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from torchft_tpu_torch.manager import Manager
@@ -45,3 +50,41 @@ class OptimizerWrapper:
             return False
         self.optimizer.step(closure)
         return True
+
+
+class OuterSGD:
+    """SGD with optional (Nesterov) momentum as a functional transform over
+    flat f32 numpy arrays: the counterpart of ``optax.sgd(lr, momentum,
+    nesterov)``, the outer optimizer every DiLoCo caller of the JAX package
+    passes.
+
+    ``init(flat)`` returns the state leaves: ``[trace]`` with momentum,
+    ``[]`` without (``optax.sgd``'s ``tree_leaves``, so a reshard blob
+    pickled by a JAX rank loads here and the other way round).
+    ``update(grad, state, params)`` returns ``(updates, new_state)`` with
+    optax's trace arithmetic: ``t = g + m·t``; the update is ``-lr·(g +
+    m·t)`` with Nesterov, else ``-lr·t``.  With dampening 0 that is
+    ``torch.optim.SGD``'s step.  ``momentum=0`` means no trace, as
+    ``optax.sgd``'s default ``momentum=None``."""
+
+    def __init__(self, lr: float, momentum: float = 0.0, nesterov: bool = False) -> None:
+        if nesterov and not momentum:
+            raise ValueError("OuterSGD: nesterov needs a momentum")
+        self.lr = lr
+        self.momentum = momentum
+        self.nesterov = nesterov
+
+    def init(self, flat: np.ndarray) -> List[np.ndarray]:
+        return [np.zeros(np.shape(flat), dtype=np.float32)] if self.momentum else []
+
+    def update(
+        self, grad: np.ndarray, state: List[np.ndarray], params: Any = None
+    ) -> Tuple[np.ndarray, List[np.ndarray]]:
+        g = np.asarray(grad, dtype=np.float32)
+        neg_lr = np.float32(-self.lr)
+        if not self.momentum:
+            return neg_lr * g, []
+        m = np.float32(self.momentum)
+        trace = g + m * state[0]
+        direction = g + m * trace if self.nesterov else trace
+        return neg_lr * direction, [trace]

@@ -73,8 +73,22 @@ def _to_f32(q: np.ndarray) -> np.ndarray:
     return _fp8_decode(q) if q.dtype == np.uint8 else q.astype(np.float32)
 
 
+# Rows quantized at a time: bounds the f32 temporaries of a large buffer to
+# a few of these blocks.  Each row is quantized on its own, so the bytes do
+# not depend on it.
+_BLOCK_ROWS = 16384
+
+
 def _requantize(x: np.ndarray, kind: str) -> Tuple[np.ndarray, np.ndarray]:
     """Rows of f32 ``x`` [rows, row_size] → (payload, f32 scales [rows])."""
+    if x.shape[0] > _BLOCK_ROWS:
+        q = np.empty(x.shape, wire_dtype(kind))
+        scales = np.empty(x.shape[0], np.float32)
+        for r in range(0, x.shape[0], _BLOCK_ROWS):
+            q[r : r + _BLOCK_ROWS], scales[r : r + _BLOCK_ROWS] = _requantize(
+                x[r : r + _BLOCK_ROWS], kind
+            )
+        return q, scales
     qmax = _wire_max(kind)
     absmax = np.abs(x).max(axis=1)
     scales = (absmax / qmax).astype(np.float32)
@@ -96,6 +110,8 @@ def quantize_rowwise(
         raise ValueError(f"quantize_rowwise takes a flat array, got shape {flat.shape}")
     n = flat.size
     rows = max(1, -(-n // row_size))
+    if flat.dtype == np.float32 and n == rows * row_size:
+        return _requantize(flat.reshape(rows, row_size), kind)  # whole rows: no copy
     padded = np.zeros(rows * row_size, dtype=np.float32)
     padded[:n] = flat.astype(np.float32, copy=False)
     return _requantize(padded.reshape(rows, row_size), kind)
