@@ -11,9 +11,9 @@ It builds the port's CUDA kernels from ``torchft_tpu_torch/csrc/`` (one
 1. flash kernel phase — holds each flash-attention kernel (fwd, dq, dkv)
    against its plain PyTorch version on the card at the Llama-3-8B
    attention shapes (B=1, S=2048, H=32, KV=8, D=128, bf16, causal) and at
-   three more cases (a non-causal Sq != Sk case with ragged tiles, a GQA
-   groups=1 case at D=64, and a causal B=2 case whose S=1000 ends inside a
-   tile of every head), and times kernel, plain version and the
+   four more cases (a non-causal Sq != Sk case with ragged tiles, a GQA
+   groups=1 case at D=64, a causal B=2 case whose S=1000 ends inside a
+   tile of every head, and a causal S=100 shorter than one tile), and times kernel, plain version and the
    ``F.scaled_dot_product_attention`` yardstick; on the main case it checks
    that two dq launches give bit-identical dq and two dkv launches
    bit-identical dk and dv, and prints the forward's, dq's and dkv's
@@ -32,26 +32,45 @@ It builds the port's CUDA kernels from ``torchft_tpu_torch/csrc/`` (one
    larger than the L2, replayed between CUDA events, so neither the
    wrapper's host cost nor a warm cache is in it; ``call_ms`` is the time
    of one eager wrapper call, as the pipeline makes it;
-3. native hand-off check — builds the port's C++ runtime
+3. ring phase (``ring_phase``) — sequence parallelism's ring attention
+   at Llama-3-8B attention width (H=32, KV=8, D=128, bf16), B=1, S=8192
+   split over sp=4 ranks held in one process (blocks of 2048): the ring's
+   block schedule and lse merge over the flash kernels (a causal diagonal
+   block and full earlier blocks per rank), forward and backward, held
+   against whole-sequence causal ``flash_attention`` at S=8192 (the
+   kernels too) and against the same ring on the kernels' plain versions;
+   its launches counted by mask (4 causal and 6 non-causal forwards, 10 dq
+   and 10 dkv); the same checks on blocks of 640 tokens (S=2560), a length
+   the CPU's flash gate refuses and the card's kernels take; the ring timed
+   against whole-sequence flash, with its peak device memory; then the
+   model's attention gate on the card (``card_gate_check``): a one-layer
+   model at 8B attention width at S = 16, 100 and 640 launches each flash
+   kernel once;
+4. native hand-off check — builds the port's C++ runtime
    (``torchft_tpu_torch/csrc/native/``, g++, timed) and checks that a pinned
    host tensor, bf16 included, reaches it as a view of its own memory and
    that a tensor on the card is refused;
-4. float train phases — the port's main path: two replica groups as threads
-   (each its own Manager, manager sidecar, communicator and HTTPTransport)
-   train Llama at Llama-3-8B width cut to 2 layers, bf16, B=1, S=2048, for 4
-   steps; replica 1 is killed before step 2, restarts and heals from
-   replica 0.  The fleet runs once with every plane on the C++ tier
+5. float train phases — the port's main path: two replica groups as threads
+   (each its own Manager, manager sidecar, communicator and checkpoint
+   transport) train Llama at Llama-3-8B width cut to 2 layers, bf16, B=1,
+   S=2048, for 4 steps; replica 1 is killed before step 2, restarts and
+   heals from replica 0 over the communicator (``CommTransport``).  The fleet runs once with every plane on the C++ tier
    (``tier="cpp"``, named, never resolved: a failed native build fails the
    run) and once on the Python tier.  Every loss must be finite, both
    replicas must end at the same step with equal parameter hashes, every
    replica must have run the named tier's lighthouse, sidecar and
    communicator, and every flash kernel must have launched;
-5. quantized train phases — the same two fleets with
+6. quantized train phases — the same two fleets with
    ``should_quantize=True`` (int8 wire): gradients quantized on the card,
-   the windowed quantized pipeline with its per-window reduce on the card.
-   The same checks, and the quantize and reduce kernels must have launched.
+   the windowed quantized pipeline with its per-window reduce on the card;
+   they heal over HTTP, so one run holds both transports to the same
+   state.  The same checks, and the quantize and reduce kernels must have
+   launched.  Every train phase's heal must move the replica's whole state:
+   over the communicator exactly its array payload bytes, over HTTP those
+   and its stream's framing; and each sync's final hash must be
+   :data:`EXPECTED_SHA256`'s (a heal is bit-exact, whatever carries it).
 
-6. DiLoCo and LocalSGD phases, every plane on the C++ tier, at the same
+7. DiLoCo and LocalSGD phases, every plane on the C++ tier, at the same
    width, depth, batch and sequence, 2 replicas, inner AdamW, outer
    ``OuterSGD(0.7, momentum=0.9, nesterov=True)``:
    ``diloco_cpp`` — Streaming DiLoCo with the sharded outer sync,
@@ -73,7 +92,7 @@ It builds the port's CUDA kernels from ``torchft_tpu_torch/csrc/`` (one
    the peak device memory, the peak host RSS over the phase and tokens/s
    per replica over the phase.
 
-7. ``cnn_cpp`` — ``train_ddp --model cnn``: the upstream example's toy CNN
+8. ``cnn_cpp`` — ``train_ddp --model cnn``: the upstream example's toy CNN
    with Adam on ``synthetic_cifar`` (its defaults: 2048 samples, batch 32,
    lr 1e-3), each replica reading its ``DistributedSampler`` shard, 2
    replicas on the C++ tier for 20 steps; replica 1 is killed before step
@@ -81,14 +100,14 @@ It builds the port's CUDA kernels from ``torchft_tpu_torch/csrc/`` (one
    its last three steps under the mean of its first three), both replicas
    end with equal parameter hashes, replica 1 restarted once with a heal.
    Prints the median step and the heal's seconds and bytes.
-8. ``hsdp_cpp`` — ``train_hsdp``: Llama-3-8B width at 2 layers, bf16,
+9. ``hsdp_cpp`` — ``train_hsdp``: Llama-3-8B width at 2 layers, bf16,
    B=1, S=2048, AdamW, 2 replica groups, each one process on the card at
    fsdp = tp = 1 (NCCL world 1; FSDP2 wraps every layer and the root), the
    C++ tier, 4 steps; group 1 is killed before step 2 and heals its
-   sharded state.  Checks: every loss finite, both groups at step 4 with
-   equal parameter hashes, every ``param.grad`` a DTensor, group 1
-   restarted once with a heal, each flash kernel launched in every
-   process.  Prints the step wall time split into compute / allreduce /
+   sharded state over the communicator.  Checks: every loss finite, both
+   groups at step 4 with equal parameter hashes (the expected one), every
+   ``param.grad`` a DTensor, group 1 restarted once with a heal of its
+   whole state, each flash kernel launched in every process.  Prints the step wall time split into compute / allreduce /
    commit, ``last_quorum_timings``, the heal's seconds and bytes, each
    process's peak device memory, and whether the final hash equals the
    float C++ DDP phase's (a finding, not a check).
@@ -133,6 +152,20 @@ TRAIN_PHASES = (
     ("train_quantized_cpp", True, "cpp"),
     ("train_quantized_python", True, "python"),
 )
+# heal transport of each train phase: the float phases heal over the
+# communicator (CommTransport), the quantized ones over HTTP, so one run
+# compares both transports on the same state and tier
+TRAIN_HEAL_TRANSPORT = {"train_cpp": "comm", "train_python": "comm",
+                        "train_quantized_cpp": "http", "train_quantized_python": "http"}
+HSDP_HEAL_TRANSPORT = "comm"
+# the final parameter sha256 of each DDP sync and of hsdp_cpp, as every
+# earlier run of this script gave them (PERF.md): a heal is bit-exact,
+# whatever carries it, so any change is a fault
+EXPECTED_SHA256 = {
+    "float": "c894c076df993341b8ff2f55f273eb61c75ae166362465d92f5dd5d7eb372186",
+    "quantized": "fd116fceb3a39d54db5b2410d0430367c4b7de4b39877a922b5de6e3c6f642fd",
+    "hsdp": "8dcd35ec7d2893ed5a17b1dc883fbb0ef8b7e2e24f24262a794f5674f8eb47a0",
+}
 PLANES = {
     "cpp": dict(lighthouse="CppLighthouseServer", manager_server="CppManagerServer",
                 communicator="CppCommunicator"),
@@ -201,11 +234,23 @@ COLD_BYTES = 2 * L2_BYTES
 REDUCE_GRAPH_LAUNCHES = 16
 REDUCE_GRAPH_REPLAYS = 10
 MAIN_CASE = dict(name="llama3_8b", B=1, H=32, KV=8, Sq=2048, Sk=2048, D=128, causal=True)
+# ring_phase: Llama-3-8B attention width, S = 8192 over sp = 4 ranks in one
+# process (blocks of 2048, the train phases' sequence)
+RING_CASE = dict(B=1, S=8192, H=32, KV=8, D=128, sp=4)
+# and on blocks of 640 tokens, a length the CPU's (JAX) flash gate refuses:
+# on the card the ring runs the kernels at any block length
+RING_RAGGED_CASE = dict(B=1, S=2560, H=32, KV=8, D=128, sp=4)
+# the ring (kernels) against whole-sequence flash: they round differently
+# (the ring merges up to 4 bf16 partial outputs in f32, and autograd sums a
+# block's gradient partials in bf16), so elementwise |err| <=
+# RING_ATOL_REL·max|whole| + RTOL·|whole| and normwise <= NORM_RTOL
+RING_ATOL_REL = 1 / 64
 CASES = [
     MAIN_CASE,
     dict(name="full_rect_ragged", B=1, H=32, KV=8, Sq=1000, Sk=1800, D=128, causal=False),
     dict(name="gqa1_d64", B=2, H=8, KV=8, Sq=1024, Sk=1024, D=64, causal=True),
     dict(name="causal_ragged_b2", B=2, H=8, KV=2, Sq=1000, Sk=1000, D=128, causal=True),
+    dict(name="causal_short", B=1, H=32, KV=8, Sq=100, Sk=100, D=128, causal=True),
 ]
 
 
@@ -388,6 +433,194 @@ def kernel_phase(fa, iters: int) -> dict:
               f"causal work, {100 * row['bound_ms'] / row['ms']:.1f}% of its bound "
               f"({row['bound_ms']:.4f} ms); {yardstick} {row['library_ms']:.4f} ms{design}",
               flush=True)
+    return out
+
+
+def ring_launches_expected(sp: int) -> dict:
+    """Kernel launches of one forward and backward of the ring over ``sp``
+    ranks, by mask: rank r attends its diagonal block causally and the r
+    earlier blocks fully, and each block's backward launches dq and dkv
+    once (sp = 4: 4 causal and 6 full of each)."""
+    counts = {"causal": sp, "full": sp * (sp - 1) // 2}
+    return {name: dict(counts) for name in ("fwd", "dq", "dkv")}
+
+
+def check_ring_launches(launches: dict, causal_launches: dict, sp: int) -> dict:
+    """The ring's launches by kernel and mask (``fa.launches`` and
+    ``fa.causal_launches`` read right after its run); raises unless they
+    are :func:`ring_launches_expected`."""
+    got = {name: {"causal": causal_launches[name], "full": launches[name] - causal_launches[name]}
+           for name in ("fwd", "dq", "dkv")}
+    if got != ring_launches_expected(sp):
+        raise AssertionError(f"ring launches {got}, expected {ring_launches_expected(sp)}")
+    return got
+
+
+def _ring_run(ring, q, k, v, do, sp: int, attend):
+    """The ring over ``sp`` blocks in one process, forward and backward
+    with cotangent ``do``: (o, dq, dk, dv), whole-sequence tensors."""
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    blocks = [t.chunk(sp, dim=1) for t in (q, k, v)]
+    o = torch.cat(ring.ring_attention_blocks(*blocks, attend=attend), dim=1)
+    return (o.detach(), *torch.autograd.grad(o, (q, k, v), do))
+
+
+def _whole_run(fa, q, k, v, do):
+    """Whole-sequence causal flash attention, forward and backward."""
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    o = fa.flash_attention(q, k, v, causal=True)
+    return (o.detach(), *torch.autograd.grad(o, (q, k, v), do))
+
+
+def plain_attend(fa):
+    """The ring's block attention on the kernels' plain versions (the same
+    autograd chain as the kernels', on any device), tiled by the largest
+    divisor of the block length up to 512."""
+
+    def attend(q, k, v, causal):
+        tiles = (math.gcd(q.shape[1], 512), math.gcd(k.shape[1], 512))
+        scale, bq, bk = fa._validate(q, k, causal, None, *tiles)
+        o, lse = fa._FlashAttention.apply(
+            fa._heads_major(q), fa._heads_major(k), fa._heads_major(v), scale, causal, bq, bk,
+            fa.PLAIN)
+        return o.transpose(1, 2), lse.transpose(1, 2)
+
+    return attend
+
+
+def _ring_err(name: str, got: torch.Tensor, want: torch.Tensor) -> dict:
+    """max |err|, its share of max |want| and the normwise error of the
+    ring against whole-sequence flash; ``ok`` under the ring tolerance."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    top = want.abs().max().clamp_min(1e-30)
+    norm_rel = (err.norm() / want.norm().clamp_min(1e-30)).item()
+    ok = bool(torch.isfinite(got).all()) and not (
+        (err > RING_ATOL_REL * top + RTOL * want.abs()).any().item() or norm_rel > NORM_RTOL)
+    return dict(max_abs=err.max().item(), max_rel_to_top=(err.max() / top).item(),
+                norm_rel=norm_rel, ok=ok)
+
+
+def ring_check(fa, ring, case: dict, device: torch.device) -> dict:
+    """Ring attention over ``case["sp"]`` single-process ranks on the flash
+    wrappers (the kernels on the card), forward and backward: its launches
+    by mask (counted from 0 over exactly this run), its peak device memory,
+    and its o, dq, dk, dv held against whole-sequence causal flash (the
+    ring tolerance) and against the same ring on the plain versions (the
+    kernel tolerances).  Raises on a failed comparison, after printing all
+    of them."""
+    B, S, H, KV, D, sp = (case[k] for k in ("B", "S", "H", "KV", "D", "sp"))
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=device).to(torch.bfloat16)
+
+    q, do = randn(B, S, H, D), randn(B, S, H, D)
+    k, v = randn(B, S, KV, D), randn(B, S, KV, D)
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    fa.reset_launches()
+    got = _ring_run(ring, q, k, v, do, sp, ring.flash_attend)
+    if cuda:
+        torch.cuda.synchronize()
+    launches, causal = dict(fa.launches), dict(fa.causal_launches)
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9 if cuda else None
+    whole = _whole_run(fa, q, k, v, do)
+    plain = _ring_run(ring, q, k, v, do, sp, plain_attend(fa))
+    names = ("o", "dq", "dk", "dv")
+    vs_whole = {n: _ring_err(n, g, w) for n, g, w in zip(names, got, whole)}
+    print(f"ring (S={S}, sp={sp}) vs whole-sequence flash: {json.dumps(vs_whole)}", flush=True)
+    vs_plain: dict = {}
+    for n, g, w in zip(names, got, plain):
+        _max_err(f"ring {n}", g, w, vs_plain)
+    print(f"ring (S={S}, sp={sp}) vs its plain versions: {json.dumps(vs_plain)}", flush=True)
+    bad = [n for n, e in vs_whole.items() if not e["ok"]]
+    if bad:
+        raise AssertionError(
+            f"ring {bad} disagree with whole-sequence flash (tolerance {RING_ATOL_REL}·max|whole| "
+            f"+ {RTOL}·|whole|, normwise {NORM_RTOL}): {json.dumps(vs_whole)}")
+    return dict(case=case, launches=launches, causal_launches=causal, vs_whole=vs_whole,
+                vs_plain=vs_plain, peak_device_gb=peak_gb,
+                max_abs_err=max(e["max_abs"] for e in vs_plain.values()))
+
+
+def ring_phase(fa, ring, iters: int) -> dict:
+    """:func:`ring_check` at :data:`RING_CASE` on the card, the launch
+    counts checked, and the ring (kernels) timed against whole-sequence
+    flash, forward alone and forward with backward, and the plain ring."""
+    case = RING_CASE
+    device = torch.device("cuda")
+    out = ring_check(fa, ring, case, device)
+    out["ring_launches"] = check_ring_launches(out["launches"], out["causal_launches"], case["sp"])
+    ragged = ring_check(fa, ring, RING_RAGGED_CASE, device)
+    check_ring_launches(ragged["launches"], ragged["causal_launches"], RING_RAGGED_CASE["sp"])
+    out["ragged"] = {k: ragged[k] for k in ("case", "launches", "vs_whole", "vs_plain")}
+    gen = torch.Generator(device=device).manual_seed(1)
+    B, S, H, KV, D, sp = (case[k] for k in ("B", "S", "H", "KV", "D", "sp"))
+    q, do = (torch.randn(B, S, H, D, generator=gen, device=device).bfloat16() for _ in range(2))
+    k, v = (torch.randn(B, S, KV, D, generator=gen, device=device).bfloat16() for _ in range(2))
+
+    def ring_fwd():
+        with torch.no_grad():
+            ring.ring_attention_blocks(*(t.chunk(sp, dim=1) for t in (q, k, v)))
+
+    def whole_fwd():
+        with torch.no_grad():
+            fa.flash_attention(q, k, v, causal=True)
+
+    # the ring attends the same (q, k) pairs as whole-sequence causal flash
+    # (its diagonal blocks' triangles and its full blocks), so they share
+    # the bound; each kernel's bound as _bound counts it
+    whole = dict(B=B, H=H, KV=KV, Sq=S, Sk=S, D=D, causal=True)
+    bounds = {name: _bound(whole, name)[0] for name in ("fwd", "dq", "dkv")}
+    out.update(
+        bound_fwd_ms=bounds["fwd"],
+        bound_fwd_bwd_ms=sum(bounds.values()),
+        ring_fwd_ms=_time_ms(ring_fwd, iters),
+        whole_fwd_ms=_time_ms(whole_fwd, iters),
+        ring_fwd_bwd_ms=_time_ms(lambda: _ring_run(ring, q, k, v, do, sp, ring.flash_attend), iters),
+        whole_fwd_bwd_ms=_time_ms(lambda: _whole_run(fa, q, k, v, do), iters),
+        plain_ring_fwd_bwd_ms=_time_ms(
+            lambda: _ring_run(ring, q, k, v, do, sp, plain_attend(fa)), 2, 1),
+    )
+    return out
+
+
+# card_gate_check: sequence lengths the CPU's (JAX) flash gate refuses
+GATE_SEQS = (16, 100, 640)
+
+
+def card_gate_check(fa, train_ddp) -> dict:
+    """The model's attention gate on the card: a one-layer model at
+    Llama-3-8B attention width (vocab and FFN cut to 1024) takes a loss and
+    its backward at each of :data:`GATE_SEQS`, and must launch each flash
+    kernel once (never plain attention) with a finite loss; the kernels'
+    numbers at such lengths are held by ``causal_short`` and the ragged
+    ring.  Raises otherwise."""
+    import dataclasses
+
+    from torchft_tpu_torch.models.llama import Llama
+
+    cfg = dataclasses.replace(train_ddp.model_config("llama3_8b", 1), vocab_size=1024,
+                              ffn_hidden=1024)
+    model = Llama(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    gen = torch.Generator("cuda").manual_seed(0)
+    out = {}
+    for seq in GATE_SEQS:
+        tokens = torch.randint(0, cfg.vocab_size, (1, seq), generator=gen, device="cuda")
+        fa.reset_launches()
+        loss = model.loss(tokens, tokens.roll(-1, 1))
+        loss.backward()
+        torch.cuda.synchronize()
+        launches = dict(fa.launches)
+        if launches != {"fwd": 1, "dq": 1, "dkv": 1} or not torch.isfinite(loss):
+            raise AssertionError(f"the model at S={seq} on the card launched {launches} "
+                                 f"(loss {loss.item()}), not each flash kernel once")
+        out[seq] = dict(launches=launches, loss=loss.item())
+    del model
     return out
 
 
@@ -622,11 +855,35 @@ def native_phase(native) -> dict:
     return dict(library=str(path), build_s=build_s)
 
 
-def train_phase(train_ddp, fa, qk, spans, card: str, should_quantize: bool, tier: str) -> dict:
+def check_heal(bytes_total: int | None, state_bytes: int, transport: str, where: str) -> None:
+    """A heal moved the replica's whole state: over the communicator
+    exactly its array payload bytes, over HTTP those and its stream's
+    framing (the pickled skeleton and 8 bytes a leaf).  ``bytes_total`` is
+    the heal's, None where none was recorded."""
+    if not bytes_total or bytes_total <= 0:
+        raise AssertionError(f"{where} restarted but recorded no heal")
+    if transport == "comm" and bytes_total != state_bytes:
+        raise AssertionError(f"{where} healed {bytes_total} bytes over comm, "
+                             f"not its state's {state_bytes}")
+    if transport == "http" and bytes_total <= state_bytes:
+        raise AssertionError(f"{where} healed {bytes_total} bytes over HTTP, "
+                             f"not its state's {state_bytes} and the framing")
+
+
+def check_expected_hashes(hashes: dict) -> None:
+    """Each final parameter sha256 against :data:`EXPECTED_SHA256`."""
+    for key, sha in hashes.items():
+        if sha != EXPECTED_SHA256[key]:
+            raise AssertionError(f"{key}: final parameter sha256 {sha}, expected "
+                                 f"{EXPECTED_SHA256[key]}")
+
+
+def train_phase(train_ddp, fa, qk, spans, card: str, should_quantize: bool, tier: str,
+                heal_transport: str) -> dict:
     """The port's main path: 2 replica threads at Llama-3-8B width with a
-    kill and heal, averaging gradients in f32/bf16 or through the int8
-    quantized wire, every plane on ``tier``; the launch counts and the
-    spans cover exactly this run."""
+    kill and heal over ``heal_transport``, averaging gradients in f32/bf16
+    or through the int8 quantized wire, every plane on ``tier``; the launch
+    counts and the spans cover exactly this run."""
     steps, layers = STEPS, LAYERS
     cfg = train_ddp.model_config("llama3_8b", layers)
     device = torch.device("cuda")
@@ -641,7 +898,7 @@ def train_phase(train_ddp, fa, qk, spans, card: str, should_quantize: bool, tier
     t0 = time.perf_counter()
     results = train_ddp.run_fleet(
         cfg, device, replicas=2, steps=steps, batch=1, seq=2048, kill_at=(1, 2),
-        should_quantize=should_quantize, tier=tier,
+        should_quantize=should_quantize, tier=tier, heal_transport=heal_transport,
     )
     wall_s = time.perf_counter() - t0
     launches = {**fa.launches, **qk.launches}
@@ -657,8 +914,8 @@ def train_phase(train_ddp, fa, qk, spans, card: str, should_quantize: bool, tier
         if r.planes != PLANES[tier]:
             raise AssertionError(f"replica {i} ran {r.planes}, not the {tier} tier")
     heal = results[1].heal
-    if heal is None or heal.bytes_total <= 0:
-        raise AssertionError("replica 1 restarted but recorded no heal")
+    check_heal(None if heal is None else heal.bytes_total, results[1].state_bytes, heal_transport,
+               "replica 1")
     shas = {r.params_sha256 for r in results}
     if len(shas) != 1:
         raise AssertionError(f"replicas diverged: parameter sha256 {shas}")
@@ -698,7 +955,9 @@ def train_phase(train_ddp, fa, qk, spans, card: str, should_quantize: bool, tier
             name: sorted(row[name] for row in steady_split)[len(steady_split) // 2] * 1e3
             for name in SPLIT_SPANS
         },
-        heal=dict(seconds=heal.duration_s, bytes=heal.bytes_total, sources=heal.num_sources),
+        heal=dict(seconds=heal.duration_s, bytes=heal.bytes_total, sources=heal.num_sources,
+                  gb_per_s=heal.bytes_per_sec / 1e9, transport=heal_transport,
+                  state_bytes=results[1].state_bytes),
         tokens_per_s_per_replica=2048 / step_s,
         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
         wall_s=wall_s,
@@ -917,10 +1176,12 @@ def hsdp_phase(train_hsdp, train_ddp, card: str, ddp_sha256: str) -> dict:
     t0 = time.perf_counter()
     fleet = dict(HSDP_PHASE)
     groups = train_hsdp.run_hsdp_fleet(cfg, torch.device("cuda"), tier="cpp", timeout=300.0,
-                                       **fleet)
+                                       heal_transport=HSDP_HEAL_TRANSPORT, **fleet)
     wall_s = time.perf_counter() - t0
     check_hsdp(groups, fleet["steps"])
-    r0 = groups[0][0]
+    r0, healed = groups[0][0], groups[1][0]
+    check_heal((healed["heal"] or {}).get("bytes"), healed["state_bytes"],
+               healed["heal_transport"], "hsdp group 1")
     last = r0["phase_s"][-3:]
     return dict(
         card=card, tier="cpp", fleet=fleet, model="llama3_8b width, %d layers, bf16" % LAYERS,
@@ -933,7 +1194,9 @@ def hsdp_phase(train_hsdp, train_ddp, card: str, ddp_sha256: str) -> dict:
             k: _median(p[k] for p in last) * 1e3 for k in ("compute", "allreduce", "commit")},
         phase_s_group0=r0["phase_s"],
         last_quorum_timings=[g[0]["last_quorum_timings"] for g in groups],
-        heal=groups[1][0]["heal"],
+        heal=dict(healed["heal"], transport=healed["heal_transport"],
+                  state_bytes=healed["state_bytes"],
+                  gb_per_s=healed["heal"]["bytes"] / healed["heal"]["seconds"] / 1e9),
         max_memory_allocated_gb=[r["max_memory_allocated_gb"] for g in groups for r in g],
         launches=[r["launches"] for g in groups for r in g],
         planes=[r["planes"] for g in groups for r in g],
@@ -955,6 +1218,7 @@ def main() -> int:
     from torchft_tpu_torch.ops import cuda_build
     from torchft_tpu_torch.ops import flash_attention as fa
     from torchft_tpu_torch.ops import quant as qk
+    from torchft_tpu_torch.parallel import ring_attention as ring
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -976,26 +1240,44 @@ def main() -> int:
 
     kernels = kernel_phase(fa, ITERS)
     quant = quant_phase(qk, ITERS)
+    ring_t = ring_phase(fa, ring, ITERS)
+    print(f"ring_phase: {json.dumps(ring_t)}", flush=True)
+    print(f"ring_phase (sp={RING_CASE['sp']} in one process, S={RING_CASE['S']}): launches "
+          f"{json.dumps(ring_t['ring_launches'])}; fwd {ring_t['ring_fwd_ms']:.3f} ms against "
+          f"whole-sequence flash {ring_t['whole_fwd_ms']:.3f} ms; fwd+bwd "
+          f"{ring_t['ring_fwd_bwd_ms']:.3f} ms against {ring_t['whole_fwd_bwd_ms']:.3f} ms "
+          f"(plain ring {ring_t['plain_ring_fwd_bwd_ms']:.1f} ms); bound fwd "
+          f"{ring_t['bound_fwd_ms']:.4f} ms, fwd+bwd {ring_t['bound_fwd_bwd_ms']:.4f} ms; peak device "
+          f"{ring_t['peak_device_gb']:.3f} GB", flush=True)
+    gate = card_gate_check(fa, train_ddp)
+    print(f"card gate: the model at S = {', '.join(map(str, GATE_SEQS))} launched each flash "
+          f"kernel once: {json.dumps(gate)}", flush=True)
     handoff = native_phase(native)
     print(f"native runtime: built {handoff['library']} in {handoff['build_s']:.1f} s (g++); "
           "pinned f32/bf16 tensors hand off as views, a tensor on the card is refused",
           flush=True)
     results = {"card": card, "build_s": build_s, "native": handoff, "kernels": kernels,
-               "quant": quant}
+               "quant": quant, "ring": ring_t, "card_gate": gate}
     spans.configure(True, cap=SPAN_CAP)
     for key, quantized, tier in TRAIN_PHASES:
-        results[key] = train_phase(train_ddp, fa, qk, spans, card, quantized, tier)
+        results[key] = train_phase(train_ddp, fa, qk, spans, card, quantized, tier,
+                                   TRAIN_HEAL_TRANSPORT[key])
         print(f"{key}: {json.dumps(results[key])}", flush=True)
         t = results[key]
+        h = t["heal"]
         print(f"{key} ({tier} tier, {t['sync']}): step {t['step_ms_median_last3']:.1f} ms, "
               f"phases {json.dumps(t['phase_ms_median_last3'])}, commit split (ms per replica) "
-              f"{json.dumps(t['commit_split_ms_median_last3'])}; heal {t['heal']['seconds']:.3f} s "
-              f"for {t['heal']['bytes']} bytes; wall {t['wall_s']:.1f} s", flush=True)
+              f"{json.dumps(t['commit_split_ms_median_last3'])}; heal over {h['transport']} "
+              f"{h['seconds']:.3f} s for {h['bytes']} bytes ({h['gb_per_s']:.3f} GB/s; state "
+              f"{h['state_bytes']} bytes); wall {t['wall_s']:.1f} s", flush=True)
     spans.configure(False)
     hashes = check_cross_tier(results)
+    if len({results[key]["heal"]["state_bytes"] for key, _, _ in TRAIN_PHASES}) != 1:
+        raise AssertionError("the train phases healed states of different sizes")
+    check_expected_hashes({sync: by_tier["cpp"] for sync, by_tier in hashes.items()})
     for sync, by_tier in hashes.items():
         print(f"{sync} sync parameter sha256: cpp {by_tier['cpp']}, python {by_tier['python']} "
-              "(equal)", flush=True)
+              "(equal, and as expected)", flush=True)
     for key, fleet in DILOCO_PHASES:
         results[key] = t = diloco_phase(train_diloco, train_ddp, fa, qk, card, fleet)
         print(f"{key}: {json.dumps(t)}", flush=True)
@@ -1017,10 +1299,12 @@ def main() -> int:
           flush=True)
     results["hsdp_cpp"] = t = hsdp_phase(
         train_hsdp, train_ddp, card, results["train_cpp"]["params_sha256"])
+    check_expected_hashes({"hsdp": t["params_sha256"]})
     print(f"hsdp_cpp: {json.dumps(t)}", flush=True)
     print(f"hsdp_cpp (cpp tier, FSDP2 at world 1 per group): step "
           f"{t['step_ms_median_last3']:.1f} ms, phases {json.dumps(t['phase_ms_median_last3'])}; "
-          f"heal {t['heal']['seconds']:.3f} s for {t['heal']['bytes']} bytes; peak device GB per "
+          f"heal over {t['heal']['transport']} {t['heal']['seconds']:.3f} s for "
+          f"{t['heal']['bytes']} bytes ({t['heal']['gb_per_s']:.3f} GB/s); peak device GB per "
           f"process {json.dumps(t['max_memory_allocated_gb'])}; last_quorum_timings "
           f"{json.dumps(t['last_quorum_timings'])}; final hash "
           f"{'equals' if t['equals_train_cpp_sha256'] else 'differs from'} train_cpp's; "
@@ -1045,6 +1329,9 @@ def main() -> int:
         )
         for name in names
     ]}
+    # the ring path's launches of each flash kernel, by mask
+    for row in line["kernels"][:3]:
+        row["ring_launches"] = ring_t["ring_launches"][row["name"].removeprefix("flash_")]
     print(json.dumps(line), flush=True)
     print(card, flush=True)  # nvidia-smi's own line: name, power limit
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

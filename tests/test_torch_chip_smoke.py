@@ -3,7 +3,9 @@ source exists in the repository, and every ``replaces`` entry (file:line)
 points at the ``def`` of a Pallas TPU kernel of the JAX package, a function
 that one of that file's ``pl.pallas_call`` launchers hands to the call.
 Its quant cases cover the main path's shapes and the wide window, and the
-reduce's cold-L2 timing rotates over more bytes than the card's L2.
+reduce's cold-L2 timing rotates over more bytes than the card's L2.  The
+ring phase's launch arithmetic and checks run on the CPU at a small S (the
+plain versions), and each train phase names its heal transport.
 
 The kernel table and the JAX files are read as text and parsed; the cases
 and the rotation come from importing ``chip_smoke.py``, which needs only
@@ -306,3 +308,123 @@ def test_kernels_line_lists_six_and_the_last_line_is_the_contract() -> None:
     assert "'count': torch.cuda.device_count()" in source
     for names in ("('fwd', 'dq', 'dkv')", "('quantize', 'reduce', 'dequantize')"):
         assert names in source
+
+
+def test_ring_launch_arithmetic(chip_smoke) -> None:
+    """sp = 4: each rank attends its diagonal block causally and every
+    earlier block fully, 4 causal and 6 full forwards, and each block's
+    backward launches dq and dkv once."""
+    want = {"causal": 4, "full": 6}
+    assert chip_smoke.ring_launches_expected(4) == {"fwd": want, "dq": want, "dkv": want}
+    assert chip_smoke.ring_launches_expected(2) == {
+        name: {"causal": 2, "full": 1} for name in ("fwd", "dq", "dkv")}
+    total = dict(fwd=10, dq=10, dkv=10)
+    assert chip_smoke.check_ring_launches(total, dict(fwd=4, dq=4, dkv=4), 4)["dq"] == want
+    with pytest.raises(AssertionError, match="ring launches"):
+        chip_smoke.check_ring_launches(total, dict(fwd=4, dq=4, dkv=3), 4)
+    with pytest.raises(AssertionError, match="ring launches"):
+        chip_smoke.check_ring_launches(dict(total, fwd=16), dict(fwd=4, dq=4, dkv=4), 4)
+    assert chip_smoke.RING_CASE == dict(B=1, S=8192, H=32, KV=8, D=128, sp=4)
+
+
+RING_SMALL = dict(B=1, S=512, H=4, KV=2, D=64, sp=4)
+
+
+def test_ring_check_on_the_plain_versions(chip_smoke) -> None:
+    """``ring_phase``'s checks on the CPU at a small S (the wrappers take
+    the plain versions for CPU tensors, so nothing launches): the ring
+    equals the plain ring and lies within the ring tolerance of
+    whole-sequence flash."""
+    import torch
+
+    from torchft_tpu_torch.ops import flash_attention as fa
+    from torchft_tpu_torch.parallel import ring_attention as ring
+
+    out = chip_smoke.ring_check(fa, ring, RING_SMALL, torch.device("cpu"))
+    assert out["launches"] == {"fwd": 0, "dq": 0, "dkv": 0} and out["peak_device_gb"] is None
+    assert out["max_abs_err"] == 0.0
+    assert all(e["ok"] and e["norm_rel"] < 1e-2 for e in out["vs_whole"].values())
+
+
+def test_ragged_ring_case_and_its_plain_ring(chip_smoke, monkeypatch) -> None:
+    """The ragged ring case's blocks, and the card gate check's lengths,
+    are lengths the CPU's flash gate refuses even when forced (640 tokens
+    is not a multiple of 512), and the plain ring that
+    holds the card's ring there tiles such blocks: at 160-token blocks it
+    equals the online-softmax ring within 1e-5 (f32, the CPU)."""
+    import torch
+
+    from torchft_tpu_torch.models.llama import use_flash
+    from torchft_tpu_torch.ops import flash_attention as fa
+    from torchft_tpu_torch.parallel import ring_attention as ring
+
+    case = chip_smoke.RING_RAGGED_CASE
+    blk = case["S"] // case["sp"]
+    assert blk == 640 and {k: case[k] for k in ("H", "KV", "D")} == dict(H=32, KV=8, D=128)
+    monkeypatch.setenv("TORCHFT_FLASH", "1")
+    for seq in (blk, *chip_smoke.GATE_SEQS):
+        assert not use_flash(seq, torch.device("cpu")) and use_flash(seq, torch.device("cuda"))
+    gen = torch.Generator().manual_seed(0)
+    sp, S = 4, 640
+    q, do = (torch.randn(1, S, 4, 64, generator=gen) for _ in range(2))
+    k, v = (torch.randn(1, S, 2, 64, generator=gen) for _ in range(2))
+    got = chip_smoke._ring_run(ring, q, k, v, do, sp, chip_smoke.plain_attend(fa))
+    qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
+    qs, ks, vs = (t.chunk(sp, dim=1) for t in (qa, ka, va))
+    o = torch.cat([ring.ring_local(qs[r], lambda t, r=r: (ks[(r - t) % sp], vs[(r - t) % sp]), r, sp)
+                   for r in range(sp)], dim=1)
+    want = (o.detach(), *torch.autograd.grad(o, (qa, ka, va), do))
+    for name, g, w in zip(("o", "dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5, msg=name)
+
+
+def test_ring_check_fails_a_ring_that_drops_the_earlier_blocks(chip_smoke, monkeypatch) -> None:
+    import torch
+
+    from torchft_tpu_torch.ops import flash_attention as fa
+    from torchft_tpu_torch.parallel import ring_attention as ring
+
+    monkeypatch.setattr(ring, "block_kind", lambda my, src: "causal" if my == src else "skip")
+    with pytest.raises(AssertionError, match="disagree with whole-sequence flash"):
+        chip_smoke.ring_check(fa, ring, RING_SMALL, torch.device("cpu"))
+
+
+def test_heal_transport_of_each_phase(chip_smoke) -> None:
+    """The float DDP phases and hsdp_cpp heal over the communicator, the
+    quantized phases over HTTP (one run holds both on the same state); the
+    entry points take the keyword."""
+    import inspect
+
+    from torchft_tpu_torch import train_ddp, train_hsdp
+
+    assert set(chip_smoke.TRAIN_HEAL_TRANSPORT) == {key for key, _, _ in chip_smoke.TRAIN_PHASES}
+    for key, quantized, _tier in chip_smoke.TRAIN_PHASES:
+        assert chip_smoke.TRAIN_HEAL_TRANSPORT[key] == ("http" if quantized else "comm")
+    assert chip_smoke.HSDP_HEAL_TRANSPORT == "comm"
+    assert "heal_transport" in inspect.signature(train_ddp.run_fleet).parameters
+    assert "heal_transport" in inspect.signature(train_hsdp.run_hsdp_fleet).parameters
+    source = (REPO / "chip_smoke.py").read_text()
+    assert "TRAIN_HEAL_TRANSPORT[key])" in source and "heal_transport=HSDP_HEAL_TRANSPORT" in source
+
+
+@pytest.mark.parametrize("transport, nbytes, match", [
+    ("comm", 99, "over comm"),
+    ("comm", 101, "over comm"),
+    ("http", 100, "over HTTP"),
+    ("comm", 0, "no heal"),
+    ("http", None, "no heal"),
+])
+def test_heal_check_needs_the_whole_state(chip_smoke, transport, nbytes, match) -> None:
+    chip_smoke.check_heal(100, 100, "comm", "r")
+    chip_smoke.check_heal(130, 100, "http", "r")
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.check_heal(nbytes, 100, transport, "r")
+
+
+def test_expected_hashes_are_held(chip_smoke) -> None:
+    expected = chip_smoke.EXPECTED_SHA256
+    assert expected["float"].startswith("c894c076") and expected["quantized"].startswith("fd116fce")
+    assert expected["hsdp"].startswith("8dcd35ec") and all(len(h) == 64 for h in expected.values())
+    chip_smoke.check_expected_hashes(dict(expected))
+    with pytest.raises(AssertionError, match="float: final parameter sha256"):
+        chip_smoke.check_expected_hashes({"float": expected["quantized"]})

@@ -112,9 +112,13 @@ def test_flash_and_naive_paths_agree(monkeypatch) -> None:
 
 
 def test_sequence_parallelism_is_refused() -> None:
+    """Sequence parallelism without a mesh to ring over is refused when the
+    model runs (with one, ``tests/test_torch_ring_attention.py``)."""
     cfg = dataclasses.replace(tllama.llama_debug(), sp_axis="sp")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tllama.Llama(cfg, device="cpu")
+    model = tllama.Llama(cfg, device="cpu")
+    tokens = torch.zeros(1, 128, dtype=torch.int64)
+    with pytest.raises(ValueError, match="needs a mesh"):
+        model.loss(tokens, tokens)
 
 
 def test_cuda_is_the_default_device() -> None:

@@ -12,8 +12,10 @@ sharded outer sync, the Llama-3 model, and the flash-attention and
 quantized-wire kernels, hand-written in CUDA for Hopper.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
-The train loops are ``python -m torchft_tpu_torch.train_ddp`` and
-``python -m torchft_tpu_torch.train_diloco``.
+The train loops are ``python -m torchft_tpu_torch.train_ddp``,
+``python -m torchft_tpu_torch.train_diloco`` and
+``python -m torchft_tpu_torch.train_hsdp`` (FSDP2, tensor and sequence
+parallelism inside a replica group).
 """
 
 __version__ = "0.1.0"
@@ -39,6 +41,7 @@ _LAZY = {
     # checkpointing
     "CheckpointTransport": ("torchft_tpu_torch.checkpointing.transport", "CheckpointTransport"),
     "HTTPTransport": ("torchft_tpu_torch.checkpointing.http_transport", "HTTPTransport"),
+    "CommTransport": ("torchft_tpu_torch.checkpointing.comm_transport", "CommTransport"),
     # model and kernels
     "Llama": ("torchft_tpu_torch.models.llama", "Llama"),
     "flash_attention": ("torchft_tpu_torch.ops.flash_attention", "flash_attention"),

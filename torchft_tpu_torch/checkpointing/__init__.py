@@ -3,6 +3,7 @@
 _LAZY = {
     "CheckpointTransport": ("torchft_tpu_torch.checkpointing.transport", "CheckpointTransport"),
     "HTTPTransport": ("torchft_tpu_torch.checkpointing.http_transport", "HTTPTransport"),
+    "CommTransport": ("torchft_tpu_torch.checkpointing.comm_transport", "CommTransport"),
 }
 
 __all__ = list(_LAZY)

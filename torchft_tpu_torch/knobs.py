@@ -200,7 +200,8 @@ _k("TORCHFT_SPARE_DELTA_BUF_MB", "float", "128",
    "Bounded outer-delta feed ring an active publishes for spares (MiB)")
 # --- attention / model kernels ----------------------------------------------
 _k("TORCHFT_FLASH", "str", "auto",
-   "Force (1) / kill (0) the Pallas flash-attention path")
+   "On the CPU force (1) the flash path's plain version where the shapes allow; "
+   "a CUDA device always runs the flash kernels, and 0 raises there")
 _k("TORCHFT_FLASH_PLATFORM", "str", "jax backend",
    "Override the platform the flash kernel lowers for (tpu | cpu interpret)")
 _k("TORCHFT_FLASH_BLOCK_Q", "int", "512",

@@ -22,8 +22,9 @@ fenced by the ddp composite work, so the reference's stream/event
 choreography collapses to thread joins (the ``_quorum_future``) and a plain
 recovery event.  bf16 buckets arrive as their bit pattern (``bf16.py``)
 and are divided as the JAX package divides ml_dtypes bf16.  The sharded
-outer sync lands in a later slice of the port; its entry point raises
-``NotImplementedError``.
+outer sync of DiLoCo runs through ``outer_shard_allreduce``.  A heal
+streams over ``HTTPTransport`` unless the caller passes another
+``checkpoint_transport`` (``CommTransport`` heals over the communicator).
 """
 
 from __future__ import annotations

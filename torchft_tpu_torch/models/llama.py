@@ -6,18 +6,20 @@ attention, a SiLU-gated FFN, f32 logits and a mean next-token
 cross-entropy.  Weights live in ``cfg.dtype`` (bf16 by default) and the
 norm weights in f32, as in the JAX ``init``.
 
-Attention dispatches like the JAX model's ``_use_flash``: the fused flash
-kernels (``ops/flash_attention.py``) when the shapes allow and
-``TORCHFT_FLASH`` does not say 0, the naive path otherwise.  ``auto``
-(unset) means the CUDA kernels on a CUDA device and the naive path on the
-CPU; ``TORCHFT_FLASH=1`` forces flash, whose plain version runs on the CPU.
+Attention on a CUDA device always runs the fused flash kernels
+(``ops/flash_attention.py``), which take any sequence length and raise on
+what they do not take; nothing there falls back to plain attention.  On the
+CPU it dispatches like the JAX model's ``_use_flash``: the naive path
+unless ``TORCHFT_FLASH=1`` forces flash (its plain version) on the shapes
+the JAX gate lets through.
 
 Sharding inside a replica group (``parallel/hsdp.py``): :meth:`Llama.param_specs`
 is the JAX model's Megatron layout as a tensor-parallel plan over the
 mesh's ``tp`` axis (wq/wk/wv and gate/up column-parallel, wo/w_down
 row-parallel, the embedding and the head split over the vocabulary, the
 norms replicated), and :meth:`Llama.batch_specs` splits the batch over
-(dp, fsdp).  Under tensor parallelism each rank's attention runs on its
+(dp, fsdp) and, under sequence parallelism, the sequence over sp.  Under
+tensor parallelism each rank's attention runs on its
 local heads (``n_heads/tp`` and ``n_kv_heads/tp``) through the same flash
 kernels; when the heads do not divide by tp the attention projections stay
 whole on every rank and the same kernels run on all the heads.  (The JAX
@@ -25,7 +27,14 @@ model takes its naive path there because its sharded flash entry needs
 heads that divide; the port calls the bare kernels, which have no such
 limit.)
 
-Sequence parallelism, remat and MoE are not part of the port yet.
+Sequence parallelism (``config.sp_axis``): the model is given a mesh
+(``Llama(mesh=...)``, or :func:`~torchft_tpu_torch.parallel.hsdp.shard_model`
+attaches its own), each rank's forward sees its block of the sequence,
+RoPE takes the block's global positions, and attention is ring attention
+(``parallel/ring_attention.py``) over the mesh's sp process group, on the
+flash kernels (always on a CUDA device).
+
+Remat and MoE are not part of the port yet.
 """
 
 from __future__ import annotations
@@ -52,7 +61,8 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     max_seq_len: int = 8192
     dtype: torch.dtype = torch.bfloat16
-    # sequence parallelism (ring attention) is not ported; set -> raises
+    # sequence parallelism: the mesh axis the sequence is split over (ring
+    # attention); None keeps the whole sequence on each rank
     sp_axis: Optional[str] = None
 
     @property
@@ -97,19 +107,32 @@ def flash_blocks(seq: int) -> Tuple[int, int]:
 
 
 def use_flash(seq: int, device: torch.device) -> bool:
-    """The attention dispatch gate: ``TORCHFT_FLASH`` = 0 kills flash, 1
-    forces it, unset = auto (CUDA only).  Flash needs seq ≥ 128, seq % 8
-    == 0 and seq divisible by the resolved block sizes — the JAX gate, so
-    the same shapes go to flash in both packages."""
+    """The attention dispatch gate.  On a CUDA device: True, always — the
+    kernels tile by their own and mask ragged tails, so no sequence length
+    sends the card to plain attention, and ``TORCHFT_FLASH=0`` raises.  On
+    the CPU: the JAX gate, true only where ``TORCHFT_FLASH=1`` forces flash
+    and seq ≥ 128, seq % 8 == 0 and seq divides by the resolved block sizes,
+    so the same shapes go to flash in both packages."""
     env = os.environ.get("TORCHFT_FLASH", "")
-    if env == "0":
-        return False
+    if device.type == "cuda":
+        if env == "0":
+            raise ValueError(
+                "TORCHFT_FLASH=0 asks for plain attention, which runs only on the CPU; "
+                "on a CUDA device attention runs the flash kernels"
+            )
+        return True
     block_q, block_k = flash_blocks(seq)
     if seq < 128 or seq % 8 or seq % block_q or seq % block_k:
         return False
-    if env == "1":
-        return True
-    return device.type == "cuda"
+    return env == "1"
+
+
+def kernel_blocks(seq: int, device: torch.device) -> Tuple[int, int]:
+    """(block_q, block_k) handed to the flash wrapper: :func:`flash_blocks`
+    on the CPU, where they tile the plain version; the whole length on a
+    CUDA device, whose kernels take their own tiles, so that the wrapper's
+    divisibility check refuses no length the kernels take."""
+    return (seq, seq) if device.type == "cuda" else flash_blocks(seq)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -161,16 +184,24 @@ class LlamaLayer(nn.Module):
         self.attn_norm = nn.Parameter(torch.ones(cfg.dim, device=device))
         self.mlp_norm = nn.Parameter(torch.ones(cfg.dim, device=device))
 
-    def _attention(self, q, k, v) -> torch.Tensor:
+    def _attention(self, q, k, v, sp_group: Any = None) -> torch.Tensor:
+        if sp_group is not None:
+            from torchft_tpu_torch.parallel.ring_attention import ring_attention
+
+            return ring_attention(q, k, v, sp_group)
         seq = q.shape[1]
         if use_flash(seq, q.device):
             from torchft_tpu_torch.ops.flash_attention import flash_attention
 
-            block_q, block_k = flash_blocks(seq)
+            block_q, block_k = kernel_blocks(seq, q.device)
             return flash_attention(q, k, v, causal=True, block_q=block_q, block_k=block_k)
         return naive_attention(q, k, v, causal=True)
 
-    def forward(self, x: torch.Tensor, rope: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, rope: Tuple[torch.Tensor, torch.Tensor], sp_group: Any = None
+    ) -> torch.Tensor:
+        """``sp_group``: the sequence-parallel process group (ring
+        attention), or None."""
         cfg = self.cfg
         B, S, _ = x.shape
         hd = cfg.head_dim
@@ -180,30 +211,30 @@ class LlamaLayer(nn.Module):
         q = apply_rope(self.wq(h).view(B, S, -1, hd), cos, sin)
         k = apply_rope(self.wk(h).view(B, S, -1, hd), cos, sin)
         v = self.wv(h).view(B, S, -1, hd)
-        x = x + self.wo(self._attention(q, k, v).reshape(B, S, -1))
+        x = x + self.wo(self._attention(q, k, v, sp_group).reshape(B, S, -1))
         h = rms_norm(x, self.mlp_norm, cfg.norm_eps)
         return x + self.w_down(F.silu(self.w_gate(h)) * self.w_up(h))
 
 
 class Llama(nn.Module):
     """tokens [B, S] → logits [B, S, vocab] (f32); :meth:`loss` is the mean
-    next-token cross-entropy of ``(tokens, targets)``."""
+    next-token cross-entropy of ``(tokens, targets)``.  Under
+    ``config.sp_axis`` the tokens are this rank's sequence block and
+    ``mesh`` (a ``DeviceMesh`` with that axis) is required to run."""
 
     def __init__(
         self,
         config: LlamaConfig,
         device: Any = "cuda",
         generator: Optional[torch.Generator] = None,
+        mesh: Any = None,
     ) -> None:
         super().__init__()
-        if config.sp_axis is not None:
-            raise NotImplementedError(
-                "sequence parallelism lands in a later slice of the port"
-            )
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Llama: CUDA requested but not available (pass device='cpu')")
         self.config = config
+        self.mesh = mesh
         cfg = config
         self.embed = nn.Parameter(
             torch.empty(cfg.vocab_size, cfg.dim, device=device, dtype=cfg.dtype)
@@ -226,14 +257,18 @@ class Llama(nn.Module):
             w.normal_(generator=generator).div_(float(np.sqrt(fan_in)))
             p.copy_(w)
 
-    def rope(self, seq: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    def rope(
+        self, seq: int, device: torch.device, start: int = 0
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """cos and sin [1, seq, head_dim/2] at positions start..start+seq."""
         cfg = self.config
         half = cfg.head_dim // 2
         freqs = 1.0 / (
             cfg.rope_theta ** (torch.arange(0, half, dtype=torch.float32, device=device) / half)
         )
-        angles = torch.arange(seq, device=device, dtype=torch.float32)[None, :, None] * freqs
-        return torch.cos(angles), torch.sin(angles)  # [1, S, half]
+        positions = torch.arange(start, start + seq, device=device, dtype=torch.float32)
+        angles = positions[None, :, None] * freqs
+        return torch.cos(angles), torch.sin(angles)
 
     def param_specs(self, tp: int) -> Dict[str, Any]:
         """The JAX ``param_specs`` Megatron layout as a
@@ -262,13 +297,22 @@ class Llama(nn.Module):
         """Whether attention can run on ``tp``-way local heads."""
         return self.config.n_heads % tp == 0 and self.config.n_kv_heads % tp == 0
 
-    @staticmethod
-    def batch_specs() -> Tuple[Any, Any]:
+    def batch_specs(self) -> Tuple[Any, Any]:
         """(tokens, targets) specs: the batch splits over (dp, fsdp) — each
-        fsdp rank processes its own batch slice — and is replicated over
-        tp."""
-        spec = (("dp", "fsdp"), None)
+        fsdp rank processes its own batch slice — and the sequence over sp
+        when ``config.sp_axis`` is set; both are replicated over tp."""
+        spec = (("dp", "fsdp"), self.config.sp_axis)
         return spec, spec
+
+    def sp_group(self) -> Any:
+        """The sequence-parallel process group of the model's mesh, or None
+        without sequence parallelism."""
+        axis = self.config.sp_axis
+        if axis is None:
+            return None
+        if self.mesh is None:
+            raise ValueError(f"sequence parallelism over {axis!r} needs a mesh (Llama(mesh=...))")
+        return self.mesh[axis].get_group()
 
     def shard_embed(self, tp_mesh: Any) -> None:
         """Split the embedding's vocabulary rows over ``tp_mesh`` (the JAX
@@ -290,9 +334,13 @@ class Llama(nn.Module):
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         cfg = self.config
         x = self._embed(tokens).to(cfg.dtype)
-        rope = self.rope(tokens.shape[1], tokens.device)
+        seq = tokens.shape[1]
+        sp_group = self.sp_group()
+        # under sp the tokens are block i of the sequence: global positions
+        start = 0 if sp_group is None else seq * self.mesh[cfg.sp_axis].get_local_rank()
+        rope = self.rope(seq, tokens.device, start)
         for layer in self.layers:
-            x = layer(x, rope)
+            x = layer(x, rope, sp_group)
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
         return self.lm_head(x).float()
 

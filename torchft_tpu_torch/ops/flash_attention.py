@@ -23,7 +23,8 @@ Three hand-written CUDA kernels replace the three Pallas TPU kernels:
 computes it outside Pallas.  Beside each kernel sits its plain PyTorch
 version (``*_plain``): the same tiled arithmetic in eager torch.  A wrapper
 takes the plain version only for tensors on the CPU; for a CUDA tensor it
-launches the kernel or raises.  Each launch adds one to ``launches[name]``.
+launches the kernel or raises.  Each launch adds one to ``launches[name]``,
+and a causal one also to ``causal_launches[name]``.
 
 Kernel layout is heads-major ([B, H, S, D]); the public functions keep the
 model's [B, S, H, D] layout.  K/V carry ``KV`` heads (H % KV == 0), never
@@ -48,20 +49,24 @@ DKV_SOURCE = "flash_dkv_sm90"  # of the dk/dv kernel
 KERNEL_SOURCES = (FWD_SOURCE, DQ_SOURCE, DKV_SOURCE)
 KERNEL_HEAD_DIMS = (64, 128)  # head dims the CUDA sources instantiate
 
-# launch counts of each kernel since the last reset_launches()
+# launch counts of each kernel since the last reset_launches(), and of its
+# causal launches among them
 launches: Dict[str, int] = {"fwd": 0, "dq": 0, "dkv": 0}
+causal_launches: Dict[str, int] = {"fwd": 0, "dq": 0, "dkv": 0}
 _launch_lock = threading.Lock()
 
 
 def reset_launches() -> None:
     with _launch_lock:
-        for name in launches:
-            launches[name] = 0
+        for counts in (launches, causal_launches):
+            for name in counts:
+                counts[name] = 0
 
 
-def _count(name: str) -> None:
+def _count(name: str, causal: bool) -> None:
     with _launch_lock:
         launches[name] += 1
+        causal_launches[name] += bool(causal)
 
 
 # ---------------------------------------------------------------------------
@@ -277,7 +282,7 @@ def flash_fwd(q, k, v, sm_scale, causal, block_q=64, block_k=64):
         B, H, KV, Sq, Sk, D, float(sm_scale), int(causal), _stream(q),
     )
     _raise_on(rc, "fwd", lib)
-    _count("fwd")
+    _count("fwd", causal)
     return o, lse
 
 
@@ -307,7 +312,7 @@ def flash_dq(q, k, v, lse, do, delta, sm_scale, causal, block_q=64, block_k=64):
         B, H, KV, Sq, Sk, D, float(sm_scale), int(causal), _stream(q),
     )
     _raise_on(rc, "dq", lib)
-    _count("dq")
+    _count("dq", causal)
     return dq
 
 
@@ -336,7 +341,7 @@ def flash_dkv(q, k, v, lse, do, delta, sm_scale, causal, block_q=64, block_k=64)
         B, H, KV, Sq, Sk, D, float(sm_scale), int(causal), _stream(q),
     )
     _raise_on(rc, "dkv", lib)
-    _count("dkv")
+    _count("dkv", causal)
     return dk, dv
 
 
@@ -356,11 +361,14 @@ def backward_delta(do, o, dlse=None):
 
 class _FlashAttention(torch.autograd.Function):
     """Heads-major flash attention returning (o, lse); differentiable in
-    both (the lse cotangent folds into delta)."""
+    both (the lse cotangent folds into delta).  ``kernels`` is the (fwd, dq,
+    dkv) triple it runs: the wrappers, or :data:`PLAIN` to hold the same
+    chain to the plain versions on any device."""
 
     @staticmethod
-    def forward(ctx, q, k, v, sm_scale, causal, block_q, block_k):
-        o, lse = flash_fwd(q, k, v, sm_scale, causal, block_q, block_k)
+    def forward(ctx, q, k, v, sm_scale, causal, block_q, block_k, kernels=None):
+        fwd, ctx.dq, ctx.dkv = kernels or (flash_fwd, flash_dq, flash_dkv)
+        o, lse = fwd(q, k, v, sm_scale, causal, block_q, block_k)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.cfg = (sm_scale, causal, block_q, block_k)
         ctx.set_materialize_grads(False)
@@ -371,9 +379,13 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         do = torch.zeros_like(o) if do is None else do.contiguous()
         delta = backward_delta(do, o, dlse).contiguous()
-        dq = flash_dq(q, k, v, lse, do, delta, *ctx.cfg)
-        dk, dv = flash_dkv(q, k, v, lse, do, delta, *ctx.cfg)
-        return dq, dk, dv, None, None, None, None
+        dq = ctx.dq(q, k, v, lse, do, delta, *ctx.cfg)
+        dk, dv = ctx.dkv(q, k, v, lse, do, delta, *ctx.cfg)
+        return dq, dk, dv, None, None, None, None, None
+
+
+# the plain versions in the order _FlashAttention takes its kernels
+PLAIN = (flash_fwd_plain, flash_dq_plain, flash_dkv_plain)
 
 
 def _validate(q, k, causal, sm_scale, block_q, block_k):

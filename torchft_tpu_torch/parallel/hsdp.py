@@ -7,12 +7,18 @@ The port of ``torchft_tpu/parallel/hsdp.py``, in torchft's own layout
 
 - **inner**: :func:`shard_model` applies the model's tensor-parallel plan
   over the mesh's ``tp`` axis, then ``fully_shard`` (FSDP2) on every
-  ``LlamaLayer`` and on the root over the (dp, fsdp) submesh: parameters,
-  gradients and AdamW's moments are DTensors, and the backward pass
-  reduce-scatters (and averages) the gradients over (dp, fsdp) inside the
-  group.  The f32 RMSNorm weights stay whole on every rank (FSDP2 takes
-  one dtype per unit, and the matrices are bf16); the grad step averages
-  their gradients over (dp, fsdp) itself.
+  ``LlamaLayer`` and on the root over the (dp, fsdp·sp) submesh:
+  parameters, gradients and AdamW's moments are DTensors, and the backward
+  pass reduce-scatters (and averages) the gradients over (dp, fsdp·sp)
+  inside the group.  The f32 RMSNorm weights stay whole on every rank
+  (FSDP2 takes one dtype per unit, and the matrices are bf16); the grad
+  step averages their gradients over (dp, fsdp, sp) itself.
+- **sequence parallelism**: sp ranks hold different blocks of the same
+  rows (ring attention over the sp axis), so their gradients combine like
+  those of the data axes, and FSDP2 shards over fsdp and sp together
+  (torchtitan's ``dp_shard_cp``).  The JAX package replicates the
+  parameters over sp instead; the numbers are the same, the memory layout
+  differs.
 - **outer**: the Manager averages each rank's local gradient shard with
   the same rank of every other group (``ddp.ft_allreduce`` on DTensor
   gradients): rank r of every group holds the same region, so the
@@ -20,10 +26,10 @@ The port of ``torchft_tpu/parallel/hsdp.py``, in torchft's own layout
   The replica count never enters the inner mesh, so a change of
   membership rebuilds nothing.
 
-The gradient FSDP leaves is the mean over (dp, fsdp) of each rank's
-local-batch mean; it equals the JAX grad step's global-batch mean when
-every rank holds an equal share of the batch, so the batch must divide by
-dp·fsdp (:func:`local_rows` raises otherwise).
+The gradient FSDP leaves is the mean over (dp, fsdp, sp) of each rank's
+local-block mean; it equals the JAX grad step's global-batch mean when
+every rank holds an equal share of the tokens, so the batch must divide by
+dp·fsdp and the sequence by sp (:func:`local_rows` raises otherwise).
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ from torch import nn
 from torchft_tpu_torch.ddp import ft_allreduce, restore_tree_like
 from torchft_tpu_torch.manager import Manager
 from torchft_tpu_torch.obs.spans import device_fence
-from torchft_tpu_torch.parallel.mesh import mesh_axes
+from torchft_tpu_torch.parallel.mesh import FSDP_SP, fsdp_sp_mesh, mesh_axes
 
 Optimizer = torch.optim.Optimizer
 OptimizerFn = Callable[[Iterable[nn.Parameter]], Optimizer]
@@ -54,23 +60,37 @@ def adamw(lr: float = 1e-3) -> OptimizerFn:
 
 
 def fsdp_mesh(mesh: Any) -> Any:
-    """The submesh FSDP2 shards over: ``fsdp``, or (dp, fsdp) — replicated
-    over dp, sharded over fsdp (HSDP inside the group) — when dp > 1."""
-    return mesh["dp", "fsdp"] if mesh_axes(mesh).dp > 1 else mesh["fsdp"]
+    """The submesh FSDP2 shards over: ``fsdp`` (with sp > 1 the flattened
+    (fsdp, sp) axis, :func:`~.mesh.fsdp_sp_mesh`), and with dp > 1 the 2-D
+    mesh of dp and that axis — replicated over dp, sharded over the other
+    (HSDP inside the group).  Every rank of the mesh must call it."""
+    axes = mesh_axes(mesh)
+    if axes.sp > 1:
+        flat = fsdp_sp_mesh(mesh)
+        return mesh["dp", FSDP_SP] if axes.dp > 1 else flat
+    return mesh["dp", "fsdp"] if axes.dp > 1 else mesh["fsdp"]
 
 
 def shard_model(model: Any, mesh: Any) -> Any:
     """Shard ``model`` (a :class:`~torchft_tpu_torch.models.llama.Llama`)
     in place onto ``mesh``: the tensor-parallel plan over ``tp`` (when
     tp > 1), then FSDP2 on each layer and the root over
-    :func:`fsdp_mesh`.  Returns the model."""
+    :func:`fsdp_mesh`.  A model with ``config.sp_axis`` runs its ring
+    attention over this mesh's sp axis.  Returns the model."""
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor.parallel import parallelize_module
 
     axes = mesh_axes(mesh)
-    for name in ("pp", "ep", "sp"):
+    for name in ("pp", "ep"):
         if getattr(axes, name) != 1:
             raise NotImplementedError(f"the {name} axis lands in a later slice of the port")
+    if axes.sp > 1 and model.config.sp_axis != "sp":
+        raise ValueError(
+            f"the mesh splits the sequence over sp = {axes.sp}, but the model's sp_axis is "
+            f"{model.config.sp_axis!r} (set it to 'sp')"
+        )
+    if model.config.sp_axis is not None:
+        model.mesh = mesh
     if axes.tp > 1:
         tp_mesh = mesh["tp"]
         model.shard_embed(tp_mesh)
@@ -97,44 +117,55 @@ def shard_init(model_fn: Callable[[], Any], mesh: Any) -> Any:
     return shard_model(model_fn(), mesh)
 
 
-def local_rows(mesh: Any, batch: torch.Tensor) -> torch.Tensor:
-    """This rank's rows of a global batch, split as ``Llama.batch_specs``
-    says: over (dp, fsdp), replicated over the other axes."""
-    from torchft_tpu_torch.models.llama import Llama
-
-    split = Llama.batch_specs()[0][0]
+def local_rows(mesh: Any, batch: torch.Tensor, spec: Tuple[Any, ...]) -> torch.Tensor:
+    """This rank's block of a global batch, split as ``spec`` (one entry of
+    ``Llama.batch_specs``) says: dimension d over the mesh axes ``spec[d]``
+    names (rows over (dp, fsdp), the sequence over sp), replicated over the
+    other axes."""
     sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
     coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
-    n, idx = 1, 0
-    for name in split:
-        n, idx = n * sizes[name], idx * sizes[name] + coord[name]
-    if batch.shape[0] % n:
-        raise ValueError(f"batch of {batch.shape[0]} rows does not split over {'·'.join(split)} = {n}")
-    per = batch.shape[0] // n
-    return batch[idx * per : (idx + 1) * per]
+    for d, axes in enumerate(spec):
+        names = (axes,) if isinstance(axes, str) else tuple(axes or ())
+        n, idx = 1, 0
+        for name in names:
+            n, idx = n * sizes[name], idx * sizes[name] + coord[name]
+        if batch.shape[d] % n:
+            raise ValueError(
+                f"dimension {d} of {batch.shape[d]} does not split over {'·'.join(names)} = {n}")
+        per = batch.shape[d] // n
+        batch = batch.narrow(d, idx * per, per)
+    return batch
+
+
+# the axes whose ranks hold different tokens: their gradients and losses
+# are averaged over the group
+DATA_AXES = ("dp", "fsdp", "sp")
 
 
 def group_mean(mesh: Any, value: torch.Tensor) -> torch.Tensor:
-    """Mean of ``value`` over the (dp, fsdp) ranks of ``mesh`` (every rank
-    of it must call)."""
+    """Mean of ``value`` over the (dp, fsdp, sp) ranks of ``mesh`` (every
+    rank of it must call)."""
     axes = mesh_axes(mesh)
     out = value.detach().clone()
-    for name in ("dp", "fsdp"):
+    n = 1
+    for name in DATA_AXES:
         if getattr(axes, name) > 1:
             dist.all_reduce(out, group=mesh[name].get_group())
-    return out / (axes.dp * axes.fsdp)
+            n *= getattr(axes, name)
+    return out / n
 
 
 def make_grad_step(model: Any, mesh: Any) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
     """``(tokens, targets) → loss``: forward and backward on this rank's
-    rows of the global batch, gradients left in ``.grad`` as DTensors
+    block of the global batch, gradients left in ``.grad`` as DTensors
     sharded like the parameters (FSDP2 reduce-scatters them inside the
     backward); the loss returned is the global-batch mean."""
 
     whole = whole_params(model)
+    specs = model.batch_specs()
 
     def step(tokens: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-        loss = model.loss(local_rows(mesh, tokens), local_rows(mesh, targets))
+        loss = model.loss(local_rows(mesh, tokens, specs[0]), local_rows(mesh, targets, specs[1]))
         loss.backward()
         for p in whole:
             if p.grad is not None:

@@ -8,12 +8,13 @@ of ranks (one process each); inside it :func:`make_mesh` builds a torch
 - ``dp``   — within-group data parallelism (batch dim)
 - ``fsdp`` — parameter/optimizer sharding (the FSDP dimension of HSDP)
 - ``ep``   — expert parallelism (not ported yet)
-- ``sp``   — sequence parallelism (not ported yet)
+- ``sp``   — sequence parallelism (ring attention, ``parallel/ring_attention.py``)
 - ``tp``   — tensor (Megatron) parallelism for the matmuls
 
 Size-1 axes are kept, so a submesh is named the same way at any layout.
 The outer fault-tolerant replica dimension has no axis here: it runs on
-the Manager's ring.
+the Manager's ring.  FSDP2 shards over fsdp and sp together, flattened into
+one axis (:func:`fsdp_sp_mesh`, torchtitan's ``dp_shard_cp``).
 """
 
 from __future__ import annotations
@@ -69,6 +70,18 @@ def make_mesh(
     grid = torch.tensor(ranks[: axes.total], dtype=torch.int64).reshape(pp, dp, fsdp, ep, sp, tp)
     device_type = device_type or ("cuda" if dist.get_backend() == "nccl" else "cpu")
     return DeviceMesh(device_type, grid, mesh_dim_names=AXIS_NAMES)
+
+
+FSDP_SP = "fsdp_sp"  # the flattened (fsdp, sp) axis of fsdp_sp_mesh
+
+
+def fsdp_sp_mesh(mesh: DeviceMesh) -> DeviceMesh:
+    """The (fsdp, sp) submesh flattened into one axis named
+    :data:`FSDP_SP`: sp ranks see different tokens of the same rows, so
+    their gradients combine like those of the data axes.  After this call
+    ``mesh["dp", FSDP_SP]`` names the 2-D (replicate, shard) mesh of HSDP
+    inside the group.  Every rank of the mesh must call it."""
+    return mesh["fsdp", "sp"]._flatten(FSDP_SP)
 
 
 def mesh_axes(mesh: DeviceMesh) -> MeshAxes:

@@ -20,6 +20,9 @@ process per replica group::
 ``--device`` defaults to ``cuda``; pass ``--device cpu`` (with
 ``--model llama_debug``) to run without a card.
 
+``--heal-transport comm`` heals over the replica's own communicator
+(``CommTransport``, as ``bench.py`` does) instead of HTTP.
+
 ``--model cnn`` runs the upstream example's model instead
 (``examples/train_ddp.py``): the toy CNN (``models/cnn.py``) with Adam on
 the synthetic CIFAR-shaped dataset, each replica reading its shard through
@@ -37,11 +40,12 @@ import os
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from torchft_tpu_torch.checkpointing.serialization import plan_pytree
 from torchft_tpu_torch.data import DistributedSampler, batch_indices
 from torchft_tpu_torch.ddp import allreduce_gradients
 from torchft_tpu_torch.manager import Manager
@@ -58,6 +62,8 @@ from torchft_tpu_torch.tier import (
 )
 
 logger = logging.getLogger("train_ddp")
+
+HEAL_TRANSPORTS = ("http", "comm")
 
 @dataclasses.dataclass(frozen=True)
 class CNNConfig:
@@ -152,6 +158,19 @@ def synthetic_batches(
         tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(batch, seq)))
         out.append((tokens.to(device), torch.roll(tokens, -1, dims=1).to(device)))
     return out
+
+
+def heal_transport_for(name: str, comm: Any) -> Optional[Any]:
+    """The Manager's ``checkpoint_transport`` for ``--heal-transport``:
+    ``CommTransport`` over ``comm`` (the Manager's own communicator) for
+    "comm", None (the Manager's default ``HTTPTransport``) for "http"."""
+    if name not in HEAL_TRANSPORTS:
+        raise ValueError(f"heal transport {name!r} is not one of {HEAL_TRANSPORTS}")
+    if name == "http":
+        return None
+    from torchft_tpu_torch.checkpointing.comm_transport import CommTransport
+
+    return CommTransport(comm, timeout=60.0)
 
 
 def params_sha256(model: torch.nn.Module) -> str:
@@ -250,6 +269,9 @@ class ReplicaResult:
     planes: Dict[str, str]
     # the last incarnation's heal, if it healed (bytes and seconds)
     heal: Optional[HealMetrics]
+    # the array payload bytes of the replica's checkpoint state (what a
+    # heal moves, before a transport's framing)
+    state_bytes: int
 
 
 def run_fleet(
@@ -267,10 +289,13 @@ def run_fleet(
     timeout: float = 300.0,
     should_quantize: bool = False,
     tier: Optional[str] = None,
+    heal_transport: str = "http",
 ) -> List[ReplicaResult]:
     """Train ``replicas`` replica groups as threads of this process, each
-    with its own Manager, manager sidecar, communicator and HTTPTransport,
-    against an in-process lighthouse that needs every replica for a quorum.
+    with its own Manager, manager sidecar, communicator and checkpoint
+    transport (``heal_transport``: "http" or "comm", see
+    :func:`heal_transport_for`), against an in-process lighthouse that
+    needs every replica for a quorum.
     ``tier`` ("cpp" or "python") names the tier of all three planes; None
     resolves it as :mod:`.tier` does (``TORCHFT_TIER``, else cpp wherever
     the native library builds).  ``kill_at=(replica, step)`` kills that
@@ -299,8 +324,10 @@ def run_fleet(
             if init_state is not None:
                 model.load_state_dict(init_state)
             save, load = state_fns(model, inner)
+            comm = make_communicator(timeout_s=timeout, tier=tier)
             manager = Manager(
-                comm=make_communicator(timeout_s=timeout, tier=tier),
+                comm=comm,
+                checkpoint_transport=heal_transport_for(heal_transport, comm),
                 load_state_dict=load,
                 state_dict=save,
                 min_replica_size=replicas,
@@ -359,6 +386,7 @@ def run_fleet(
                     "communicator": type(manager._comm).__name__,
                 },
                 heal=getattr(manager._checkpoint_transport, "last_heal_metrics", None),
+                state_bytes=sum(plan_pytree(save()).leaf_nbytes),
             )
             manager.shutdown()
             return result
@@ -395,6 +423,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         default=60.0,
         help="per-op timeout; a wedged peer is evicted after this",
     )
+    parser.add_argument("--heal-transport", choices=HEAL_TRANSPORTS, default="http",
+                        help="heal over HTTP or over the communicator (CommTransport)")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
 
@@ -406,10 +436,12 @@ def main(argv: Optional[List[str]] = None) -> None:
     model, inner = build(cfg, device, args.seed, lr)
     save, load = state_fns(model, inner)
     tier = default_tier()  # the C++ plane when the native library loads
+    # the comm's tier resolves separately (data_plane_tier): auto
+    # downgrades to python under forced-hierarchical topologies
+    comm = make_communicator(timeout_s=args.comm_timeout)
     manager = Manager(
-        # the comm's tier resolves separately (data_plane_tier): auto
-        # downgrades to python under forced-hierarchical topologies
-        comm=make_communicator(timeout_s=args.comm_timeout),
+        comm=comm,
+        checkpoint_transport=heal_transport_for(args.heal_transport, comm),
         load_state_dict=load,
         state_dict=save,
         min_replica_size=args.min_replicas,

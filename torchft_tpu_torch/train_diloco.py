@@ -17,8 +17,10 @@ group::
     TORCHFT_LIGHTHOUSE=localhost:29520 REPLICA_GROUP_ID=1 \\
         python -m torchft_tpu_torch.train_diloco --layers 2 &
 
-``--algo localsgd`` runs LocalSGD.  ``--device`` defaults to ``cuda``; pass
-``--device cpu`` (with ``--model llama_debug``) to run without a card.
+``--algo localsgd`` runs LocalSGD.  ``--heal-transport comm`` heals over
+the replica's communicator (``CommTransport``) instead of HTTP.
+``--device`` defaults to ``cuda``; pass ``--device cpu`` (with ``--model
+llama_debug``) to run without a card.
 """
 
 from __future__ import annotations
@@ -44,10 +46,12 @@ from torchft_tpu_torch.observability import HealMetrics
 from torchft_tpu_torch.optim import OuterSGD
 from torchft_tpu_torch.tier import default_tier, make_communicator, make_lighthouse, manager_server_cls
 from torchft_tpu_torch.train_ddp import (
+    HEAL_TRANSPORTS,
     LLAMA_MODELS,
     Batch,
     InjectedKill,
     build,
+    heal_transport_for,
     model_config,
     params_sha256,
     resolve_device,
@@ -163,11 +167,12 @@ def run_diloco_fleet(
     lr: float = 1e-4,
     timeout: float = 300.0,
     init_state: Optional[dict] = None,
+    heal_transport: str = "http",
 ) -> List[DiLoCoReplicaResult]:
     """Train ``replicas`` replica groups as threads of this process with
     DiLoCo (``algo="diloco"``) or LocalSGD (``"localsgd"``), each with its
     own Manager (``use_async_quorum=False``), manager sidecar, communicator
-    and HTTPTransport, against an in-process lighthouse that needs every
+    and checkpoint transport (``heal_transport``: "http" or "comm"), against an in-process lighthouse that needs every
     replica for a quorum; ``tier`` names the tier of all three planes (None:
     as :mod:`.tier` resolves it).  The inner step is AdamW (inside DiLoCo's
     ``pre_step``); the run ends when the committed step reaches
@@ -200,8 +205,10 @@ def run_diloco_fleet(
             if init_state is not None:
                 model.load_state_dict(init_state)
             save, load = state_fns(model, inner)
+            comm = make_communicator(timeout_s=timeout, tier=tier)
             manager = Manager(
-                comm=make_communicator(timeout_s=timeout, tier=tier),
+                comm=comm,
+                checkpoint_transport=heal_transport_for(heal_transport, comm),
                 load_state_dict=load,
                 state_dict=save,
                 min_replica_size=replicas,
@@ -314,6 +321,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     )
     parser.add_argument("--min-replicas", type=int, default=2)
     parser.add_argument("--comm-timeout", type=float, default=60.0)
+    parser.add_argument("--heal-transport", choices=HEAL_TRANSPORTS, default="http",
+                        help="heal over HTTP or over the communicator (CommTransport)")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
 
@@ -321,8 +330,10 @@ def main(argv: Optional[List[str]] = None) -> None:
     cfg = model_config(args.model, args.layers)
     model, inner = build(cfg, device, args.seed, args.lr)
     save, load = state_fns(model, inner)
+    comm = make_communicator(timeout_s=args.comm_timeout)
     manager = Manager(
-        comm=make_communicator(timeout_s=args.comm_timeout),
+        comm=comm,
+        checkpoint_transport=heal_transport_for(args.heal_transport, comm),
         load_state_dict=load,
         state_dict=save,
         min_replica_size=args.min_replicas,

@@ -1,5 +1,5 @@
-"""Fault-tolerant HSDP training of Llama-3: FSDP2 and tensor parallelism
-inside each replica group, fault-tolerant DDP across groups.
+"""Fault-tolerant HSDP training of Llama-3: FSDP2, tensor and sequence
+parallelism inside each replica group, fault-tolerant DDP across groups.
 
 The counterpart of ``examples/train_hsdp.py`` (the JAX package's BASELINE
 config 3), in torchft's process layout: every rank of a replica group is
@@ -8,8 +8,11 @@ NCCL on the card, gloo on the CPU) and its own Manager (``rank`` =
 group rank), and rank r of every group averages its local gradient shards
 with rank r of the others (:class:`~.parallel.hsdp.HSDPTrainer`).  One
 card holds one rank of a communicator, so on one H100 each replica group
-is one rank (fsdp = tp = 1); the multi-rank layouts run on the CPU over
-gloo.  Run one replica group (all its ranks) per command::
+is one rank (fsdp = tp = sp = 1); the multi-rank layouts run on the CPU
+over gloo.  ``--sp N`` splits the sequence over N ranks (ring attention,
+FSDP2 over fsdp·sp).  ``--heal-transport comm`` heals each rank over its
+own communicator (``CommTransport``) instead of HTTP.  Run one replica
+group (all its ranks) per command::
 
     python -m torchft_tpu_torch.lighthouse --min_replicas 2 --bind 0.0.0.0:29530 &
     TORCHFT_LIGHTHOUSE=localhost:29530 REPLICA_GROUP_ID=0 \\
@@ -19,7 +22,8 @@ gloo.  Run one replica group (all its ranks) per command::
 
 or a whole fleet with its own lighthouse: ``--groups 2``.  ``--device``
 defaults to ``cuda``; ``--device cpu --model llama_debug --seq-len 128
---fsdp 2 --tp 2`` runs four gloo ranks a group without a card.
+--fsdp 2 --tp 2`` (or ``--fsdp 2 --sp 2``) runs four gloo ranks a group
+without a card.
 ``TORCHFT_CHAOS_DEVICE_LOSS=N`` starts the group with its last N ranks
 lost: the survivors plan a degraded layout (``parallel.degraded``) and
 advertise its capacity, which needs the Python control plane
@@ -45,7 +49,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from torchft_tpu_torch.models.llama import LlamaConfig
-from torchft_tpu_torch.train_ddp import LLAMA_MODELS, model_config
+from torchft_tpu_torch.train_ddp import HEAL_TRANSPORTS, LLAMA_MODELS, model_config
 
 logger = logging.getLogger("train_hsdp")
 
@@ -81,6 +85,7 @@ class RankSpec:
     dp: int
     fsdp: int
     tp: int
+    sp: int
     steps: int
     batch: int
     seq: int
@@ -94,6 +99,7 @@ class RankSpec:
     min_replicas: int
     timeout: float
     quantize_outer: bool
+    heal_transport: str = "http"
     kill_step: int = -1  # os._exit(KILLED_EXIT) at the top of this step
     incarnation: int = 0
     result: str = ""  # JSON result path ("" prints the FINAL line only)
@@ -117,6 +123,7 @@ def _rank_main(spec: RankSpec) -> None:
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
 
+    from torchft_tpu_torch.checkpointing.serialization import plan_pytree
     from torchft_tpu_torch.manager import Manager
     from torchft_tpu_torch.ops import flash_attention as fa
     from torchft_tpu_torch.ops import quant as qk
@@ -125,7 +132,8 @@ def _rank_main(spec: RankSpec) -> None:
     from torchft_tpu_torch.parallel.mesh import make_mesh
     from torchft_tpu_torch.tier import make_communicator, manager_server_cls
     from torchft_tpu_torch.obs.spans import device_fence
-    from torchft_tpu_torch.train_ddp import build, resolve_device, synthetic_batches
+    from torchft_tpu_torch.train_ddp import (
+        build, heal_transport_for, resolve_device, synthetic_batches)
 
     device = resolve_device(spec.device)
     if device.type == "cuda":
@@ -139,7 +147,7 @@ def _rank_main(spec: RankSpec) -> None:
         world_size=spec.world,
         timeout=datetime.timedelta(seconds=spec.timeout),
     )
-    wanted = spec.dp * spec.fsdp * spec.tp
+    wanted = spec.dp * spec.fsdp * spec.tp * spec.sp
     ranks = startup_surviving_devices(range(wanted))
     if len(ranks) != spec.world:
         raise RuntimeError(f"{spec.world} ranks started for {len(ranks)} surviving of {wanted}")
@@ -149,14 +157,18 @@ def _rank_main(spec: RankSpec) -> None:
         logger.warning("coming up degraded: %s (capacity %.3f)", plan.mesh_axes, plan.capacity)
         mesh = make_mesh(ranks=ranks, **plan.mesh_axes)
     else:
-        mesh = make_mesh(dp=spec.dp, fsdp=spec.fsdp, tp=spec.tp)
+        mesh = make_mesh(dp=spec.dp, fsdp=spec.fsdp, tp=spec.tp, sp=spec.sp)
     cfg = _config_from_json(spec.cfg)
+    if spec.sp > 1:
+        cfg = dataclasses.replace(cfg, sp_axis="sp")
 
     def model_fn():
         return build(cfg, device, spec.seed, spec.lr)[0]
 
+    comm = make_communicator(timeout_s=spec.timeout, tier=spec.tier)
     manager = Manager(
-        comm=make_communicator(timeout_s=spec.timeout, tier=spec.tier),
+        comm=comm,
+        checkpoint_transport=heal_transport_for(spec.heal_transport, comm),
         min_replica_size=spec.min_replicas,
         replica_id=f"train_hsdp_{spec.group}",
         lighthouse_addr=spec.lighthouse,
@@ -229,6 +241,9 @@ def _rank_main(spec: RankSpec) -> None:
     ]
     multi_rank = spec.world > 1
     heal = getattr(manager._checkpoint_transport, "last_heal_metrics", None)
+    # the array payload bytes a heal of this rank moves (its local shards
+    # and the whole norms, with AdamW's state)
+    state_bytes = sum(plan_pytree(trainer._save_state()).leaf_nbytes)
     result = dict(
         group=spec.group,
         rank=spec.rank,
@@ -246,6 +261,8 @@ def _rank_main(spec: RankSpec) -> None:
         phase_s=phases,
         heal=None if heal is None else dict(
             seconds=heal.duration_s, bytes=heal.bytes_total, sources=heal.num_sources),
+        heal_transport=spec.heal_transport,
+        state_bytes=state_bytes,
         last_quorum_timings=dict(manager.last_quorum_timings),
         planes=dict(
             manager_server=type(manager._manager_server).__name__
@@ -325,6 +342,7 @@ def run_hsdp_fleet(
     dp: int = 1,
     fsdp: int = 1,
     tp: int = 1,
+    sp: int = 1,
     steps: int = 4,
     batch: Optional[int] = None,
     seq: int = 2048,
@@ -332,6 +350,7 @@ def run_hsdp_fleet(
     lr: float = 1e-4,
     kill_at: Optional[Tuple[int, int]] = None,
     quantize_outer: bool = False,
+    heal_transport: str = "http",
     tier: Optional[str] = None,
     timeout: float = 300.0,
     device_loss: Optional[Dict[int, int]] = None,
@@ -341,7 +360,7 @@ def run_hsdp_fleet(
     group_ids: Optional[List[int]] = None,
     min_replicas: Optional[int] = None,
 ) -> List[List[Dict[str, Any]]]:
-    """Train ``groups`` replica groups, each ``dp·fsdp·tp`` rank processes,
+    """Train ``groups`` replica groups, each ``dp·fsdp·tp·sp`` rank processes,
     against an in-process lighthouse that needs every group for a quorum
     (or the one at ``lighthouse_addr``, with ``group_ids`` the groups of
     the fleet this call runs and ``min_replicas`` its quorum size).
@@ -350,13 +369,15 @@ def run_hsdp_fleet(
     restarts with fresh models and heals its sharded state rank by rank
     from a live group.  ``device_loss={group: n}`` starts that group with
     its last n ranks lost (degraded).  ``batch`` (the global batch of a
-    group, default dp·fsdp) must divide by dp·fsdp.  Returns, per group,
+    group, default dp·fsdp) must divide by dp·fsdp, and ``seq`` by ``sp``
+    (the sequence-parallel ranks).  ``heal_transport`` ("http" or "comm")
+    names each rank's checkpoint transport.  Returns, per group,
     the result dict of each rank of its last incarnation (with
     ``incarnation``: the restarts).  Every rank process is stopped before
     this returns; a rank that fails fails the fleet with its log."""
     from torchft_tpu_torch.tier import make_lighthouse
 
-    wanted = dp * fsdp * tp
+    wanted = dp * fsdp * tp * sp
     batch = batch if batch is not None else dp * fsdp
     group_ids = list(group_ids) if group_ids is not None else list(range(groups))
     min_replicas = min_replicas or groups
@@ -384,11 +405,11 @@ def run_hsdp_fleet(
         specs = [
             RankSpec(
                 cfg=_config_json(cfg), group=g, rank=r, world=world, dp=dp, fsdp=fsdp, tp=tp,
-                steps=steps, batch=batch, seq=seq, seed=seed, lr=lr,
+                sp=sp, steps=steps, batch=batch, seq=seq, seed=seed, lr=lr,
                 device=str(device),
                 tier=tier, lighthouse=lighthouse_addr, store_port=0, dist_port=dist_port,
                 min_replicas=min_replicas, timeout=timeout, quantize_outer=quantize_outer,
-                kill_step=kill_step, incarnation=incarnation,
+                heal_transport=heal_transport, kill_step=kill_step, incarnation=incarnation,
                 result=os.path.join(workdir, f"group{g}_rank{r}_inc{incarnation}.json"),
                 dump_params=dump_params,
             )
@@ -449,6 +470,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     parser.add_argument("--fsdp", type=int, default=1)
     parser.add_argument("--tp", type=int, default=1)
     parser.add_argument("--dp", type=int, default=1)
+    parser.add_argument("--sp", type=int, default=1,
+                        help="split the sequence over this many ranks (ring attention)")
     parser.add_argument("--quantize-outer", action="store_true",
                         help="1-byte wire for the replica-dim gradient ring (int8 default, "
                         "fp8 via TORCHFT_QUANT_KIND)")
@@ -459,6 +482,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         "--replica-group-id", type=int, default=int(os.environ.get("REPLICA_GROUP_ID", 0)))
     parser.add_argument("--min-replicas", type=int, default=1)
     parser.add_argument("--comm-timeout", type=float, default=120.0)
+    parser.add_argument("--heal-transport", choices=HEAL_TRANSPORTS, default="http",
+                        help="heal over HTTP or over the communicator (CommTransport)")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
     if args.rank_spec is not None:
@@ -469,9 +494,10 @@ def main(argv: Optional[List[str]] = None) -> None:
 
     device = resolve_device(args.device)
     cfg = model_config(args.model, args.layers)
-    common = dict(dp=args.dp, fsdp=args.fsdp, tp=args.tp, steps=args.steps,
+    common = dict(dp=args.dp, fsdp=args.fsdp, tp=args.tp, sp=args.sp, steps=args.steps,
                   batch=args.batch_size, seq=args.seq_len, seed=args.seed, lr=args.lr,
-                  quantize_outer=args.quantize_outer, timeout=args.comm_timeout)
+                  quantize_outer=args.quantize_outer, heal_transport=args.heal_transport,
+                  timeout=args.comm_timeout)
     if args.groups:
         fleet = run_hsdp_fleet(cfg, device, groups=args.groups, **common)
     else:
