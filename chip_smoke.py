@@ -90,7 +90,30 @@ It builds the port's CUDA kernels from ``torchft_tpu_torch/csrc/`` (one
    median inner step, the seconds per outer sync from ``outer_shard_wall_s``
    and its scatter / update / gather split, the heal's seconds and bytes,
    the peak device memory, the peak host RSS over the phase and tokens/s
-   per replica over the phase.
+   per replica over the phase.  ``diloco_quantized_cpp`` and
+   ``localsgd_cpp`` run 1 layer deep (:data:`DILOCO_LAYERS`; the width
+   stays), so the command stays under 900 s with the spare phases.
+
+   ``spare_python`` — ``diloco_cpp``'s schedule with a hot spare, every
+   plane on the Python tier (the C++ sidecar refuses the spare role), 2
+   layers: 2 actives and 1 spare (``run_diloco_fleet(spares=1)``); replica
+   1 is killed before its inner step 5 and stays dead, and the lighthouse
+   promotes the spare in its place.  Checks (``check_spare``): no replica
+   restarted, the spare promoted once, in one membership edit, with no heal
+   anywhere; the spare's chunk store reached a fresh fraction of 1.0; every
+   fragment's backup equal on replica 0 and the spare, the last-synced
+   fragment's live parameters too; the spare at ``outer_steps`` with finite
+   losses; each flash kernel launched after the promotion.  Prints the
+   promotion (``promote_s``, its warm lag, kill to adopted quorum, kill to
+   the spare's first committed sync), the warm bytes, chunks and deltas,
+   peak device memory and host RSS, and ``diloco_cpp``'s cold heal beside
+   it (another tier; no gain is claimed).  A fragment's delta (2.97 GB)
+   is over the outer-delta feed's 48 MiB frame budget, so this spare warms
+   on the chunk store alone.  ``spare_drills`` — ``gray_failure_drill``'s
+   ``spare_promote`` and ``kill_spare`` modes with their state on the card,
+   held to the JAX tests' assertions, then the feed on a Llama narrow
+   enough to carry it (killed after a committed sync): the spare must
+   apply at least one committed delta (``check_spare(min_deltas=1)``).
 
 8. ``cnn_cpp`` — ``train_ddp --model cnn``: the upstream example's toy CNN
    with Adam on ``synthetic_cifar`` (its defaults: 2048 samples, batch 32,
@@ -131,6 +154,7 @@ import subprocess
 import sys
 import threading
 import time
+from unittest import mock
 
 import torch
 
@@ -189,6 +213,30 @@ DILOCO_PHASES = (
     ("localsgd_cpp", dict(algo="localsgd", sync_every=4, num_fragments=1,
                           fragment_sync_delay=0, outer_steps=1, should_quantize=False)),
 )
+# the DiLoCo phases cut to 1 layer (the width stays) so the command stays
+# under 900 s with the spare phases; the others run at LAYERS
+DILOCO_LAYERS = {"diloco_quantized_cpp": 1, "localsgd_cpp": 1}
+# spare_python: DILOCO's schedule with one hot spare, every plane on the
+# Python tier (the C++ manager sidecar refuses the spare role): 2 actives
+# and the spare as threads of this process; replica 1 is killed before its
+# inner step 5 and stays dead, and the lighthouse promotes the spare in its
+# place.  SPARE_ENV sets existing knobs for the phase: the fleet holds at the
+# kill step while the spare warms, so its chunk fetch runs unpaced and one
+# refresh pass may take the whole snapshot.
+SPARE_PHASE = dict(DILOCO, should_quantize=False, spares=1)
+SPARE_ENV = {"TORCHFT_SPARE_WARM_PACE_MS": "0", "TORCHFT_SPARE_WARM_BUDGET_S": "600"}
+# spare_drills: gray_failure_drill's spare modes at the JAX tests' sizes,
+# then the outer-delta feed on the card.  The feed refuses a delta over its
+# 48 MiB frame budget, and each fragment of the 8B-width phase is 2.97 GB,
+# so the feed runs on a Llama narrow enough to carry it (head dim 64, bf16,
+# 1.6M parameters): killed before inner step 9, after a committed sync the
+# spare takes from the feed (TORCHFT_SPARE_WARM_REFRESH_S=60 keeps the
+# survivors from restaging first).
+SPARE_DELTA_CFG = dict(vocab_size=512, dim=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                       ffn_hidden=512, max_seq_len=256)
+SPARE_DELTA_FLEET = dict(DILOCO, should_quantize=False, spares=1, outer_steps=4, kill_at=(1, 9),
+                         batch=2, seq=128, lr=1e-3)
+SPARE_DELTA_ENV = {"TORCHFT_SPARE_WARM_REFRESH_S": "60"}
 # run_fleet keywords of cnn_cpp (examples/train_ddp.py's defaults) and
 # run_hsdp_fleet keywords of hsdp_cpp; both on the C++ tier
 CNN_PHASE = dict(replicas=2, steps=20, batch=32, lr=1e-3, kill_at=(1, 5))
@@ -965,6 +1013,31 @@ def train_phase(train_ddp, fa, qk, spans, card: str, should_quantize: bool, tier
     )
 
 
+def host_mem_total_gb() -> float:
+    """The host's ``MemTotal`` (``/proc/meminfo``), in GB."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemTotal:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    return float("nan")
+
+
+def release_host_memory() -> None:
+    """Hand freed host memory back to the system before a phase: PyTorch's
+    cache of pinned blocks and glibc's free arenas (what earlier phases
+    left resident), so the phase's peak is its own."""
+    import ctypes
+    import ctypes.util
+
+    gc.collect()
+    empty_pinned = getattr(torch._C, "_host_emptyCache", None)  # CUDA builds only
+    if empty_pinned is not None:
+        empty_pinned()
+    libc = ctypes.util.find_library("c")
+    if libc:
+        ctypes.CDLL(libc).malloc_trim(0)
+
+
 class HostRss:
     """Peak resident set of this process while the block runs, and at its
     start (what earlier phases left resident), sampled from
@@ -1012,13 +1085,14 @@ def check_post_heal_syncs(healed, num_fragments: int) -> list:
     return synced
 
 
-def diloco_phase(train_diloco, train_ddp, fa, qk, card: str, fleet: dict) -> dict:
-    """DiLoCo or LocalSGD at Llama-3-8B width with 2 replicas, every plane
-    on the C++ tier; raises on any failed check.  The launch counts cover
-    exactly this run."""
+def diloco_phase(train_diloco, train_ddp, fa, qk, card: str, fleet: dict,
+                 layers: int = LAYERS) -> dict:
+    """DiLoCo or LocalSGD at Llama-3-8B width and ``layers`` deep with 2
+    replicas, every plane on the C++ tier; raises on any failed check.  The
+    launch counts cover exactly this run."""
     import resource
 
-    cfg = train_ddp.model_config("llama3_8b", LAYERS)
+    cfg = train_ddp.model_config("llama3_8b", layers)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1071,7 +1145,7 @@ def diloco_phase(train_diloco, train_ddp, fa, qk, card: str, fleet: dict) -> dic
         card=card,
         tier="cpp",
         fleet=fleet,
-        model="llama3_8b width, %d layers, bf16" % LAYERS,
+        model="llama3_8b width, %d layers, bf16" % layers,
         final_step=r0.final_step,
         inner_steps=[r.inner_steps for r in results],
         losses=[r.losses for r in results],
@@ -1096,6 +1170,160 @@ def diloco_phase(train_diloco, train_ddp, fa, qk, card: str, fleet: dict) -> dic
         tokens_per_s_per_replica=r0.inner_steps * 2048 / wall_s,
         wall_s=wall_s,
         launches=launches,
+    )
+
+
+def check_spare(results, fleet: dict, launches: dict, min_deltas: int = 0) -> dict:
+    """A fleet with one hot spare (``run_diloco_fleet(spares=1)``): raises
+    unless replica ``kill_at[0]`` died and stayed dead, the lighthouse
+    promoted the spare once, in one membership edit, with no heal anywhere
+    (the spare stood at the commit front); the spare loaded a complete warm
+    snapshot (fresh fraction 1.0) and applied at least ``min_deltas``
+    committed deltas; every fragment's backup is equal on replica 0 and the
+    spare (and moved off the initial weights), and so are the live
+    parameters of the fragment synced last; the promoted spare ends at
+    ``outer_steps`` with finite losses; and each flash kernel launched after
+    the promotion (``launches`` at the end less the spare's count at its
+    promotion).  Returns those launches."""
+    victim = fleet["kill_at"][0]
+    actives, spare = results[:-1], results[-1]
+    info = spare.spare or {}
+    if [r.restarts for r in results] != [0] * len(results):
+        raise AssertionError(f"a replica restarted (restarts {[r.restarts for r in results]}): "
+                             "a cold heal in place of the promotion")
+    if [r.killed for r in actives] != [i == victim for i in range(len(actives))]:
+        raise AssertionError(f"killed {[r.killed for r in actives]}: replica {victim} must die")
+    if not info.get("promoted") or info.get("promotions_total") != 1:
+        raise AssertionError(f"the spare was not promoted exactly once: {info}")
+    healed = [i for i, r in enumerate(results) if r.heal is not None]
+    if healed or info.get("promote_warm_lag_steps") != 0:
+        raise AssertionError(f"replicas {healed} healed (spare lag "
+                             f"{info.get('promote_warm_lag_steps')}): the promotion was not warm")
+    ids = results[0].quorum_ids
+    edits = sum(a != b for a, b in zip(ids, ids[1:]))
+    if edits != 1:
+        raise AssertionError(f"replica 0 saw {edits} membership edits (quorum ids {ids}), not one")
+    if info.get("warm_fresh_fraction_max") != 1.0:
+        raise AssertionError(f"the spare's chunk store never reached a fresh fraction of 1.0: {info}")
+    if info.get("warm_deltas_applied", 0.0) < min_deltas:
+        raise AssertionError(f"the spare applied {info.get('warm_deltas_applied', 0.0)} committed "
+                             f"deltas, fewer than {min_deltas}")
+    for f in range(fleet["num_fragments"]):
+        if results[0].fragment_sha256[f] != spare.fragment_sha256[f]:
+            raise AssertionError(f"fragment {f}: backups differ on replica 0 and the spare")
+        if results[0].fragment_sha256[f] == results[0].initial_fragment_sha256[f]:
+            raise AssertionError(f"fragment {f}: the backup is still the initial weights")
+    last = (results[0].final_step - 1) % fleet["num_fragments"]
+    if results[0].fragment_live_sha256[last] != spare.fragment_live_sha256[last]:
+        raise AssertionError(f"fragment {last}, synced last: live parameters differ")
+    for r in (results[0], spare):
+        if r.final_step != fleet["outer_steps"]:
+            raise AssertionError(f"a survivor ended at step {r.final_step}, not {fleet['outer_steps']}")
+        if not r.losses or not all(math.isfinite(x) for x in r.losses):
+            raise AssertionError(f"non-finite loss in {r.losses}")
+    after = {k: launches[k] - info.get("launches_at_promotion", {}).get(k, 0)
+             for k in ("fwd", "dq", "dkv")}
+    if min(after.values()) <= 0:
+        raise AssertionError(f"flash kernels after the promotion: {after}")
+    return after
+
+
+def check_spare_drills(promote: dict, kill: dict) -> None:
+    """The JAX tests' assertions on the two spare drills."""
+    if promote["promotions_total"] < 1 or promote["quorum_reconfigs"] != 1:
+        raise AssertionError(f"spare_promote: {promote}")
+    if not promote["promotion_latency_s"] > 0:
+        raise AssertionError(f"spare_promote latency: {promote}")
+    if kill["quorum_reconfigs"] != 0 or kill["promotions_total"] != 0:
+        raise AssertionError(f"kill_spare: {kill}")
+
+
+def _spare_summary(results) -> dict:
+    spare = results[-1]
+    info = dict(spare.spare)
+    return dict(
+        spare=info,
+        promote_s=info.get("promotion_adopt_s"),
+        promote_warm_lag_steps=info.get("promote_warm_lag_steps"),
+        kill_to_adopt_s=info.get("kill_to_adopt_s"),
+        kill_to_first_commit_s=info.get("kill_to_first_commit_s"),
+        warm_bytes_fetched=info.get("warm_bytes_fetched"),
+        warm_chunks_fetched=info.get("warm_chunks_fetched"),
+        warm_deltas_applied=info.get("warm_deltas_applied", 0.0),
+        fragment_sha256=results[0].fragment_sha256,
+        quorum_ids=[r.quorum_ids for r in results],
+        losses=[r.losses for r in results],
+        inner_steps=[r.inner_steps for r in results],
+        planes=[r.planes for r in results],
+    )
+
+
+def spare_phase(train_diloco, train_ddp, fa, qk, card: str, cold_heal: dict) -> dict:
+    """spare_python: DILOCO's schedule at Llama-3-8B width with 2 actives
+    and 1 hot spare on the Python tier; raises on any failed check.  The
+    launch counts cover exactly this run; ``cold_heal`` is this run's
+    ``diloco_cpp`` heal, printed beside the promotion for comparison only
+    (another tier)."""
+    import resource
+
+    cfg = train_ddp.model_config("llama3_8b", LAYERS)
+    before_release = HostRss.now()
+    release_host_memory()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    qk.reset_launches()
+    fleet = dict(SPARE_PHASE)
+    t0 = time.perf_counter()
+    with mock.patch.dict(os.environ, SPARE_ENV), HostRss() as rss:
+        results = train_diloco.run_diloco_fleet(
+            cfg, torch.device("cuda"), replicas=2, batch=1, seq=2048, tier="python", **fleet)
+    wall_s = time.perf_counter() - t0
+    launches = {**fa.launches, **qk.launches}
+    after = check_spare(results, fleet, launches)
+    for r in results:
+        if r.planes != PLANES["python"]:
+            raise AssertionError(f"a replica ran {r.planes}, not the python tier")
+    return dict(
+        card=card, tier="python", fleet=fleet, env=SPARE_ENV,
+        model="llama3_8b width, %d layers, bf16" % LAYERS,
+        **_spare_summary(results),
+        launches=launches,
+        launches_after_promotion=after,
+        diloco_cpp_cold_heal=cold_heal,
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+        peak_host_rss_gb=rss.peak_bytes / 1e9,
+        start_host_rss_gb=rss.start_bytes / 1e9,
+        host_rss_before_release_gb=before_release / 1e9,
+        ru_maxrss_gb=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9,
+        wall_s=wall_s,
+    )
+
+
+def spare_drills_phase(drill, train_diloco, fa, card: str) -> dict:
+    """spare_drills: ``gray_failure_drill``'s spare modes with the replicas'
+    state on the card, then the outer-delta feed into a spare's fragments on
+    the card (SPARE_DELTA_FLEET); raises on any failed check."""
+    from torchft_tpu_torch.models.llama import LlamaConfig
+
+    t0 = time.perf_counter()
+    promote = drill.gray_failure_drill(mode="spare_promote", num_replicas=2, steps=8, device="cuda")
+    kill = drill.gray_failure_drill(mode="kill_spare", num_replicas=2, steps=8, device="cuda")
+    check_spare_drills(promote, kill)
+    drills_s = time.perf_counter() - t0
+    fa.reset_launches()
+    fleet = dict(SPARE_DELTA_FLEET)
+    t0 = time.perf_counter()
+    with mock.patch.dict(os.environ, SPARE_DELTA_ENV):
+        results = train_diloco.run_diloco_fleet(
+            LlamaConfig(**SPARE_DELTA_CFG), torch.device("cuda"), tier="python", **fleet)
+    fleet_s = time.perf_counter() - t0
+    after = check_spare(results, fleet, dict(fa.launches), min_deltas=1)
+    return dict(
+        card=card, spare_promote=promote, kill_spare=kill, drills_s=drills_s,
+        delta_fleet=dict(cfg=SPARE_DELTA_CFG, fleet=fleet, env=SPARE_DELTA_ENV,
+                         **_spare_summary(results), launches_after_promotion=after,
+                         wall_s=fleet_s),
     )
 
 
@@ -1213,7 +1441,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     # the port itself; in a directory without it this import fails
-    from torchft_tpu_torch import native, train_ddp, train_diloco, train_hsdp
+    from torchft_tpu_torch import drill, native, train_ddp, train_diloco, train_hsdp
     from torchft_tpu_torch.obs import spans
     from torchft_tpu_torch.ops import cuda_build
     from torchft_tpu_torch.ops import flash_attention as fa
@@ -1227,6 +1455,7 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}",
           flush=True)
+    print(f"host memory: {host_mem_total_gb():.1f} GB (MemTotal)", flush=True)
 
     t0 = time.perf_counter()
     sources = [*fa.KERNEL_SOURCES, *qk.KERNEL_SOURCES]
@@ -1279,11 +1508,12 @@ def main() -> int:
         print(f"{sync} sync parameter sha256: cpp {by_tier['cpp']}, python {by_tier['python']} "
               "(equal, and as expected)", flush=True)
     for key, fleet in DILOCO_PHASES:
-        results[key] = t = diloco_phase(train_diloco, train_ddp, fa, qk, card, fleet)
+        results[key] = t = diloco_phase(train_diloco, train_ddp, fa, qk, card, fleet,
+                                        DILOCO_LAYERS.get(key, LAYERS))
         print(f"{key}: {json.dumps(t)}", flush=True)
         heal = (f"heal {t['heal']['seconds']:.3f} s for {t['heal']['bytes']} bytes"
                 if t["heal"] else "no heal")
-        print(f"{key} (cpp tier): inner step {t['inner_step_ms_median']:.1f} ms (median), "
+        print(f"{key} (cpp tier, {t['model']}): inner step {t['inner_step_ms_median']:.1f} ms (median), "
               f"train loop held {t['sync_s_per_commit']:.3f} s per committed sync, outer sync "
               "(s, median) "
               f"{json.dumps(t['outer_shard_s_median'])}; {heal}; peak device "
@@ -1291,6 +1521,31 @@ def main() -> int:
               f"({t['start_host_rss_gb']:.1f} GB at its start); "
               f"{t['tokens_per_s_per_replica']:.1f} tokens/s per replica; wall {t['wall_s']:.1f} s",
               flush=True)
+    results["spare_python"] = t = spare_phase(train_diloco, train_ddp, fa, qk, card,
+                                              results["diloco_cpp"]["heal"])
+    print(f"spare_python: {json.dumps(t)}", flush=True)
+    print(f"spare_python (python tier, 2 actives + 1 spare): replica 1 killed, the spare promoted "
+          f"once in one membership edit, no heal; promote_s {t['promote_s']:.3f} s at warm lag "
+          f"{t['promote_warm_lag_steps']:.0f}; kill to adopted quorum {t['kill_to_adopt_s']:.3f} s, "
+          f"to the spare's first committed sync {t['kill_to_first_commit_s']:.3f} s; warm "
+          f"{t['warm_bytes_fetched']:.0f} bytes in {t['warm_chunks_fetched']:.0f} chunks, "
+          f"{t['warm_deltas_applied']:.0f} deltas applied; flash launches after the promotion "
+          f"{json.dumps(t['launches_after_promotion'])}; peak device "
+          f"{t['max_memory_allocated_gb']:.1f} GB, peak host RSS {t['peak_host_rss_gb']:.1f} GB "
+          f"({t['start_host_rss_gb']:.1f} GB at its start, "
+          f"{t['host_rss_before_release_gb']:.1f} GB before freed memory went back); "
+          f"wall {t['wall_s']:.1f} s; for "
+          f"comparison only (C++ tier), diloco_cpp's cold heal {t['diloco_cpp_cold_heal']['seconds']:.3f} s "
+          f"for {t['diloco_cpp_cold_heal']['bytes']} bytes", flush=True)
+    results["spare_drills"] = t = spare_drills_phase(drill, train_diloco, fa, card)
+    print(f"spare_drills: {json.dumps(t)}", flush=True)
+    d = t["delta_fleet"]
+    print(f"spare_drills: spare_promote promotion_latency_s {t['spare_promote']['promotion_latency_s']} "
+          f"(quorum_reconfigs {t['spare_promote']['quorum_reconfigs']}), kill_spare quorum_reconfigs "
+          f"{t['kill_spare']['quorum_reconfigs']}, {t['drills_s']:.1f} s; delta feed: "
+          f"{d['warm_deltas_applied']:.0f} deltas applied on the card, promoted at warm lag "
+          f"{d['promote_warm_lag_steps']:.0f}, kill to adopted quorum {d['kill_to_adopt_s']:.3f} s, "
+          f"wall {d['wall_s']:.1f} s", flush=True)
     results["cnn_cpp"] = t = cnn_phase(train_ddp, card)
     print(f"cnn_cpp: {json.dumps(t)}", flush=True)
     print(f"cnn_cpp (cpp tier): step {t['step_ms_median']:.1f} ms (median of the last 10), "
@@ -1329,9 +1584,12 @@ def main() -> int:
         )
         for name in names
     ]}
-    # the ring path's launches of each flash kernel, by mask
+    # the ring path's launches of each flash kernel, by mask, and the spare
+    # path's (spare_python, every replica; the quant kernels do not run there)
     for row in line["kernels"][:3]:
         row["ring_launches"] = ring_t["ring_launches"][row["name"].removeprefix("flash_")]
+    for row in line["kernels"]:
+        row["spare_launches"] = results["spare_python"]["launches"][row["name"].split("_", 1)[1]]
     print(json.dumps(line), flush=True)
     print(card, flush=True)  # nvidia-smi's own line: name, power limit
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

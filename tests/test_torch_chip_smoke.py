@@ -428,3 +428,125 @@ def test_expected_hashes_are_held(chip_smoke) -> None:
     chip_smoke.check_expected_hashes(dict(expected))
     with pytest.raises(AssertionError, match="float: final parameter sha256"):
         chip_smoke.check_expected_hashes({"float": expected["quantized"]})
+
+
+def test_spare_phases_take_their_entry_points_keywords(chip_smoke) -> None:
+    """``spare_python`` is DILOCO's schedule with one spare on the Python
+    tier; the delta fleet of ``spare_drills`` is a Llama at head dim 64,
+    bf16, killed after a committed sync; both run ``run_diloco_fleet``."""
+    import inspect
+
+    import torch
+
+    from torchft_tpu_torch import train_diloco
+    from torchft_tpu_torch.models.llama import LlamaConfig
+
+    params = set(inspect.signature(train_diloco.run_diloco_fleet).parameters)
+    assert chip_smoke.SPARE_PHASE == dict(chip_smoke.DILOCO, should_quantize=False, spares=1)
+    assert chip_smoke.SPARE_PHASE["kill_at"] == (1, 5)
+    assert set(chip_smoke.SPARE_PHASE) <= params and set(chip_smoke.SPARE_DELTA_FLEET) <= params
+    cfg = LlamaConfig(**chip_smoke.SPARE_DELTA_CFG)
+    assert cfg.head_dim == 64 and cfg.dtype == torch.bfloat16
+    source = (REPO / "chip_smoke.py").read_text()
+    for key in ("spare_python", "spare_drills"):
+        assert f'results["{key}"] = t = ' in source
+    assert 'seq=2048, tier="python", **fleet)' in source
+
+
+def _spare_results(change=None):
+    """A passing fleet with one spare: replica 0, replica 1 (killed), the
+    promoted spare."""
+    from types import SimpleNamespace
+
+    def one(**kw):
+        base = dict(restarts=0, killed=False, spare=None, heal=None, quorum_ids=[1, 2, 2],
+                    fragment_sha256=["b0", "b1"], initial_fragment_sha256=["i0", "i1"],
+                    fragment_live_sha256=["l0", "l1"], final_step=3, losses=[12.0, 11.0])
+        base.update(kw)
+        return SimpleNamespace(**base)
+
+    spare = dict(promoted=True, promotions_total=1, promote_warm_lag_steps=0.0,
+                 warm_fresh_fraction_max=1.0, warm_deltas_applied=0.0,
+                 launches_at_promotion=dict(fwd=10, dq=10, dkv=10))
+    results = [one(), one(killed=True, quorum_ids=[1], final_step=1), one(spare=spare,
+                                                                          quorum_ids=[2, 2])]
+    for (i, name), value in (change or {}).items():
+        if i == "spare":
+            results[2].spare = dict(spare, **{name: value})
+        else:
+            setattr(results[i], name, value)
+    return results
+
+
+LAUNCHES = dict(fwd=20, dq=20, dkv=20)
+
+
+@pytest.mark.parametrize("change, launches, match", [
+    # a cold heal of a restarted replica in place of the promotion
+    ({(1, "restarts"): 1, (1, "killed"): False}, LAUNCHES, "cold heal"),
+    ({(1, "killed"): False}, LAUNCHES, "must die"),
+    ({(2, "heal"): object()}, LAUNCHES, "not warm"),
+    ({("spare", "promote_warm_lag_steps"): 1.0}, LAUNCHES, "not warm"),
+    ({("spare", "promoted"): False}, LAUNCHES, "not promoted exactly once"),
+    ({("spare", "promotions_total"): 2}, LAUNCHES, "not promoted exactly once"),
+    # two membership edits
+    ({(0, "quorum_ids"): [1, 2, 3]}, LAUNCHES, "2 membership edits"),
+    ({("spare", "warm_fresh_fraction_max"): 0.75}, LAUNCHES, "fresh fraction of 1.0"),
+    ({(2, "fragment_sha256"): ["b0", "other"]}, LAUNCHES, "fragment 1: backups differ"),
+    ({(0, "fragment_sha256"): ["i0", "b1"], (2, "fragment_sha256"): ["i0", "b1"]}, LAUNCHES,
+     "initial weights"),
+    ({(2, "fragment_live_sha256"): ["other", "l1"]}, LAUNCHES, "live parameters differ"),
+    ({(2, "final_step"): 2}, LAUNCHES, "ended at step"),
+    ({(2, "losses"): [float("nan")]}, LAUNCHES, "non-finite"),
+    # no kernel launches after the promotion
+    ({}, dict(fwd=10, dq=11, dkv=11), "after the promotion"),
+])
+def test_spare_checks_raise_on_failure(chip_smoke, change, launches, match) -> None:
+    fleet = chip_smoke.SPARE_PHASE
+    assert chip_smoke.check_spare(_spare_results(), fleet, LAUNCHES) == dict(fwd=10, dq=10, dkv=10)
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.check_spare(_spare_results(change), fleet, launches)
+
+
+def test_spare_check_counts_committed_deltas(chip_smoke) -> None:
+    fleet = chip_smoke.SPARE_DELTA_FLEET  # 4 outer steps
+    at_4 = {(0, "final_step"): 4, (2, "final_step"): 4}
+    with pytest.raises(AssertionError, match="fewer than 1"):
+        chip_smoke.check_spare(_spare_results(at_4), fleet, LAUNCHES, min_deltas=1)
+    chip_smoke.check_spare(_spare_results({**at_4, ("spare", "warm_deltas_applied"): 1.0}), fleet,
+                           LAUNCHES, min_deltas=1)
+
+
+@pytest.mark.parametrize("promote, kill, match", [
+    (dict(promotions_total=0, quorum_reconfigs=1, promotion_latency_s=0.5), None, "spare_promote"),
+    (dict(promotions_total=1, quorum_reconfigs=2, promotion_latency_s=0.5), None, "spare_promote"),
+    (None, dict(quorum_reconfigs=1, promotions_total=0), "kill_spare"),
+    (None, dict(quorum_reconfigs=0, promotions_total=1), "kill_spare"),
+])
+def test_spare_drill_checks_raise_on_failure(chip_smoke, promote, kill, match) -> None:
+    good_promote = dict(promotions_total=1, quorum_reconfigs=1, promotion_latency_s=0.5)
+    good_kill = dict(quorum_reconfigs=0, promotions_total=0)
+    chip_smoke.check_spare_drills(good_promote, good_kill)
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.check_spare_drills(promote or good_promote, kill or good_kill)
+
+
+def test_kernels_line_carries_the_spare_paths_launches() -> None:
+    source = (REPO / "chip_smoke.py").read_text()
+    assert 'row["spare_launches"] = results["spare_python"]["launches"]' in source
+
+
+def test_diloco_depth_cut_spares_diloco_cpp(chip_smoke) -> None:
+    """Two DiLoCo phases run 1 layer deep to keep the command under 900 s;
+    ``diloco_cpp`` keeps LAYERS, so its cold heal moves the state of the
+    depth the spare phase promotes at."""
+    phases = dict(chip_smoke.DILOCO_PHASES)
+    assert set(chip_smoke.DILOCO_LAYERS) <= set(phases) - {"diloco_cpp"}
+    assert all(1 <= n < chip_smoke.LAYERS for n in chip_smoke.DILOCO_LAYERS.values())
+    source = (REPO / "chip_smoke.py").read_text()
+    assert "DILOCO_LAYERS.get(key, LAYERS)" in source
+
+
+def test_release_host_memory_runs_on_the_cpu(chip_smoke) -> None:
+    chip_smoke.release_host_memory()
+    assert chip_smoke.HostRss.now() > 0

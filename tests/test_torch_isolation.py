@@ -264,6 +264,32 @@ def test_hsdp_cnn_and_sampler_run_with_jax_blocked() -> None:
     assert proc.returncode == 0 and "ISOLATED_OK" in proc.stdout, proc.stdout + proc.stderr
 
 
+def test_kill_spare_drill_runs_with_jax_blocked() -> None:
+    """In a fresh interpreter that cannot import the JAX package: the port's
+    ``kill_spare`` drill (2 actives, a warming spare killed mid-warm) runs
+    on the CPU and holds its contract, and ``chaos`` and ``spare`` import
+    nothing of the JAX package on the way."""
+    script = textwrap.dedent(
+        f"""
+        import sys
+        for name in {list(FORBIDDEN)!r}:
+            sys.modules[name] = None  # any import of it now raises
+        sys.path.insert(0, {str(REPO)!r})
+        from torchft_tpu_torch.drill import gray_failure_drill
+        report = gray_failure_drill(mode="kill_spare", num_replicas=2, steps=8, device="cpu")
+        assert report["quorum_reconfigs"] == 0 and report["promotions_total"] == 0, report
+        assert "torchft_tpu_torch.spare" in sys.modules and "torchft_tpu_torch.chaos" in sys.modules
+        print("ISOLATED_OK")
+        """
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", script], capture_output=True, text=True, timeout=120, env=env,
+        cwd=str(REPO),
+    )
+    assert proc.returncode == 0 and "ISOLATED_OK" in proc.stdout, proc.stdout + proc.stderr
+
+
 @pytest.mark.parametrize("argv", [
     ["train_ddp", "--model", "cnn", "--steps", "1"],
     ["train_hsdp", "--model", "llama_debug", "--steps", "1", "--groups", "1"],

@@ -8,8 +8,9 @@ speak one protocol, and ports what touches tensors: the ``Manager``'s heal
 path (torch tensors stream as checkpoint leaves), gradient averaging over
 ``.grad`` tensors (float, or quantized to int8/fp8 on the card), a
 ``torch.optim`` wrapper, ``LocalSGD`` and (Streaming) ``DiLoCo`` with the
-sharded outer sync, the Llama-3 model, and the flash-attention and
-quantized-wire kernels, hand-written in CUDA for Hopper.
+sharded outer sync, hot spares (``spare.py``) and the chaos drills
+(``chaos.py``, ``drill.py``), the Llama-3 model, and the flash-attention
+and quantized-wire kernels, hand-written in CUDA for Hopper.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 The train loops are ``python -m torchft_tpu_torch.train_ddp``,
@@ -42,6 +43,10 @@ _LAZY = {
     "CheckpointTransport": ("torchft_tpu_torch.checkpointing.transport", "CheckpointTransport"),
     "HTTPTransport": ("torchft_tpu_torch.checkpointing.http_transport", "HTTPTransport"),
     "CommTransport": ("torchft_tpu_torch.checkpointing.comm_transport", "CommTransport"),
+    # chaos: hot spares' promotion and the gray-failure drills
+    "ChaosController": ("torchft_tpu_torch.chaos", "ChaosController"),
+    "Failure": ("torchft_tpu_torch.chaos", "Failure"),
+    "gray_failure_drill": ("torchft_tpu_torch.drill", "gray_failure_drill"),
     # model and kernels
     "Llama": ("torchft_tpu_torch.models.llama", "Llama"),
     "flash_attention": ("torchft_tpu_torch.ops.flash_attention", "flash_attention"),

@@ -1217,7 +1217,6 @@ class LighthouseServer:
         failure: Optional[Tuple[ErrCode, str]] = None
         promoted_fast = False
         with self._lock:
-            self._register(requester)
             # Promotion fast-path: a spare the tick loop promoted INTO the
             # standing quorum was (by design) probably warming, not parked,
             # when that quorum was issued — parking it for the NEXT quorum
@@ -1242,6 +1241,17 @@ class LighthouseServer:
                 ):
                     quorum = prev
                     promoted_fast = True
+            if promoted_fast:
+                # a heartbeat, not a registration: this spare-role request
+                # (a round left in flight from before the promotion) must
+                # not join the NEXT round as a participant at its stale
+                # warm step — the first active to ask would be handed a
+                # quorum at once that heals the promoted replica, whose
+                # own active request then waits for a quorum that never
+                # comes
+                self._state.heartbeats[requester.replica_id] = time.monotonic()
+            else:
+                self._register(requester)
         if promoted_fast:
             conn.settimeout(30.0)
             try:

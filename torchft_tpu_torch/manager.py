@@ -48,7 +48,7 @@ from torchft_tpu_torch.obs.spans import span as obs_span
 from torchft_tpu_torch.observability import QuorumTracer, traced
 from torchft_tpu_torch.checkpointing.transport import CheckpointTransport
 from torchft_tpu_torch.communicator import Communicator, ReduceOp
-from torchft_tpu_torch.manager_server import ManagerClient, ManagerServer
+from torchft_tpu_torch.manager_server import _WARM_RANGE_MAX_BYTES, ManagerClient, ManagerServer
 from torchft_tpu_torch.quantization import dequantize_int8_rowwise, quant_kind
 from torchft_tpu_torch.store import StoreClient, StoreServer
 from torchft_tpu_torch.work import DummyWork, Event, Work
@@ -575,8 +575,19 @@ class Manager:
 
     def _stage_outer_delta(self, delta: "np.ndarray") -> None:
         """collectives.outer_sharded_sync tap: hold the assembled delta
-        bytes until the commit vote decides their fate."""
-        self._staged_outer_delta = np.asarray(delta, dtype=np.float32).tobytes()
+        bytes until the commit vote decides their fate.  A delta over the
+        feed's frame budget is not staged: the feed would refuse it
+        (``ManagerServer.publish_delta``), and at Llama-3-8B width a
+        fragment's delta is gigabytes of host memory."""
+        delta = np.asarray(delta, dtype=np.float32)
+        if delta.nbytes > _WARM_RANGE_MAX_BYTES:
+            self._staged_outer_delta = None
+            self._logger.warn(
+                f"outer delta of {delta.nbytes} bytes exceeds the spare feed's "
+                "frame budget; not staged (spares warm via snapshot chunks)"
+            )
+            return
+        self._staged_outer_delta = delta.tobytes()
 
     def publish_staged_outer_delta(self, frag: int) -> None:
         """Publish the delta the last sharded sync staged — call ONLY after

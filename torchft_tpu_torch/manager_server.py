@@ -306,6 +306,11 @@ class ManagerServer:
         # identity (one full materialization pass per restage, not per
         # request) — the version watermarks spares diff against
         self._warm_hash_cache: Tuple[Optional[object], List[int]] = (None, [])
+        # one crc pass at a time: at 8B width a pass outlasts the spare's
+        # index timeout, and its retry must wait for this pass instead of
+        # starting a second one (two passes over different leaves thrash
+        # the plan's one-leaf host memo, copying a whole leaf per chunk)
+        self._warm_hash_lock = threading.Lock()
         # outer-sync delta feed: committed (step, fragment, payload) blobs
         # spares subscribe to (bounded ring; identical bytes on every
         # replica by construction, so any one publisher suffices)
@@ -326,6 +331,15 @@ class ManagerServer:
         # quorum barrier state
         self._participants: Dict[int, QuorumMember] = {}
         self._checkpoint_metadata: Dict[int, str] = {}
+        # quorum rounds: each full group starts one lighthouse forward, its
+        # round id counting from 0; ``_quorum_gen`` is one past the newest
+        # round whose outcome ``_latest`` / ``_latest_err`` hold, and a rank
+        # takes only its own round's outcome or a newer one.  Forwards run
+        # one at a time, so an older round can settle after a newer rank
+        # parked: handing it that stale outcome (a spare's earlier park, a
+        # round from before a promotion) would give the rank a quorum its
+        # own request never asked for
+        self._rounds_started = 0
         self._quorum_gen = 0
         self._latest: Optional[Quorum] = None
         self._latest_err: Optional[str] = None
@@ -787,9 +801,6 @@ class ManagerServer:
         serialized-stream offsets whose pickled header length can drift).
         These are the per-chunk version watermarks: a spare refetches only
         chunks whose crc moved since its last pass."""
-        cached_plan, cached = self._warm_hash_cache
-        if cached_plan is plan:
-            return cached
         import zlib
 
         from torchft_tpu_torch.checkpointing.serialization import (
@@ -798,14 +809,18 @@ class ManagerServer:
             heal_chunk_bytes,
         )
 
-        hashes = []
-        for ai, lo, hi in array_chunk_ranges(
-            plan.leaf_nbytes, heal_chunk_bytes()
-        ):
-            view = as_byte_view(plan._materialize(ai))[lo:hi]
-            hashes.append(zlib.crc32(view))
-        self._warm_hash_cache = (plan, hashes)
-        return hashes
+        with self._warm_hash_lock:
+            cached_plan, cached = self._warm_hash_cache
+            if cached_plan is plan:
+                return cached
+            hashes = []
+            for ai, lo, hi in array_chunk_ranges(
+                plan.leaf_nbytes, heal_chunk_bytes()
+            ):
+                view = as_byte_view(plan._materialize(ai))[lo:hi]
+                hashes.append(zlib.crc32(view))
+            self._warm_hash_cache = (plan, hashes)
+            return hashes
 
     def _handle_warm_index(self, conn: socket.socket) -> None:
         staged = self._warm_plan()
@@ -910,19 +925,20 @@ class ManagerServer:
                 capacity=self._capacity(),
             )
             self._participants[group_rank] = member
-            gen = self._quorum_gen
+            my_round = self._rounds_started
 
             if len(self._participants) == self._world_size:
                 self._participants.clear()
+                self._rounds_started += 1
                 threading.Thread(
                     target=self._run_quorum,
-                    args=(member, timeout_ms / 1000.0),
+                    args=(member, timeout_ms / 1000.0, my_round),
                     name="tpuft_manager_quorum",
                     daemon=True,
                 ).start()
 
             failure: Optional[Tuple[ErrCode, str]] = None
-            while self._quorum_gen == gen:
+            while self._quorum_gen <= my_round:
                 remaining = deadline - time.monotonic()
                 if remaining <= 0 or self._shutdown:
                     failure = (
@@ -965,9 +981,9 @@ class ManagerServer:
         finally:
             conn.settimeout(None)
 
-    def _run_quorum(self, requester: QuorumMember, timeout_s: float) -> None:
-        """Forward the group's request to the lighthouse with retries and
-        broadcast the result to every parked rank.
+    def _run_quorum(self, requester: QuorumMember, timeout_s: float, round_id: int) -> None:
+        """Forward round ``round_id``'s request to the lighthouse with retries
+        and broadcast the result to every rank parked on it.
 
         Retry exhaustion is a BROADCAST FAILURE, never a silent park: after
         ``quorum_retries`` failed attempts (plus any free retries granted by
@@ -994,6 +1010,16 @@ class ManagerServer:
             restart_gen = self._lh_restart_gen
             try:
               with self._lh_client_lock:
+                if requester.role != self.role:
+                    # a spare round queued behind the round that carried
+                    # its promotion: that round's ranks have their answer,
+                    # and this one, sent now, would register the stale
+                    # step of a role that no longer holds
+                    logger.info(
+                        "[Replica %s] dropped a quorum round of the old role",
+                        self._replica_id,
+                    )
+                    return
                 # persistent connection across rounds (the reference keeps a
                 # tonic channel, src/manager.rs:250-306); recreated on failure
                 if self._lh_quorum_client is None:
@@ -1014,7 +1040,7 @@ class ManagerServer:
                     world_size=requester.world_size,
                     shrink_only=requester.shrink_only,
                     commit_failures=requester.commit_failures,
-                    role=self.role,
+                    role=requester.role,
                     capacity=self._capacity(),
                 )
                 break
@@ -1052,13 +1078,15 @@ class ManagerServer:
                     )
 
         with self._lock:
+            if round_id < self._quorum_gen:
+                return  # a newer round settled first: its ranks have theirs
             self._latest = quorum
             self._latest_err = (
                 None
                 if quorum is not None
                 else f"lighthouse quorum failed after {self._quorum_retries} retries: {last_err}"
             )
-            self._quorum_gen += 1
+            self._quorum_gen = round_id + 1
             self._lock.notify_all()
 
     # -- should_commit barrier ----------------------------------------------

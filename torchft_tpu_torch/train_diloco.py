@@ -34,7 +34,7 @@ import os
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -64,6 +64,12 @@ logger = logging.getLogger("train_diloco")
 ALGOS = ("diloco", "localsgd")
 # the outer optimizer of bench.py's phase D and examples/train_diloco.py
 OUTER_LR, OUTER_MOMENTUM = 0.7, 0.9
+# the lighthouse's promotion switch (read per quorum computation), held off
+# until a spare stands warm at the commit front
+SPARE_PROMOTE_ENV = "TORCHFT_SPARE_PROMOTE"
+# seconds between a holding survivor's warm staging attempts: a staging of
+# the 8B-width state takes seconds, and one that failed is retried
+STAGE_RETRY_S = 10.0
 # a run stops after this many inner steps per committed sync it asked for,
 # even if the syncs did not commit (bench.py's cap)
 INNER_STEP_CAP = 5
@@ -145,6 +151,31 @@ class DiLoCoReplicaResult:
     inner_steps: int
     # class names of the planes: "lighthouse", "manager_server", "communicator"
     planes: Dict[str, str]
+    # the quorum id at each commit decision of the last incarnation: a
+    # change between two decisions is one membership edit
+    quorum_ids: List[int] = dataclasses.field(default_factory=list)
+    # True for a replica killed with a spare registered: it stays dead
+    killed: bool = False
+    # a spare's record (None for an active): its ``SpareAgent.metrics``,
+    # whether it was promoted, the highest fresh fraction its chunk store
+    # reached, and, once promoted, the seconds from the kill to the
+    # adopted promotion quorum and to its first committed sync, the
+    # lighthouse's ``promotions_total`` and the flash kernels' launch
+    # counts at the promotion
+    spare: Optional[Dict[str, Any]] = None
+
+
+@dataclasses.dataclass
+class _Run:
+    """What one incarnation's train loop recorded so far."""
+
+    losses: List[float] = dataclasses.field(default_factory=list)
+    inner_s: List[float] = dataclasses.field(default_factory=list)
+    wrapper_s: List[float] = dataclasses.field(default_factory=list)
+    outer_shard: List[Dict[str, float]] = dataclasses.field(default_factory=list)
+    quorum_ids: List[int] = dataclasses.field(default_factory=list)
+    steps: int = 0
+    first_commit_ts: Optional[float] = None
 
 
 def run_diloco_fleet(
@@ -168,6 +199,7 @@ def run_diloco_fleet(
     timeout: float = 300.0,
     init_state: Optional[dict] = None,
     heal_transport: str = "http",
+    spares: int = 0,
 ) -> List[DiLoCoReplicaResult]:
     """Train ``replicas`` replica groups as threads of this process with
     DiLoCo (``algo="diloco"``) or LocalSGD (``"localsgd"``), each with its
@@ -181,7 +213,25 @@ def run_diloco_fleet(
     before that inner step; it restarts with a fresh model and heals from a
     live peer at its next quorum.  The replicas start from one seed, so no
     step-0 sync runs (``init_sync=False``); ``init_state`` replaces the
-    seeded init."""
+    seeded init.
+
+    ``spares`` (DiLoCo on the Python tier; the C++ sidecar refuses the
+    role) adds that many hot spares: each a ``Manager(role="spare")``
+    driving ``SpareAgent(manager, delta_apply=diloco_delta_apply(diloco))``
+    until it is promoted, then the same train loop, from mid-``start_quorum``
+    of its first active step.  The actives wait for the spares' first
+    registration before their first step.  With ``kill_at`` the killed
+    replica stays dead and the lighthouse promotes a spare in its place:
+    at the kill's inner step every active holds, the survivors stage a warm
+    snapshot of the commit front, and promotion stays off
+    (``TORCHFT_SPARE_PROMOTE=0``) until a spare has loaded a complete
+    snapshot (its chunk store's fresh fraction reached 1.0) and stands at
+    that front.  The results list the actives, then the spares."""
+    if spares and (algo != "diloco" or (tier or default_tier()) != "python"):
+        raise ValueError(
+            "spares need algo='diloco' on the Python tier (the C++ manager "
+            "sidecar refuses the spare role)"
+        )
     per_sync = inner_steps_per_sync(algo, sync_every, num_fragments)
     cap = INNER_STEP_CAP * outer_steps * per_sync
     lighthouse = make_lighthouse(
@@ -195,105 +245,227 @@ def run_diloco_fleet(
     server_cls = manager_server_cls(tier)
     kill_lock = threading.Lock()
     pending_kill = [kill_at]
+    # hot spares: registered once every spare has parked on the lighthouse;
+    # front is the commit front the actives hold at (the kill's inner
+    # step); armed once a spare stands warm at it (promotion allowed)
+    registered = [threading.Event() for _ in range(spares)]
+    front: List[Optional[int]] = [None]
+    armed = threading.Event()
+    actives_done = threading.Event()
+    kill_ts: List[Optional[float]] = [None]
+    saved_promote = os.environ.get(SPARE_PROMOTE_ENV)
+    if spares:
+        os.environ[SPARE_PROMOTE_ENV] = "0"
 
-    def _replica(idx: int) -> DiLoCoReplicaResult:
+    def _make(idx: int, role: str):
+        model, inner = build(cfg, device, seed, lr)
+        if init_state is not None:
+            model.load_state_dict(init_state)
+        save, load = state_fns(model, inner)
+        comm = make_communicator(timeout_s=timeout, tier=tier)
+        manager = Manager(
+            comm=comm,
+            checkpoint_transport=heal_transport_for(heal_transport, comm),
+            load_state_dict=load,
+            state_dict=save,
+            min_replica_size=replicas,
+            use_async_quorum=False,
+            replica_id=f"replica_{idx}",
+            lighthouse_addr=lighthouse.local_address(),
+            timeout=timeout,
+            quorum_timeout=timeout,
+            connect_timeout=timeout,
+            init_sync=False,
+            server_cls=server_cls,
+            role=role,
+        )
+        wrapper = make_wrapper(
+            algo, manager, model, sync_every, num_fragments, fragment_sync_delay,
+            fragment_update_alpha, should_quantize,
+        )
+        return model, inner, manager, wrapper
+
+    def _train(idx, model, inner, manager, wrapper, run: _Run, before_step=None) -> None:
         batches = synthetic_batches(cfg, batch, seq, idx, 4, device)
         fence = device_fence(device)
+        guard = wrapper.pre_step if algo == "diloco" else None
+        with wrapper:
+            while manager.current_step() < outer_steps and run.steps < cap:
+                if before_step is not None:
+                    before_step(run.steps)
+                t0 = fence()
+                loss = inner_step(model, inner, batches[run.steps % len(batches)],
+                                  guard() if guard else None)
+                t1 = fence()
+                run.inner_s.append(t1 - t0)
+                run.losses.append(float(loss))
+                run.steps += 1
+                committed = wrapper.step()
+                run.wrapper_s.append(fence() - t1)
+                if committed is not None:
+                    run.outer_shard.append({
+                        k: v for k, v in manager.last_quorum_timings.items()
+                        if k.startswith("outer_shard_")
+                    })
+                    run.quorum_ids.append(manager._quorum_id)
+                    if committed and run.first_commit_ts is None:
+                        run.first_commit_ts = time.monotonic()
+                    logger.info(
+                        "replica %d inner step %d: sync committed=%s step=%d loss %.4f",
+                        idx, run.steps, committed, manager.current_step(), run.losses[-1],
+                    )
+
+    def _result(model, manager, wrapper, run: _Run, restarts: int, initial, **extra):
+        frags = getattr(wrapper, "fragments", [])
+        return DiLoCoReplicaResult(
+            losses=run.losses,
+            final_step=manager.current_step(),
+            fragment_sha256=[f.backup_sha256() for f in frags],
+            fragment_live_sha256=[f.live_sha256() for f in frags],
+            initial_fragment_sha256=initial,
+            params_sha256=params_sha256(model),
+            restarts=restarts,
+            heal=getattr(manager._checkpoint_transport, "last_heal_metrics", None),
+            fragment_heals=[f.heals for f in frags],
+            inner_step_s=run.inner_s,
+            wrapper_step_s=run.wrapper_s,
+            outer_shard=run.outer_shard,
+            inner_steps=run.steps,
+            planes={
+                "lighthouse": type(lighthouse).__name__,
+                "manager_server": type(manager._manager_server).__name__,
+                "communicator": type(manager._comm).__name__,
+            },
+            quorum_ids=run.quorum_ids,
+            **extra,
+        )
+
+    def _replica(idx: int) -> DiLoCoReplicaResult:
+        for event in registered:
+            if not event.wait(timeout):
+                raise TimeoutError("a spare never registered with the lighthouse")
         restarts = 0
         while True:
-            model, inner = build(cfg, device, seed, lr)
-            if init_state is not None:
-                model.load_state_dict(init_state)
-            save, load = state_fns(model, inner)
-            comm = make_communicator(timeout_s=timeout, tier=tier)
-            manager = Manager(
-                comm=comm,
-                checkpoint_transport=heal_transport_for(heal_transport, comm),
-                load_state_dict=load,
-                state_dict=save,
-                min_replica_size=replicas,
-                use_async_quorum=False,
-                replica_id=f"replica_{idx}",
-                lighthouse_addr=lighthouse.local_address(),
-                timeout=timeout,
-                quorum_timeout=timeout,
-                connect_timeout=timeout,
-                init_sync=False,
-                server_cls=server_cls,
-            )
-            wrapper = make_wrapper(
-                algo, manager, model, sync_every, num_fragments, fragment_sync_delay,
-                fragment_update_alpha, should_quantize,
-            )
-            frags = getattr(wrapper, "fragments", [])
-            initial = [f.backup_sha256() for f in frags]
-            guard = wrapper.pre_step if algo == "diloco" else None
-            losses: List[float] = []
-            inner_s: List[float] = []
-            wrapper_s: List[float] = []
-            outer_shard: List[Dict[str, float]] = []
-            steps = 0
+            model, inner, manager, wrapper = _make(idx, "active")
+            initial = [f.backup_sha256() for f in getattr(wrapper, "fragments", [])]
+            run = _Run()
+
+            def before_step(steps: int) -> None:
+                if spares and kill_at is not None and steps == kill_at[1] and not armed.is_set():
+                    # hold at the commit front until a spare stands warm at
+                    # it; the survivors stage the snapshot it loads
+                    front[0] = manager.current_step()
+                    deadline = time.monotonic() + timeout
+                    while True:
+                        if idx != kill_at[0]:
+                            # no-op once the front is staged; a retry only
+                            # after a staging failed (it never blocks)
+                            manager._maybe_stage_warm()
+                        if armed.wait(STAGE_RETRY_S):
+                            break
+                        if time.monotonic() > deadline:
+                            raise TimeoutError("no spare warmed to the commit front")
+                with kill_lock:
+                    if pending_kill[0] == (idx, steps):
+                        pending_kill[0] = None
+                        raise InjectedKill(f"replica {idx} killed before inner step {steps}")
+
             try:
-                with wrapper:
-                    while manager.current_step() < outer_steps and steps < cap:
-                        with kill_lock:
-                            if pending_kill[0] == (idx, steps):
-                                pending_kill[0] = None
-                                raise InjectedKill(f"replica {idx} killed before inner step {steps}")
-                        t0 = fence()
-                        loss = inner_step(model, inner, batches[steps % len(batches)],
-                                          guard() if guard else None)
-                        t1 = fence()
-                        inner_s.append(t1 - t0)
-                        losses.append(float(loss))
-                        steps += 1
-                        committed = wrapper.step()
-                        wrapper_s.append(fence() - t1)
-                        if committed is not None:
-                            outer_shard.append({
-                                k: v for k, v in manager.last_quorum_timings.items()
-                                if k.startswith("outer_shard_")
-                            })
-                            logger.info(
-                                "replica %d inner step %d: sync committed=%s step=%d loss %.4f",
-                                idx, steps, committed, manager.current_step(), losses[-1],
-                            )
+                _train(idx, model, inner, manager, wrapper, run, before_step)
             except InjectedKill:
                 # a dead process stops heartbeating at once: tear the
-                # manager down and start over with a fresh model
+                # manager down and (without a spare) start over with a
+                # fresh model
+                if spares:
+                    kill_ts[0] = time.monotonic()
+                    manager.shutdown()
+                    return _result(model, manager, wrapper, run, restarts, initial, killed=True)
                 restarts += 1
                 manager.shutdown()
-                del manager, model, inner, save, load, wrapper, frags, guard
+                del manager, model, inner, wrapper
                 gc.collect()
                 continue
-            result = DiLoCoReplicaResult(
-                losses=losses,
-                final_step=manager.current_step(),
-                fragment_sha256=[f.backup_sha256() for f in frags],
-                fragment_live_sha256=[f.live_sha256() for f in frags],
-                initial_fragment_sha256=initial,
-                params_sha256=params_sha256(model),
-                restarts=restarts,
-                heal=getattr(manager._checkpoint_transport, "last_heal_metrics", None),
-                fragment_heals=[f.heals for f in frags],
-                inner_step_s=inner_s,
-                wrapper_step_s=wrapper_s,
-                outer_shard=outer_shard,
-                inner_steps=steps,
-                planes={
-                    "lighthouse": type(lighthouse).__name__,
-                    "manager_server": type(manager._manager_server).__name__,
-                    "communicator": type(manager._comm).__name__,
-                },
-            )
+            result = _result(model, manager, wrapper, run, restarts, initial)
             manager.shutdown()
             return result
 
+    def _spare(j: int) -> DiLoCoReplicaResult:
+        from torchft_tpu_torch.ops import flash_attention
+        from torchft_tpu_torch.spare import SpareAgent, diloco_delta_apply
+
+        idx = replicas + j
+        model, inner, manager, wrapper = _make(idx, "spare")
+        initial = [f.backup_sha256() for f in wrapper.fragments]
+        agent = SpareAgent(manager, delta_apply=diloco_delta_apply(wrapper))
+        fresh_max = 0.0
+        deadline = time.monotonic() + timeout * (cap + 2)
+        try:
+            while not agent.step():
+                registered[j].set()
+                fresh_max = max(fresh_max, agent.metrics.get("warm_fresh_fraction", 0.0))
+                logger.info(
+                    "spare %d warming: step %d, fresh %.3f, %d bytes in %d chunks, %d deltas",
+                    idx, agent.warm_step, agent.metrics.get("warm_fresh_fraction", 0.0),
+                    agent.metrics.get("warm_bytes_fetched", 0), agent.metrics.get(
+                        "warm_chunks_fetched", 0), agent.metrics.get("warm_deltas_applied", 0),
+                )
+                if (
+                    front[0] is not None
+                    and agent._loaded_once
+                    and agent.warm_step >= front[0]
+                    and not armed.is_set()
+                ):
+                    os.environ[SPARE_PROMOTE_ENV] = "1"
+                    armed.set()
+                if actives_done.is_set() or time.monotonic() > deadline:
+                    info = dict(agent.metrics, promoted=False, warm_fresh_fraction_max=fresh_max)
+                    return _result(model, manager, wrapper, _Run(), 0, initial, spare=info)
+            adopt_ts = time.monotonic()
+            launches = dict(flash_attention.launches)
+            metrics = agent.metrics
+        finally:
+            # a promoted spare warms no more: drop its chunk cache
+            agent.close()
+        run = _Run()
+        _train(idx, model, inner, manager, wrapper, run)
+        info = dict(
+            metrics,
+            promoted=True,
+            warm_fresh_fraction_max=fresh_max,
+            kill_to_adopt_s=None if kill_ts[0] is None else adopt_ts - kill_ts[0],
+            kill_to_first_commit_s=(
+                None if kill_ts[0] is None or run.first_commit_ts is None
+                else run.first_commit_ts - kill_ts[0]
+            ),
+            promotions_total=lighthouse._status().get("promotions_total"),
+            launches_at_promotion=launches,
+        )
+        result = _result(model, manager, wrapper, run, 0, initial, spare=info)
+        manager.shutdown()
+        return result
+
+    def _active(idx: int) -> DiLoCoReplicaResult:
+        try:
+            return _replica(idx)
+        except BaseException:
+            armed.set()  # release the others' holds
+            raise
+
     try:
-        with ThreadPoolExecutor(max_workers=replicas) as pool:
-            futures = [pool.submit(_replica, i) for i in range(replicas)]
-            return [f.result(timeout=timeout * (cap + 2)) for f in futures]
+        with ThreadPoolExecutor(max_workers=replicas + spares) as pool:
+            futures = [pool.submit(_active, i) for i in range(replicas)]
+            spare_futures = [pool.submit(_spare, j) for j in range(spares)]
+            results = [f.result(timeout=timeout * (cap + 2)) for f in futures]
+            actives_done.set()
+            return results + [f.result(timeout=timeout * (cap + 2)) for f in spare_futures]
     finally:
+        actives_done.set()
+        armed.set()
+        if spares:
+            if saved_promote is None:
+                os.environ.pop(SPARE_PROMOTE_ENV, None)
+            else:
+                os.environ[SPARE_PROMOTE_ENV] = saved_promote
         lighthouse.shutdown()
 
 
