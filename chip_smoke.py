@@ -90,13 +90,13 @@ It builds the port's CUDA kernels from ``torchft_tpu_torch/csrc/`` (one
    median inner step, the seconds per outer sync from ``outer_shard_wall_s``
    and its scatter / update / gather split, the heal's seconds and bytes,
    the peak device memory, the peak host RSS over the phase and tokens/s
-   per replica over the phase.  ``diloco_quantized_cpp`` and
-   ``localsgd_cpp`` run 1 layer deep (:data:`DILOCO_LAYERS`; the width
-   stays), so the command stays under 900 s with the spare phases.
+   per replica over the phase.  All three run 1 layer deep
+   (:data:`DILOCO_LAYERS`; the width stays), as does ``spare_python``, so
+   the command stays under 900 s with phases 10–12.
 
    ``spare_python`` — ``diloco_cpp``'s schedule with a hot spare, every
-   plane on the Python tier (the C++ sidecar refuses the spare role), 2
-   layers: 2 actives and 1 spare (``run_diloco_fleet(spares=1)``); replica
+   plane on the Python tier (the C++ sidecar refuses the spare role), 1
+   layer: 2 actives and 1 spare (``run_diloco_fleet(spares=1)``); replica
    1 is killed before its inner step 5 and stays dead, and the lighthouse
    promotes the spare in its place.  Checks (``check_spare``): no replica
    restarted, the spare promoted once, in one membership edit, with no heal
@@ -134,6 +134,32 @@ It builds the port's CUDA kernels from ``torchft_tpu_torch/csrc/`` (one
    commit, ``last_quorum_timings``, the heal's seconds and bytes, each
    process's peak device memory, and whether the final hash equals the
    float C++ DDP phase's (a finding, not a check).
+10. ``pipeline_phase`` — ``PipelinedLlama`` at Llama-3-8B width, 2 layers
+   over pp = 2 stages (one layer a stage), both stages on the card through
+   the engine's in-process hop, B=4, S=2048, 4 microbatches, every layer
+   recomputed (``remat_mode="layer"``), held against the plain ``Llama``
+   with the same weights and no remat: loss within 1e-2 relative, each
+   gradient within 2e-2 normwise (both bf16, on different paths); the
+   flash launches must be the schedule's (live ticks only: 8 dq, 8 dkv,
+   and 16 forwards with the recomputes).  Prints the pipelined and plain
+   step's ms and the peak device memory above the weights.
+11. ``moe_hsdp_cpp`` — ``train_hsdp`` over ``llama3_8b_moe`` cut to 1 layer
+   (8 experts, capacity factor 1.5, 2,032,185,344 parameters), 2 replica
+   groups each one process on the card at ep = fsdp = tp = 1, the C++
+   tier, 3 steps, no kill (a kill and heal of its 12.19 GB state took the
+   command past 900 s; ``hsdp_cpp`` heals the same path).  ``hsdp_cpp``'s
+   checks but the heal's, and every router and expert parameter has a
+   gradient on every step; prints the tokens past each expert's capacity
+   (384 slots for 2048 tokens a step; a finding, not a check), the step
+   split, the state's bytes and each process's peak device memory.
+12. ``rehearsal_phase`` — ``parallel/rehearsal.py`` on the card: the
+   baseline table (8B at fsdp = 8, 8B at fsdp = 8 × tp = 2, 70B at
+   fsdp = 16 × tp = 4, S=8192) beside this card's ``total_memory``;
+   ``quant_kernel_reports`` (each quant kernel for int8 and fp8, and the
+   flash kernels at each config's per-rank heads, held against their
+   plain versions); and the rehearsal's arithmetic for ``hsdp_cpp``'s and
+   ``moe_hsdp_cpp``'s layouts beside the peaks those phases measured (a
+   finding, not a check).
 
 Per sync, the C++ tier's parameter hash must equal the Python tier's.  The
 DDP train phases run with ``obs.spans`` on; each prints the ``commit`` split
@@ -213,9 +239,12 @@ DILOCO_PHASES = (
     ("localsgd_cpp", dict(algo="localsgd", sync_every=4, num_fragments=1,
                           fragment_sync_delay=0, outer_steps=1, should_quantize=False)),
 )
-# the DiLoCo phases cut to 1 layer (the width stays) so the command stays
-# under 900 s with the spare phases; the others run at LAYERS
-DILOCO_LAYERS = {"diloco_quantized_cpp": 1, "localsgd_cpp": 1}
+# the DiLoCo and spare phases cut to 1 layer (the width stays) so the
+# command stays under 900 s with the pipeline, MoE and rehearsal phases;
+# diloco_cpp and spare_python share a depth, so the cold heal printed
+# beside the promotion moves the same state
+DILOCO_LAYERS = {"diloco_cpp": 1, "diloco_quantized_cpp": 1, "localsgd_cpp": 1,
+                 "spare_python": 1}
 # spare_python: DILOCO's schedule with one hot spare, every plane on the
 # Python tier (the C++ manager sidecar refuses the spare role): 2 actives
 # and the spare as threads of this process; replica 1 is killed before its
@@ -241,6 +270,21 @@ SPARE_DELTA_ENV = {"TORCHFT_SPARE_WARM_REFRESH_S": "60"}
 # run_hsdp_fleet keywords of hsdp_cpp; both on the C++ tier
 CNN_PHASE = dict(replicas=2, steps=20, batch=32, lr=1e-3, kill_at=(1, 5))
 HSDP_PHASE = dict(groups=2, fsdp=1, tp=1, steps=STEPS, batch=1, seq=2048, lr=1e-4, kill_at=(1, 2))
+# pipeline_phase: PipelinedLlama at Llama-3-8B width, 2 layers over 2
+# stages (one a stage) in one process, every layer recomputed ("layer"),
+# held against the plain Llama with the same weights and no remat: loss
+# within PIPE_LOSS_RTOL (relative), each gradient within PIPE_GRAD_RTOL
+# normwise (both arms bf16, on different paths)
+PIPELINE_CASE = dict(layers=2, pp=2, batch=4, seq=2048, microbatches=4, remat_mode="layer")
+PIPE_LOSS_RTOL, PIPE_GRAD_RTOL = 1e-2, 2e-2
+PIPE_TIMED_STEPS = 3
+# moe_hsdp_cpp: train_hsdp over llama3_8b_moe (8 experts, capacity factor
+# 1.5) cut to MOE_LAYERS, 2 groups of one process at ep = fsdp = tp = 1,
+# the C++ tier, 3 steps, no kill: the kill and heal of a 2.03B-parameter
+# state (~40 s) would take the command past 900 s, and hsdp_cpp heals the
+# same code path
+MOE_LAYERS = 1
+MOE_PHASE = dict(groups=2, fsdp=1, tp=1, ep=1, steps=3, batch=1, seq=2048, lr=1e-4)
 SPAN_CAP = 200_000  # the quantized phase records ~1,400 comm ops a step
 LAYERS = 2  # Llama-3-8B depth cut from 32 so two replicas fit one card
 # Every kernel of the main path: its CUDA source, and the ``def`` of the
@@ -1266,7 +1310,8 @@ def spare_phase(train_diloco, train_ddp, fa, qk, card: str, cold_heal: dict) -> 
     (another tier)."""
     import resource
 
-    cfg = train_ddp.model_config("llama3_8b", LAYERS)
+    layers = DILOCO_LAYERS.get("spare_python", LAYERS)
+    cfg = train_ddp.model_config("llama3_8b", layers)
     before_release = HostRss.now()
     release_host_memory()
     torch.cuda.empty_cache()
@@ -1286,7 +1331,7 @@ def spare_phase(train_diloco, train_ddp, fa, qk, card: str, cold_heal: dict) -> 
             raise AssertionError(f"a replica ran {r.planes}, not the python tier")
     return dict(
         card=card, tier="python", fleet=fleet, env=SPARE_ENV,
-        model="llama3_8b width, %d layers, bf16" % LAYERS,
+        model="llama3_8b width, %d layers, bf16" % layers,
         **_spare_summary(results),
         launches=launches,
         launches_after_promotion=after,
@@ -1371,9 +1416,10 @@ def cnn_phase(train_ddp, card: str) -> dict:
     )
 
 
-def check_hsdp(fleet, steps: int) -> None:
+def check_hsdp(fleet, steps: int, killed: bool = True) -> None:
     """hsdp_cpp's checks over ``run_hsdp_fleet``'s result (per group, per
-    rank); raises on the first that fails."""
+    rank); with ``killed`` group 1 must have restarted once and healed, else
+    no group restarted.  Raises on the first that fails."""
     ranks = [r for group in fleet for r in group]
     for r in ranks:
         where = f"hsdp group {r['group']} rank {r['rank']}"
@@ -1386,9 +1432,11 @@ def check_hsdp(fleet, steps: int) -> None:
         for name in ("fwd", "dq", "dkv"):
             if r["launches"].get(name, 0) <= 0:
                 raise AssertionError(f"{where}: kernel {name} never launched")
-    if [g[0]["incarnation"] for g in fleet] != [0, 1]:
-        raise AssertionError(f"hsdp restarts {[g[0]['incarnation'] for g in fleet]}, expected [0, 1]")
-    if any(not r["heal"] or r["heal"]["bytes"] <= 0 for r in fleet[1]):
+    restarts = [0, 1] if killed else [0, 0]
+    if [g[0]["incarnation"] for g in fleet] != restarts:
+        raise AssertionError(
+            f"hsdp restarts {[g[0]['incarnation'] for g in fleet]}, expected {restarts}")
+    if killed and any(not r["heal"] or r["heal"]["bytes"] <= 0 for r in fleet[1]):
         raise AssertionError("hsdp group 1 restarted but recorded no heal")
     if len({r["params_sha256"] for r in ranks}) != 1:
         raise AssertionError(f"hsdp groups diverged: {[r['params_sha256'] for r in ranks]}")
@@ -1430,6 +1478,183 @@ def hsdp_phase(train_hsdp, train_ddp, card: str, ddp_sha256: str) -> dict:
         planes=[r["planes"] for g in groups for r in g],
         wall_s=wall_s,
     )
+
+
+def pipeline_launches_expected(layers: int, microbatches: int, remat_mode: str) -> dict:
+    """Flash launches of one pipelined step: every stage runs only its live
+    ticks, so each layer attends each microbatch once forward and once
+    backward; a recomputed attention half ("layer", "attn") launches its
+    forward again in the backward pass."""
+    per = layers * microbatches
+    return {"fwd": per * (2 if remat_mode in ("layer", "attn") else 1), "dq": per, "dkv": per}
+
+
+def check_pipeline(loss: float, plain_loss: float, rel_errs: dict, launches: dict,
+                   expected: dict) -> None:
+    """pipeline_phase's checks; raises on the first that fails."""
+    if not (math.isfinite(loss) and math.isfinite(plain_loss)):
+        raise AssertionError(f"pipeline: non-finite loss {loss} (plain {plain_loss})")
+    if abs(loss - plain_loss) > PIPE_LOSS_RTOL * abs(plain_loss):
+        raise AssertionError(f"pipeline: loss {loss} against the plain model's {plain_loss}")
+    bad = {n: e for n, e in rel_errs.items() if not e <= PIPE_GRAD_RTOL}
+    if bad:
+        raise AssertionError(f"pipeline: gradients off the plain model's (normwise): {bad}")
+    if launches != expected:
+        raise AssertionError(f"pipeline: flash launches {launches}, the schedule gives {expected}")
+
+
+def _step_ms(model, tokens, targets, steps: int) -> float:
+    """Median wall ms of a forward and backward, fenced by synchronizes."""
+    times = []
+    for _ in range(steps):
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.loss(tokens, targets).backward()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return _median(times)
+
+
+def pipeline_phase(fa, train_ddp, card: str) -> dict:
+    """PipelinedLlama with both stages on the card (the engine's in-process
+    hop) against the plain Llama on the same weights and batch; raises on
+    any failed check.  The launch counts cover exactly the pipelined step."""
+    import dataclasses
+
+    from torchft_tpu_torch.models.llama import Llama
+    from torchft_tpu_torch.parallel.pipeline import PipelinedLlama
+
+    c = PIPELINE_CASE
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = train_ddp.model_config("llama3_8b", c["layers"])
+    plain = Llama(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    piped = PipelinedLlama(dataclasses.replace(cfg, remat_mode=c["remat_mode"]), device="cuda",
+                           pp=c["pp"], num_microbatches=c["microbatches"])
+    piped.load_state_dict(plain.state_dict())
+    gen = torch.Generator("cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (c["batch"], c["seq"]), generator=gen, device="cuda")
+    targets = tokens.roll(-1, 1)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    loss = piped.loss(tokens, targets)
+    loss.backward()
+    torch.cuda.synchronize()
+    launches = dict(fa.launches)
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    plain_loss = plain.loss(tokens, targets)
+    plain_loss.backward()
+    grads = dict(plain.named_parameters())
+    rel_errs = {n: float((p.grad.float() - grads[n].grad.float()).norm()
+                         / grads[n].grad.float().norm().clamp_min(1e-30))
+                for n, p in piped.named_parameters()}
+    expected = pipeline_launches_expected(c["layers"], c["microbatches"], c["remat_mode"])
+    check_pipeline(loss.item(), plain_loss.item(), rel_errs, launches, expected)
+    piped_ms = _step_ms(piped, tokens, targets, PIPE_TIMED_STEPS)
+    plain_ms = _step_ms(plain, tokens, targets, PIPE_TIMED_STEPS)
+    del plain, piped
+    return dict(
+        card=card, case=c, model="llama3_8b width, %d layers, bf16" % c["layers"],
+        loss=loss.item(), plain_loss=plain_loss.item(), max_grad_rel_err=max(rel_errs.values()),
+        launches=launches, launches_expected=expected, step_ms=piped_ms, plain_step_ms=plain_ms,
+        peak_device_gb_above_weights=peak_gb,
+    )
+
+
+def check_moe_hsdp(fleet, steps: int, layers: int) -> None:
+    """moe_hsdp_cpp's checks: hsdp_cpp's without the kill, and every rank
+    holds each layer's router and experts, none without a gradient on any
+    step."""
+    check_hsdp(fleet, steps, killed=False)
+    for group in fleet:
+        for r in group:
+            where = f"moe group {r['group']} rank {r['rank']}"
+            if r["moe_params"] != 3 * layers:
+                raise AssertionError(f"{where}: {r['moe_params']} MoE parameters, not {3 * layers}")
+            if not r["missing_moe_grads"] or any(r["missing_moe_grads"]):
+                raise AssertionError(f"{where}: MoE parameters without a gradient per step "
+                                     f"{r['missing_moe_grads']}")
+
+
+def moe_hsdp_phase(train_hsdp, card: str) -> dict:
+    """train_hsdp over Llama-3-8B-MoE cut to MOE_LAYERS: 2 replica groups,
+    each one process on the card; raises on any failed check.  The launch
+    counts are the processes' own."""
+    cfg = train_hsdp.model_config("llama3_8b_moe", MOE_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fleet = dict(MOE_PHASE)
+    groups = train_hsdp.run_hsdp_fleet(cfg, torch.device("cuda"), tier="cpp", timeout=300.0,
+                                       **fleet)
+    wall_s = time.perf_counter() - t0
+    check_moe_hsdp(groups, fleet["steps"], MOE_LAYERS)
+    r0 = groups[0][0]
+    tokens = fleet["batch"] * fleet["seq"]
+    last = r0["phase_s"][-2:]
+    return dict(
+        card=card, tier="cpp", fleet=fleet,
+        model="llama3_8b_moe: 8B width, %d layers, %d experts, capacity factor %s, bf16"
+        % (MOE_LAYERS, cfg.num_experts, cfg.capacity_factor),
+        tokens_per_step=tokens,
+        capacity_per_expert=max(1, int(cfg.capacity_factor * tokens / cfg.num_experts)),
+        dropped_tokens_per_step=[g[0]["moe_dropped"] for g in groups],
+        losses=[g[0]["losses"] for g in groups],
+        params_sha256=r0["params_sha256"],
+        step_s_group0=r0["step_s"],
+        phase_ms_median_last2={
+            k: _median(p[k] for p in last) * 1e3 for k in ("compute", "allreduce", "commit")},
+        state_bytes=r0["state_bytes"],
+        max_memory_allocated_gb=[r["max_memory_allocated_gb"] for g in groups for r in g],
+        launches=[r["launches"] for g in groups for r in g],
+        wall_s=wall_s,
+    )
+
+
+# rehearsal_phase: launches of quant_kernel_reports, per kernel (3 flash
+# cases of fwd, dq, dkv; int8 and fp8 of quantize, reduce, dequantize)
+REHEARSAL_LAUNCHES = {"fwd": 3, "dq": 3, "dkv": 3, "quantize": 2, "reduce": 2, "dequantize": 2}
+
+
+def rehearsal_phase(fa, qk, card: str, hsdp: dict, moe: dict) -> dict:
+    """The scale rehearsal on the card: the baseline table against this
+    card's memory, every kernel launched at the baseline configs' shapes
+    (``quant_kernel_reports``), and the rehearsal's arithmetic for
+    hsdp_cpp's and moe_hsdp_cpp's own layouts beside the peaks those phases
+    measured (a finding, not a check).  Raises if a kernel does not launch
+    or agree."""
+    from torchft_tpu_torch.models.llama import Llama
+    from torchft_tpu_torch.models.llama_moe import LlamaMoE
+    from torchft_tpu_torch import train_hsdp
+    from torchft_tpu_torch.parallel import rehearsal
+
+    t0 = time.perf_counter()
+    total_memory = torch.cuda.get_device_properties(0).total_memory
+    table = [dict(name=r.name, ok=r.ok, mesh_axes=r.mesh_axes, hbm_frac=r.hbm_frac,
+                  total_gb=r.bytes_per_device["total"] / 1e9,
+                  frac_of_this_card=r.bytes_per_device["total"] / total_memory)
+             for r in rehearsal.baseline_reports(lower=False)]
+    fa.reset_launches()
+    qk.reset_launches()
+    rows = rehearsal.quant_kernel_reports()
+    launches = {**fa.launches, **qk.launches}
+    if launches != REHEARSAL_LAUNCHES:
+        raise AssertionError(f"rehearsal kernels launched {launches}, not {REHEARSAL_LAUNCHES}")
+    own = {}
+    for key, model, phase in (
+        ("hsdp_cpp", Llama(train_hsdp.model_config("llama3_8b", LAYERS), "meta"), hsdp),
+        ("moe_hsdp_cpp", LlamaMoE(train_hsdp.model_config("llama3_8b_moe", MOE_LAYERS), "meta"),
+         moe),
+    ):
+        r = rehearsal.rehearse(model, None, {"fsdp": 1}, batch=phase["fleet"]["batch"],
+                               seq=phase["fleet"]["seq"], name=key, lower=False)
+        own[key] = dict(ok=r.ok, predicted_gb={k: v / 1e9 for k, v in r.bytes_per_device.items()},
+                        measured_peak_gb=phase["max_memory_allocated_gb"])
+    return dict(card=card, total_memory=total_memory, hbm_bytes=rehearsal.CHIP_HBM_BYTES["h100"],
+                baselines=table, kernels=rows, launches=launches, own_layouts=own,
+                wall_s=time.perf_counter() - t0)
 
 
 def main() -> int:
@@ -1564,6 +1789,33 @@ def main() -> int:
           f"{json.dumps(t['last_quorum_timings'])}; final hash "
           f"{'equals' if t['equals_train_cpp_sha256'] else 'differs from'} train_cpp's; "
           f"wall {t['wall_s']:.1f} s", flush=True)
+    results["pipeline"] = t = pipeline_phase(fa, train_ddp, card)
+    print(f"pipeline_phase: {json.dumps(t)}", flush=True)
+    print(f"pipeline_phase (PipelinedLlama, pp={PIPELINE_CASE['pp']} in one process, "
+          f"M={PIPELINE_CASE['microbatches']}, remat {PIPELINE_CASE['remat_mode']}): loss "
+          f"{t['loss']:.6f} against the plain model's {t['plain_loss']:.6f}, gradients within "
+          f"{t['max_grad_rel_err']:.2e} normwise; flash launches {json.dumps(t['launches'])} "
+          f"(the schedule's); step {t['step_ms']:.1f} ms against the plain step "
+          f"{t['plain_step_ms']:.1f} ms; peak device {t['peak_device_gb_above_weights']:.2f} GB "
+          "above the weights", flush=True)
+    results["moe_hsdp_cpp"] = t = moe_hsdp_phase(train_hsdp, card)
+    print(f"moe_hsdp_cpp: {json.dumps(t)}", flush=True)
+    print(f"moe_hsdp_cpp (cpp tier, {t['model']}): phases "
+          f"{json.dumps(t['phase_ms_median_last2'])}; state {t['state_bytes']} bytes; "
+          f"tokens past capacity "
+          f"{t['capacity_per_expert']} per step of {t['tokens_per_step']} (per group, per step) "
+          f"{json.dumps(t['dropped_tokens_per_step'])}; peak device GB per process "
+          f"{json.dumps(t['max_memory_allocated_gb'])}; wall {t['wall_s']:.1f} s", flush=True)
+    results["rehearsal"] = t = rehearsal_phase(fa, qk, card, results["hsdp_cpp"],
+                                               results["moe_hsdp_cpp"])
+    print(f"rehearsal_phase: {json.dumps(t)}", flush=True)
+    for row in t["baselines"]:
+        print(f"rehearsal {row['name']}: {'OK' if row['ok'] else 'FAIL'} {json.dumps(row['mesh_axes'])} "
+              f"{row['total_gb']:.1f} GB a card, {row['hbm_frac']:.1%} of {t['hbm_bytes'] / 1e9:.0f} GB "
+              f"({row['frac_of_this_card']:.1%} of this card's {t['total_memory']} bytes)", flush=True)
+    for key, own in t["own_layouts"].items():
+        print(f"rehearsal of {key}'s layout: predicted {own['predicted_gb']['total']:.2f} GB a card, "
+              f"measured peaks {json.dumps(own['measured_peak_gb'])} GB", flush=True)
     float_t, quant_t = results["train_cpp"], results["train_quantized_cpp"]
     if args.out:
         with open(args.out, "w") as f:
@@ -1589,7 +1841,13 @@ def main() -> int:
     for row in line["kernels"][:3]:
         row["ring_launches"] = ring_t["ring_launches"][row["name"].removeprefix("flash_")]
     for row in line["kernels"]:
-        row["spare_launches"] = results["spare_python"]["launches"][row["name"].split("_", 1)[1]]
+        name = row["name"].split("_", 1)[1]
+        row["spare_launches"] = results["spare_python"]["launches"][name]
+        # this slice's paths: the pipeline (one process), each MoE HSDP
+        # process, the rehearsal's launches at the baseline configs' shapes
+        row["pipeline_launches"] = results["pipeline"]["launches"].get(name, 0)
+        row["moe_hsdp_launches"] = [n.get(name, 0) for n in results["moe_hsdp_cpp"]["launches"]]
+        row["rehearsal_launches"] = results["rehearsal"]["launches"][name]
     print(json.dumps(line), flush=True)
     print(card, flush=True)  # nvidia-smi's own line: name, power limit
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -537,14 +537,117 @@ def test_kernels_line_carries_the_spare_paths_launches() -> None:
 
 
 def test_diloco_depth_cut_spares_diloco_cpp(chip_smoke) -> None:
-    """Two DiLoCo phases run 1 layer deep to keep the command under 900 s;
-    ``diloco_cpp`` keeps LAYERS, so its cold heal moves the state of the
-    depth the spare phase promotes at."""
+    """The DiLoCo phases and ``spare_python`` run 1 layer deep to keep the
+    command under 900 s; ``diloco_cpp`` and ``spare_python`` share a depth,
+    so the cold heal printed beside the promotion moves the state of the
+    depth the spare phase promotes at.  The DDP and HSDP phases keep
+    LAYERS, so their fixed hashes stand."""
     phases = dict(chip_smoke.DILOCO_PHASES)
-    assert set(chip_smoke.DILOCO_LAYERS) <= set(phases) - {"diloco_cpp"}
+    assert set(chip_smoke.DILOCO_LAYERS) == set(phases) | {"spare_python"}
     assert all(1 <= n < chip_smoke.LAYERS for n in chip_smoke.DILOCO_LAYERS.values())
+    assert chip_smoke.DILOCO_LAYERS["diloco_cpp"] == chip_smoke.DILOCO_LAYERS["spare_python"]
     source = (REPO / "chip_smoke.py").read_text()
     assert "DILOCO_LAYERS.get(key, LAYERS)" in source
+    assert 'DILOCO_LAYERS.get("spare_python", LAYERS)' in source
+
+
+def test_pipeline_launch_arithmetic(chip_smoke, monkeypatch) -> None:
+    """Live ticks only: each layer attends each microbatch once forward
+    and once backward, and a recomputed attention half ("layer", "attn")
+    attends again in the backward.  On the CPU the in-process pipeline's
+    attention calls, recomputes included, are counted at a small width."""
+    import dataclasses
+
+    import torch
+
+    from torchft_tpu_torch.models import llama
+    from torchft_tpu_torch.parallel.pipeline import PipelinedLlama
+
+    assert chip_smoke.pipeline_launches_expected(2, 4, "layer") == dict(fwd=16, dq=8, dkv=8)
+    assert chip_smoke.pipeline_launches_expected(2, 4, "ffn") == dict(fwd=8, dq=8, dkv=8)
+    case = chip_smoke.PIPELINE_CASE
+    assert case == dict(layers=2, pp=2, batch=4, seq=2048, microbatches=4, remat_mode="layer")
+    calls = []
+    plain = llama.naive_attention
+    monkeypatch.setattr(llama, "naive_attention", lambda *a, **k: calls.append(1) or plain(*a, **k))
+    for mode in ("layer", "attn", "ffn", "none"):
+        calls.clear()
+        cfg = dataclasses.replace(llama.llama_debug(), remat_mode=mode)
+        model = PipelinedLlama(cfg, device="cpu", pp=case["pp"], num_microbatches=case["microbatches"])
+        tokens = torch.randint(0, cfg.vocab_size, (case["batch"], 16))
+        model.loss(tokens, tokens.roll(-1, 1)).backward()
+        want = chip_smoke.pipeline_launches_expected(cfg.n_layers, case["microbatches"], mode)
+        assert len(calls) == want["fwd"], mode
+
+
+def _pipeline_args(**change):
+    args = dict(loss=10.0, plain_loss=10.05, rel_errs={"embed": 0.01, "lm_head.weight": 0.001},
+                launches=dict(fwd=16, dq=8, dkv=8), expected=dict(fwd=16, dq=8, dkv=8))
+    args.update(change)
+    return args
+
+
+@pytest.mark.parametrize("change, match", [
+    (dict(loss=float("nan")), "non-finite"),
+    (dict(loss=10.2), "loss"),
+    (dict(rel_errs={"embed": 0.03}), "gradients off"),
+    (dict(rel_errs={"embed": float("nan")}), "gradients off"),
+    (dict(launches=dict(fwd=8, dq=8, dkv=8)), "flash launches"),
+])
+def test_pipeline_checks_raise_on_failure(chip_smoke, change, match) -> None:
+    chip_smoke.check_pipeline(**_pipeline_args())
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.check_pipeline(**_pipeline_args(**change))
+
+
+def _moe_fleet():
+    fleet = _hsdp_fleet()
+    for group in fleet:
+        for r in group:
+            r.update(final_step=3, incarnation=0, heal=None, moe_params=3,
+                     missing_moe_grads=[0, 0, 0], moe_dropped=[10, 12, 11])
+    return fleet
+
+
+@pytest.mark.parametrize("group, key, value, match", [
+    (1, "missing_moe_grads", [0, 1, 0], "without a gradient"),
+    (0, "missing_moe_grads", [], "without a gradient"),
+    (0, "moe_params", 0, "MoE parameters"),
+    (1, "launches", dict(fwd=3, dq=3, dkv=0), "kernel dkv never launched"),
+    (1, "incarnation", 1, "restarts"),
+    (1, "params_sha256", "other", "diverged"),
+])
+def test_moe_checks_raise_on_failure(chip_smoke, group, key, value, match) -> None:
+    chip_smoke.check_moe_hsdp(_moe_fleet(), 3, 1)
+    fleet = _moe_fleet()
+    fleet[group][0][key] = value
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.check_moe_hsdp(fleet, 3, 1)
+
+
+def test_new_phases_take_their_entry_points_keywords(chip_smoke) -> None:
+    """``moe_hsdp_cpp`` is ``train_hsdp`` over ``llama3_8b_moe`` at 2 groups
+    of one rank, 3 steps, no kill; the rehearsal
+    phase expects each kernel launched once per case of
+    ``quant_kernel_reports`` (3 flash configs, 2 wire kinds)."""
+    import inspect
+
+    from torchft_tpu_torch import train_hsdp
+    from torchft_tpu_torch.parallel import rehearsal
+
+    assert set(chip_smoke.MOE_PHASE) <= set(inspect.signature(train_hsdp.run_hsdp_fleet).parameters)
+    assert chip_smoke.MOE_PHASE == dict(groups=2, fsdp=1, tp=1, ep=1, steps=3, batch=1, seq=2048,
+                                        lr=1e-4)
+    cfg = train_hsdp.model_config("llama3_8b_moe", chip_smoke.MOE_LAYERS)
+    assert (cfg.num_experts, cfg.capacity_factor, cfg.dim, cfg.n_layers) == (8, 1.5, 4096, 1)
+    n_flash = len(rehearsal._flash_cases())
+    assert chip_smoke.REHEARSAL_LAUNCHES == dict(fwd=n_flash, dq=n_flash, dkv=n_flash,
+                                                 quantize=2, reduce=2, dequantize=2)
+    source = (REPO / "chip_smoke.py").read_text()
+    for key in ("pipeline", "moe_hsdp_cpp", "rehearsal"):
+        assert f'results["{key}"] = t = ' in source
+    for key in ("pipeline_launches", "moe_hsdp_launches", "rehearsal_launches"):
+        assert f'row["{key}"] = ' in source
 
 
 def test_release_host_memory_runs_on_the_cpu(chip_smoke) -> None:

@@ -43,9 +43,54 @@ def test_plan_rejects_what_jax_rejects() -> None:
             tdeg.plan_surviving(n, orig)
 
 
-def test_model_backed_plan_raises_until_rehearsal_is_ported() -> None:
-    with pytest.raises(NotImplementedError, match="parallel/rehearsal.py"):
-        tdeg.plan_surviving(3, 4, model=object())
+def test_model_backed_plan_equals_jax() -> None:
+    """JAX's ``test_model_backed_plan_rehearses_divisibility`` on the same
+    inputs: llama_debug, SGD(0.1), batch 4, sequence 32, 3 of 4 ranks over
+    (fsdp, tp); both skip the 3-way layouts and land on fsdp = 2."""
+    import optax
+    import torch
+
+    from torchft_tpu.models.llama import Llama as JaxLlama, llama_debug as jax_debug
+    from torchft_tpu_torch.models.llama import Llama, llama_debug
+
+    j = jdeg.plan_surviving(3, original_devices=4, model=JaxLlama(jax_debug()), tx=optax.sgd(0.1),
+                            batch=4, seq=32, axes=("fsdp", "tp"), lower=False)
+    t = tdeg.plan_surviving(3, original_devices=4, model=Llama(llama_debug(), "meta"),
+                            optimizer=lambda ps: torch.optim.SGD(ps, lr=0.1), batch=4, seq=32,
+                            axes=("fsdp", "tp"), lower=False)
+    assert (t.mesh_axes, t.devices_used, t.capacity) == (j.mesh_axes, j.devices_used, j.capacity)
+    assert t.mesh_axes == {"fsdp": 2, "tp": 1}
+    assert t.report is not None and t.report.ok and j.report.ok
+
+
+def _no_clean_layout(case: str):
+    """(port plan, JAX plan or None) for a case where no layout rehearses
+    clean."""
+    import optax
+
+    from torchft_tpu.models.llama import Llama as JaxLlama, llama3_8b as jax_8b
+    from torchft_tpu_torch.models.llama import Llama, llama3_8b, llama_debug
+    from torchft_tpu_torch.parallel.pipeline import PipelinedLlama
+
+    if case == "overflow":  # 8B, no remat, at sequence 8192 on two cards: too big at any layout
+        kw = dict(batch=8, seq=8192, axes=("fsdp", "tp"))
+        return (lambda: tdeg.plan_surviving(2, 4, model=Llama(llama3_8b(), "meta"), **kw),
+                lambda: jdeg.plan_surviving(2, 4, model=JaxLlama(jax_8b()), tx=optax.adamw(1e-3),
+                                            **kw))
+    # the port's layout: every rank's rows (4, 2 or 1) must split into the
+    # pipeline's 3 microbatches
+    model = PipelinedLlama(llama_debug(), "meta", pp=2, num_microbatches=3)
+    return lambda: tdeg.plan_surviving(4, 4, model=model, batch=4, seq=32, axes=("fsdp", "pp")), None
+
+
+@pytest.mark.parametrize("case", ["overflow", "microbatches"])
+def test_model_backed_plan_raises_when_no_layout_rehearses_clean(case) -> None:
+    port, jax_plan = _no_clean_layout(case)
+    with pytest.raises(RuntimeError, match="no surviving-device layout rehearses clean"):
+        port()
+    if jax_plan is not None:
+        with pytest.raises(RuntimeError, match="no surviving-device layout rehearses clean"):
+            jax_plan()
 
 
 def test_startup_chaos_hides_ranks(monkeypatch) -> None:

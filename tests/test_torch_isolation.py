@@ -290,9 +290,59 @@ def test_kill_spare_drill_runs_with_jax_blocked() -> None:
     assert proc.returncode == 0 and "ISOLATED_OK" in proc.stdout, proc.stdout + proc.stderr
 
 
+def test_pipeline_moe_and_rehearsal_run_with_jax_blocked() -> None:
+    """In a fresh interpreter that cannot import the JAX package: a
+    ``PipelinedLlama`` with every stage in the process and a ``LlamaMoE``
+    take a step on the CPU, ``rehearse`` and ``plan_surviving(model=...)``
+    give their arithmetic verdicts, and their constructors refuse the
+    missing card unless asked for the CPU."""
+    script = textwrap.dedent(
+        f"""
+        import sys
+        for name in {list(FORBIDDEN)!r}:
+            sys.modules[name] = None  # any import of it now raises
+        sys.path.insert(0, {str(REPO)!r})
+        import torch
+        from torchft_tpu_torch.models.llama import Llama, llama3_8b, llama_debug
+        from torchft_tpu_torch.models.llama_moe import LlamaMoE, llama_moe_debug
+        from torchft_tpu_torch.parallel.degraded import plan_surviving
+        from torchft_tpu_torch.parallel.pipeline import PipelinedLlama
+        from torchft_tpu_torch.parallel.rehearsal import rehearse
+
+        tokens = torch.randint(0, 512, (4, 64))
+        for model in (PipelinedLlama(llama_debug(), "cpu", pp=2, remat=True, num_microbatches=2),
+                      LlamaMoE(llama_moe_debug(), "cpu")):
+            model.loss(tokens, torch.roll(tokens, -1, 1)).backward()
+            assert all(p.grad is not None for p in model.parameters())
+        report = rehearse(Llama(llama3_8b(), "meta"), None, {{"fsdp": 8}}, batch=8, seq=8192,
+                          lower=False)
+        assert report.hbm_frac > 0 and not report.divisibility_errors
+        plan = plan_surviving(3, 4, model=Llama(llama_debug(), "meta"), batch=4, seq=32,
+                              axes=("fsdp", "tp"))
+        assert plan.mesh_axes == {{"fsdp": 2, "tp": 1}}
+        if not torch.cuda.is_available():
+            for build in (lambda: PipelinedLlama(llama_debug(), pp=2),
+                          lambda: LlamaMoE(llama_moe_debug())):
+                try:
+                    build()
+                    raise AssertionError("built on a missing card")
+                except RuntimeError as e:
+                    assert "CUDA" in str(e)
+        print("ISOLATED_OK")
+        """
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", script], capture_output=True, text=True, timeout=120, env=env,
+        cwd=str(REPO),
+    )
+    assert proc.returncode == 0 and "ISOLATED_OK" in proc.stdout, proc.stdout + proc.stderr
+
+
 @pytest.mark.parametrize("argv", [
     ["train_ddp", "--model", "cnn", "--steps", "1"],
     ["train_hsdp", "--model", "llama_debug", "--steps", "1", "--groups", "1"],
+    ["train_hsdp", "--model", "llama_moe_debug", "--ep", "2", "--steps", "1", "--groups", "1"],
 ])
 def test_cnn_and_hsdp_entry_points_refuse_to_run_without_cuda_unless_asked(argv) -> None:
     if torch.cuda.is_available():

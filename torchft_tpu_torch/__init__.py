@@ -15,8 +15,10 @@ and quantized-wire kernels, hand-written in CUDA for Hopper.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 The train loops are ``python -m torchft_tpu_torch.train_ddp``,
 ``python -m torchft_tpu_torch.train_diloco`` and
-``python -m torchft_tpu_torch.train_hsdp`` (FSDP2, tensor and sequence
-parallelism inside a replica group).
+``python -m torchft_tpu_torch.train_hsdp`` (FSDP2, tensor, sequence,
+pipeline and expert parallelism inside a replica group);
+``python -m torchft_tpu_torch.parallel.rehearsal`` checks pod-scale layouts
+without the cards.
 """
 
 __version__ = "0.1.0"
@@ -47,6 +49,8 @@ _LAZY = {
     "ChaosController": ("torchft_tpu_torch.chaos", "ChaosController"),
     "Failure": ("torchft_tpu_torch.chaos", "Failure"),
     "gray_failure_drill": ("torchft_tpu_torch.drill", "gray_failure_drill"),
+    # scale validation
+    "rehearse": ("torchft_tpu_torch.parallel.rehearsal", "rehearse"),
     # model and kernels
     "Llama": ("torchft_tpu_torch.models.llama", "Llama"),
     "flash_attention": ("torchft_tpu_torch.ops.flash_attention", "flash_attention"),

@@ -34,14 +34,20 @@ RoPE takes the block's global positions, and attention is ring attention
 (``parallel/ring_attention.py``) over the mesh's sp process group, on the
 flash kernels (always on a CUDA device).
 
-Remat and MoE are not part of the port yet.
+Rematerialization (``config.remat`` / ``config.remat_mode``, the JAX
+names): "layer" recomputes each whole layer in the backward pass, "attn"
+its attention half, "ffn" its FFN half, "none" nothing; each is a
+``torch.utils.checkpoint.checkpoint(use_reentrant=False)`` around that
+part of :class:`LlamaLayer`.  A recomputed attention half launches the
+flash forward again.  ``LlamaLayer(include_ffn=False)`` builds a layer
+without its dense FFN, for a subclass with its own (``models/llama_moe.py``).
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,14 +70,34 @@ class LlamaConfig:
     # sequence parallelism: the mesh axis the sequence is split over (ring
     # attention); None keeps the whole sequence on each rank
     sp_axis: Optional[str] = None
+    # rematerialization: ``remat=True`` is per-layer ("layer" mode);
+    # ``remat_mode`` names the policy: "none" saves everything, "attn"
+    # recomputes the attention half, "ffn" the FFN half, "layer" whole
+    # layers (only the residual stream at layer boundaries is saved)
+    remat: bool = False
+    remat_mode: Optional[str] = None  # None: "layer" if remat else "none"
 
     @property
     def head_dim(self) -> int:
         return self.dim // self.n_heads
 
+    @property
+    def effective_remat_mode(self) -> str:
+        mode = self.remat_mode or ("layer" if self.remat else "none")
+        if mode not in REMAT_MODES:
+            raise ValueError(f"unknown remat_mode {mode!r}")
+        return mode
+
+
+REMAT_MODES = ("none", "attn", "ffn", "layer")
+
 
 def llama3_8b() -> LlamaConfig:
     return LlamaConfig()
+
+
+def llama3_70b() -> LlamaConfig:
+    return LlamaConfig(dim=8192, n_layers=80, n_heads=64, n_kv_heads=8, ffn_hidden=28_672)
 
 
 def llama_debug() -> LlamaConfig:
@@ -165,8 +191,19 @@ def naive_attention(q, k, v, causal: bool = True) -> torch.Tensor:
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def _checkpoint(fn, *args):
+    from torch.utils.checkpoint import checkpoint
+
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
 class LlamaLayer(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device: torch.device) -> None:
+    """One pre-norm layer: the attention half (:meth:`attn_block`) and the
+    FFN half (:meth:`ffn_block`), each with its residual, as the JAX
+    model's ``_attn_block`` and ``_ffn_block``.  ``include_ffn=False``
+    builds no dense FFN (a subclass supplies :meth:`ffn`)."""
+
+    def __init__(self, cfg: LlamaConfig, device: torch.device, include_ffn: bool = True) -> None:
         super().__init__()
         hd, dt = cfg.head_dim, cfg.dtype
 
@@ -174,13 +211,18 @@ class LlamaLayer(nn.Module):
             return nn.Linear(fan_in, fan_out, bias=False, device=device, dtype=dt)
 
         self.cfg = cfg
+        # the attention dispatch of the JAX pipeline (``pipeline.py``) on the
+        # CPU: plain attention whatever TORCHFT_FLASH says (a CUDA device
+        # always runs the kernels)
+        self.cpu_flash = True
         self.wq = linear(cfg.dim, cfg.n_heads * hd)
         self.wk = linear(cfg.dim, cfg.n_kv_heads * hd)
         self.wv = linear(cfg.dim, cfg.n_kv_heads * hd)
         self.wo = linear(cfg.n_heads * hd, cfg.dim)
-        self.w_gate = linear(cfg.dim, cfg.ffn_hidden)
-        self.w_up = linear(cfg.dim, cfg.ffn_hidden)
-        self.w_down = linear(cfg.ffn_hidden, cfg.dim)
+        if include_ffn:
+            self.w_gate = linear(cfg.dim, cfg.ffn_hidden)
+            self.w_up = linear(cfg.dim, cfg.ffn_hidden)
+            self.w_down = linear(cfg.ffn_hidden, cfg.dim)
         self.attn_norm = nn.Parameter(torch.ones(cfg.dim, device=device))
         self.mlp_norm = nn.Parameter(torch.ones(cfg.dim, device=device))
 
@@ -190,30 +232,53 @@ class LlamaLayer(nn.Module):
 
             return ring_attention(q, k, v, sp_group)
         seq = q.shape[1]
-        if use_flash(seq, q.device):
+        if use_flash(seq, q.device) and (self.cpu_flash or q.device.type == "cuda"):
             from torchft_tpu_torch.ops.flash_attention import flash_attention
 
             block_q, block_k = kernel_blocks(seq, q.device)
             return flash_attention(q, k, v, causal=True, block_q=block_q, block_k=block_k)
         return naive_attention(q, k, v, causal=True)
 
-    def forward(
+    def attn_block(
         self, x: torch.Tensor, rope: Tuple[torch.Tensor, torch.Tensor], sp_group: Any = None
     ) -> torch.Tensor:
-        """``sp_group``: the sequence-parallel process group (ring
-        attention), or None."""
+        """x + attention(rms_norm(x)): RoPE, grouped-query attention over
+        this rank's heads (all of them unless tensor-parallel)."""
         cfg = self.cfg
         B, S, _ = x.shape
         hd = cfg.head_dim
         cos, sin = rope
         h = rms_norm(x, self.attn_norm, cfg.norm_eps)
-        # -1: this rank's heads (all of them unless tensor-parallel)
         q = apply_rope(self.wq(h).view(B, S, -1, hd), cos, sin)
         k = apply_rope(self.wk(h).view(B, S, -1, hd), cos, sin)
         v = self.wv(h).view(B, S, -1, hd)
-        x = x + self.wo(self._attention(q, k, v, sp_group).reshape(B, S, -1))
-        h = rms_norm(x, self.mlp_norm, cfg.norm_eps)
-        return x + self.w_down(F.silu(self.w_gate(h)) * self.w_up(h))
+        return x + self.wo(self._attention(q, k, v, sp_group).reshape(B, S, -1))
+
+    def ffn(self, h: torch.Tensor) -> torch.Tensor:
+        """The FFN on the normed input: SiLU-gated."""
+        return self.w_down(F.silu(self.w_gate(h)) * self.w_up(h))
+
+    def ffn_block(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.ffn(rms_norm(x, self.mlp_norm, self.cfg.norm_eps))
+
+    def _body(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+              sp_group: Any) -> torch.Tensor:
+        mode = self.cfg.effective_remat_mode
+        rope = (cos, sin)
+        if mode == "attn":
+            x = _checkpoint(self.attn_block, x, rope, sp_group)
+        else:
+            x = self.attn_block(x, rope, sp_group)
+        return _checkpoint(self.ffn_block, x) if mode == "ffn" else self.ffn_block(x)
+
+    def forward(
+        self, x: torch.Tensor, rope: Tuple[torch.Tensor, torch.Tensor], sp_group: Any = None
+    ) -> torch.Tensor:
+        """``sp_group``: the sequence-parallel process group (ring
+        attention), or None."""
+        if self.cfg.effective_remat_mode == "layer":
+            return _checkpoint(self._body, x, *rope, sp_group)
+        return self._body(x, *rope, sp_group)
 
 
 class Llama(nn.Module):
@@ -239,10 +304,25 @@ class Llama(nn.Module):
         self.embed = nn.Parameter(
             torch.empty(cfg.vocab_size, cfg.dim, device=device, dtype=cfg.dtype)
         )
-        self.layers = nn.ModuleList(LlamaLayer(cfg, device) for _ in range(cfg.n_layers))
+        self.layers = nn.ModuleList(self.make_layer(cfg, device) for _ in range(cfg.n_layers))
         self.final_norm = nn.Parameter(torch.ones(cfg.dim, device=device))
         self.lm_head = nn.Linear(cfg.dim, cfg.vocab_size, bias=False, device=device, dtype=cfg.dtype)
         self.reset_parameters(generator)
+
+    # whether the layers carry the dense SwiGLU FFN (w_gate, w_up, w_down)
+    dense_ffn = True
+
+    def make_layer(self, cfg: LlamaConfig, device: torch.device) -> nn.Module:
+        return LlamaLayer(cfg, device)
+
+    def blocks(self) -> List[nn.Module]:
+        """The layers this module holds, in order."""
+        return list(self.layers)
+
+    def fan_in(self, name: str, p: torch.Tensor) -> int:
+        """The fan-in of parameter ``name`` (embed: [vocab, dim]; an
+        ``nn.Linear`` weight: [out, in])."""
+        return p.shape[1]
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
@@ -252,7 +332,7 @@ class Llama(nn.Module):
             if name.endswith("norm"):
                 p.fill_(1.0)
                 continue
-            fan_in = p.shape[1]  # embed: [vocab, dim]; nn.Linear: [out, in]
+            fan_in = self.fan_in(name, p)
             w = torch.empty(p.shape, device=p.device, dtype=torch.float32)
             w.normal_(generator=generator).div_(float(np.sqrt(fan_in)))
             p.copy_(w)
@@ -285,7 +365,9 @@ class Llama(nn.Module):
 
         cfg = self.config
         plan: Dict[str, Any] = {"lm_head": ColwiseParallel(output_layouts=Replicate())}
-        linears = {"w_gate": ColwiseParallel(), "w_up": ColwiseParallel(), "w_down": RowwiseParallel()}
+        linears: Dict[str, Any] = {}
+        if self.dense_ffn:
+            linears.update(w_gate=ColwiseParallel(), w_up=ColwiseParallel(), w_down=RowwiseParallel())
         if self.heads_shard(tp):
             linears.update(wq=ColwiseParallel(), wk=ColwiseParallel(), wv=ColwiseParallel(),
                            wo=RowwiseParallel())
@@ -339,7 +421,7 @@ class Llama(nn.Module):
         # under sp the tokens are block i of the sequence: global positions
         start = 0 if sp_group is None else seq * self.mesh[cfg.sp_axis].get_local_rank()
         rope = self.rope(seq, tokens.device, start)
-        for layer in self.layers:
+        for layer in self.blocks():
             x = layer(x, rope, sp_group)
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
         return self.lm_head(x).float()
@@ -347,6 +429,27 @@ class Llama(nn.Module):
     def loss(self, tokens: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
         logits = self(tokens)
         return F.cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1))
+
+    def _attn_params_per_layer(self) -> int:
+        cfg = self.config
+        hd = cfg.head_dim
+        return (
+            cfg.dim * cfg.n_heads * hd  # wq
+            + 2 * cfg.dim * cfg.n_kv_heads * hd  # wk, wv
+            + cfg.n_heads * hd * cfg.dim  # wo
+            + 2 * cfg.dim  # norms
+        )
+
+    def _embed_params(self) -> int:
+        cfg = self.config
+        return cfg.vocab_size * cfg.dim * 2 + cfg.dim  # embed + lm_head + final norm
+
+    def num_params(self) -> int:
+        """The parameter count of the whole model (the JAX ``num_params``),
+        from the config alone."""
+        cfg = self.config
+        per_layer = self._attn_params_per_layer() + 3 * cfg.dim * cfg.ffn_hidden
+        return self._embed_params() + cfg.n_layers * per_layer
 
 
 # ---------------------------------------------------------------------------
@@ -397,10 +500,13 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 def params_to_numpy(state: Dict[str, torch.Tensor], n_layers: int) -> Dict[str, Any]:
     """Inverse of :func:`params_from_jax` (any ``state_dict`` or gradient
     dict keyed like one) into the JAX pytree layout with numpy leaves;
-    bf16 leaves widen to f32."""
+    bf16 leaves widen to f32.  A layer leaf missing from ``state`` (the
+    dense FFN of a layer built without it) is left out."""
     layers: Dict[str, np.ndarray] = {}
     for name in _LINEAR + _NORMS:
         key = "weight" if name in _LINEAR else None
+        if (f"layers.0.{name}.{key}" if key else f"layers.0.{name}") not in state:
+            continue
         per_layer = []
         for i in range(n_layers):
             t = state[f"layers.{i}.{name}.{key}" if key else f"layers.{i}.{name}"]

@@ -1,11 +1,13 @@
 """Intra-replica parallelism: mesh building, sharding rules, HSDP
-composition and degraded-mode re-lowering.
+composition, pipeline and expert parallelism, the scale rehearsal and
+degraded-mode re-lowering.
 
 The port of ``torchft_tpu/parallel/``.  Inside a replica group the
 parameters are sharded over a torch ``DeviceMesh`` (FSDP2 ``fully_shard``
 and tensor parallelism); the replica (outer-DP) dimension is handled by the
 Manager and the communicator and stays off these meshes, so a change of
-membership never rebuilds a mesh.
+membership never rebuilds a mesh.  The JAX package's ``parallel/_compat.py``
+(a ``shard_map`` shim across JAX versions) has no counterpart here.
 """
 
 _LAZY = {
@@ -14,6 +16,10 @@ _LAZY = {
     "shard_pytree": ("torchft_tpu_torch.parallel.mesh", "shard_pytree"),
     "shard_model": ("torchft_tpu_torch.parallel.hsdp", "shard_model"),
     "HSDPTrainer": ("torchft_tpu_torch.parallel.hsdp", "HSDPTrainer"),
+    "pipeline_spmd": ("torchft_tpu_torch.parallel.pipeline", "pipeline_spmd"),
+    "PipelinedLlama": ("torchft_tpu_torch.parallel.pipeline", "PipelinedLlama"),
+    "MoE": ("torchft_tpu_torch.parallel.moe", "MoE"),
+    "rehearse": ("torchft_tpu_torch.parallel.rehearsal", "rehearse"),
 }
 
 __all__ = list(_LAZY)

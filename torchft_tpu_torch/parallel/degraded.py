@@ -11,8 +11,8 @@ outer reduce, data-shard rescale — lives in ``manager.py``,
    surviving rank count: every factorization of every ``m <= n_surviving``
    (most ranks first, then the most fsdp).  The plan's ``capacity``
    (``devices_used / original_devices``) is what the Manager advertises.
-   A plan validated against a model (``model=``) needs
-   ``parallel/rehearsal.py``, which is not ported yet.
+   With a model (``model=``) each candidate is rehearsed
+   (``parallel/rehearsal.py``) and the first that rehearses clean wins.
 2. :func:`relower_hsdp_trainer` — apply a plan to a live
    :class:`~torchft_tpu_torch.parallel.hsdp.HSDPTrainer`: gather the state
    over the old mesh while every rank lives, build the mesh on the
@@ -51,7 +51,7 @@ class DegradedPlan:
     mesh_axes: Dict[str, int] = field(default_factory=dict)
     devices_used: int = 0
     original_devices: int = 0
-    report: Optional[Any] = None  # a rehearsal report, once rehearsal is ported
+    report: Optional[Any] = None  # the rehearsal report of a model-backed plan
 
     @property
     def capacity(self) -> float:
@@ -103,14 +103,22 @@ def plan_surviving(
     n_surviving: int,
     original_devices: int,
     model: Any = None,
+    optimizer: Any = None,
+    batch: int = 8,
+    seq: int = 2048,
+    chip: str = "h100",
     axes: Sequence[str] = RELOWER_AXES,
+    lower: bool = False,
 ) -> DegradedPlan:
     """Pick the best layout for ``n_surviving`` of ``original_devices``
     ranks.  Without a model the structural ranking alone decides.  With a
-    ``model``, each candidate would be validated through
-    ``parallel/rehearsal.py`` (axis divisibility, a sharding-aware memory
-    estimate), which is not ported yet: that path raises
-    ``NotImplementedError``."""
+    ``model`` (built on ``meta``; ``optimizer`` builds its optimizer,
+    default ``hsdp.adamw()``), each candidate is rehearsed through
+    :func:`~torchft_tpu_torch.parallel.rehearsal.rehearse` — what the
+    port's layout cannot take and the memory per card must pass (and the
+    lowering with ``lower=True``) — and the first that rehearses clean
+    wins.  Raises ``RuntimeError`` when none does: the replica should then
+    die normally rather than train on a layout that cannot hold it."""
     if n_surviving < 1:
         raise ValueError(f"no surviving devices to re-lower onto ({n_surviving})")
     if n_surviving > original_devices:
@@ -118,19 +126,34 @@ def plan_surviving(
             f"survivors ({n_surviving}) exceed the original device count "
             f"({original_devices})"
         )
-    if model is not None:
-        raise NotImplementedError(
-            "plan_surviving(model=...) validates each layout through "
-            "parallel/rehearsal.py, which lands in a later slice of the port; "
-            "call it without a model for the structural plan"
-        )
-    layout = surviving_layouts(n_surviving, axes)[0]
+    candidates = surviving_layouts(n_surviving, axes)
+    if model is None:
+        layout = candidates[0]
+        return DegradedPlan(mesh_axes=dict(layout), devices_used=_used(layout),
+                            original_devices=original_devices)
+    from torchft_tpu_torch.parallel.rehearsal import rehearse
+
+    last_report = None
+    for layout in candidates:
+        used = _used(layout)
+        report = rehearse(model, optimizer, dict(layout), batch=batch, seq=seq,
+                          name=f"degraded_{used}of{original_devices}", chip=chip, lower=lower)
+        last_report = report
+        if report.ok:
+            return DegradedPlan(mesh_axes=dict(layout), devices_used=used,
+                                original_devices=original_devices, report=report)
+    raise RuntimeError(
+        "no surviving-device layout rehearses clean for "
+        f"{n_surviving}/{original_devices} devices (last: "
+        f"{last_report.summary() if last_report else 'none'})"
+    )
+
+
+def _used(layout: Dict[str, int]) -> int:
     used = 1
     for v in layout.values():
         used *= v
-    return DegradedPlan(
-        mesh_axes=dict(layout), devices_used=used, original_devices=original_devices
-    )
+    return used
 
 
 def chaos_device_loss() -> int:

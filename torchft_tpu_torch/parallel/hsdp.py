@@ -40,7 +40,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from torchft_tpu_torch.ddp import ft_allreduce, restore_tree_like
+from torchft_tpu_torch.ddp import _local, ft_allreduce, restore_tree_like
 from torchft_tpu_torch.manager import Manager
 from torchft_tpu_torch.obs.spans import device_fence
 from torchft_tpu_torch.parallel.mesh import FSDP_SP, fsdp_sp_mesh, mesh_axes
@@ -49,12 +49,28 @@ Optimizer = torch.optim.Optimizer
 OptimizerFn = Callable[[Iterable[nn.Parameter]], Optimizer]
 
 
+def placement_groups(params: Iterable[nn.Parameter]) -> List[Dict[str, Any]]:
+    """``params`` as optimizer parameter groups, one per placement: the
+    DTensors of each mesh (FSDP2's, an ep split's) and the plain tensors
+    apart.  The CUDA optimizers' foreach kernels take one kind per call,
+    and an MoE puts plain bf16 experts beside FSDP2's bf16 DTensors."""
+    from torch.distributed.tensor import DTensor
+
+    groups: Dict[Any, List[nn.Parameter]] = {}
+    for p in params:
+        key = tuple(p.device_mesh.mesh_dim_names) if isinstance(p, DTensor) else None
+        groups.setdefault(key, []).append(p)
+    return [{"params": ps} for ps in groups.values()]
+
+
 def adamw(lr: float = 1e-3) -> OptimizerFn:
     """``torch.optim.AdamW`` with ``optax.adamw``'s defaults (torch's
-    default weight decay of 1e-2 differs from optax's 1e-4)."""
+    default weight decay of 1e-2 differs from optax's 1e-4), over
+    :func:`placement_groups`."""
 
     def make(params: Iterable[nn.Parameter]) -> Optimizer:
-        return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+        return torch.optim.AdamW(placement_groups(params), lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                 weight_decay=1e-4)
 
     return make
 
@@ -72,8 +88,11 @@ def fsdp_mesh(mesh: Any) -> Any:
 
 
 def shard_model(model: Any, mesh: Any) -> Any:
-    """Shard ``model`` (a :class:`~torchft_tpu_torch.models.llama.Llama`)
-    in place onto ``mesh``: the tensor-parallel plan over ``tp`` (when
+    """Shard ``model`` (a :class:`~torchft_tpu_torch.models.llama.Llama`,
+    ``LlamaMoE`` or ``PipelinedLlama``) in place onto ``mesh``: with
+    pp > 1 this rank keeps its stage's layers (a ``PipelinedLlama``); with
+    ep > 1 each MoE splits its experts over ep (``Shard(0)``, the JAX
+    ``MoE.param_specs``); the tensor-parallel plan over ``tp`` (when
     tp > 1), then FSDP2 on each layer and the root over
     :func:`fsdp_mesh`.  A model with ``config.sp_axis`` runs its ring
     attention over this mesh's sp axis.  Returns the model."""
@@ -81,9 +100,17 @@ def shard_model(model: Any, mesh: Any) -> Any:
     from torch.distributed.tensor.parallel import parallelize_module
 
     axes = mesh_axes(mesh)
-    for name in ("pp", "ep"):
-        if getattr(axes, name) != 1:
-            raise NotImplementedError(f"the {name} axis lands in a later slice of the port")
+    if axes.pp > 1:
+        if not hasattr(model, "keep_stage"):
+            raise ValueError(f"the mesh splits the layers over pp = {axes.pp}, but "
+                             f"{type(model).__name__} is not pipelined (use PipelinedLlama)")
+        model.keep_stage(mesh)
+    if axes.ep > 1:
+        if not hasattr(model, "moe_layers"):
+            raise ValueError(f"the mesh splits experts over ep = {axes.ep}, but "
+                             f"{type(model).__name__} has no MoE layers (use LlamaMoE)")
+        for moe in model.moe_layers():
+            moe.split_experts(mesh["ep"])
     if axes.sp > 1 and model.config.sp_axis != "sp":
         raise ValueError(
             f"the mesh splits the sequence over sp = {axes.sp}, but the model's sp_axis is "
@@ -97,19 +124,21 @@ def shard_model(model: Any, mesh: Any) -> Any:
         parallelize_module(model, tp_mesh, model.param_specs(axes.tp))
     inner = fsdp_mesh(mesh)
     # FSDP2 takes one dtype per unit, and the norms are f32 beside bf16
-    # weights: they stay whole on every rank (make_grad_step averages
-    # their gradients over the group)
+    # weights: they stay whole on every rank, as do the MoE's router (f32)
+    # and experts (replicated over fsdp in the JAX specs); make_grad_step
+    # averages their gradients over the group
     whole = set(whole_params(model))
-    for layer in model.layers:
+    for layer in model.blocks():
         fully_shard(layer, mesh=inner, ignored_params=whole)
     fully_shard(model, mesh=inner, ignored_params=whole)
     return model
 
 
 def whole_params(model: Any) -> List[nn.Parameter]:
-    """The parameters FSDP2 leaves whole on every rank: the RMSNorm
-    weights (f32 beside the bf16 matrices)."""
-    return [p for n, p in model.named_parameters() if n.endswith("norm")]
+    """The parameters FSDP2 leaves whole on every rank of the fsdp axis:
+    the RMSNorm weights (f32 beside the bf16 matrices) and the MoE's
+    router and experts (the experts split over ep only)."""
+    return [p for n, p in model.named_parameters() if n.endswith("norm") or ".moe." in n]
 
 
 def shard_init(model_fn: Callable[[], Any], mesh: Any) -> Any:
@@ -159,17 +188,29 @@ def make_grad_step(model: Any, mesh: Any) -> Callable[[torch.Tensor, torch.Tenso
     """``(tokens, targets) → loss``: forward and backward on this rank's
     block of the global batch, gradients left in ``.grad`` as DTensors
     sharded like the parameters (FSDP2 reduce-scatters them inside the
-    backward); the loss returned is the global-batch mean."""
+    backward); the loss returned is the global-batch mean.  The gradients
+    of the parameters the layout replicates over the data axes (the
+    norms, the MoE's router and experts) are averaged over them here; with
+    pp > 1 the embedding's, which only stage 0 computes, is summed over
+    pp."""
 
     whole = whole_params(model)
     specs = model.batch_specs()
+    axes = mesh_axes(mesh)
+    embed_pp = mesh["pp"].get_group() if axes.pp > 1 else None
 
     def step(tokens: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
         loss = model.loss(local_rows(mesh, tokens, specs[0]), local_rows(mesh, targets, specs[1]))
         loss.backward()
         for p in whole:
             if p.grad is not None:
-                p.grad.copy_(group_mean(mesh, p.grad))
+                g = _local(p.grad)
+                g.copy_(group_mean(mesh, g))
+        if embed_pp is not None:
+            embed = model.embed
+            if embed.grad is None:
+                embed.grad = torch.zeros_like(embed)
+            dist.all_reduce(_local(embed.grad), group=embed_pp)
         return group_mean(mesh, loss)
 
     return step

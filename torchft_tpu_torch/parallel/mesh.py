@@ -4,10 +4,10 @@ The port of ``torchft_tpu/parallel/mesh.py``.  A replica group owns a set
 of ranks (one process each); inside it :func:`make_mesh` builds a torch
 ``DeviceMesh`` with the JAX package's six axes, in its order:
 
-- ``pp``   — pipeline parallelism (not ported yet)
+- ``pp``   — pipeline parallelism (GPipe stages, ``parallel/pipeline.py``)
 - ``dp``   — within-group data parallelism (batch dim)
 - ``fsdp`` — parameter/optimizer sharding (the FSDP dimension of HSDP)
-- ``ep``   — expert parallelism (not ported yet)
+- ``ep``   — expert parallelism (MoE experts over ``all_to_all``, ``parallel/moe.py``)
 - ``sp``   — sequence parallelism (ring attention, ``parallel/ring_attention.py``)
 - ``tp``   — tensor (Megatron) parallelism for the matmuls
 

@@ -50,7 +50,8 @@ from torchft_tpu_torch.data import DistributedSampler, batch_indices
 from torchft_tpu_torch.ddp import allreduce_gradients
 from torchft_tpu_torch.manager import Manager
 from torchft_tpu_torch.models.cnn import SimpleCNN
-from torchft_tpu_torch.models.llama import Llama, LlamaConfig, llama3_8b, llama_debug
+from torchft_tpu_torch.models.llama import Llama, LlamaConfig, llama3_8b, llama3_70b, llama_debug
+from torchft_tpu_torch.models.llama_moe import LlamaMoE, LlamaMoEConfig
 from torchft_tpu_torch.obs.spans import device_fence
 from torchft_tpu_torch.observability import HealMetrics
 from torchft_tpu_torch.optim import OptimizerWrapper
@@ -77,7 +78,7 @@ class CNNConfig:
     data_seed: int = 0
 
 
-LLAMA_MODELS = {"llama3_8b": llama3_8b, "llama_debug": llama_debug}
+LLAMA_MODELS = {"llama3_8b": llama3_8b, "llama3_70b": llama3_70b, "llama_debug": llama_debug}
 MODELS = {**LLAMA_MODELS, "cnn": CNNConfig}
 Batch = Tuple[torch.Tensor, torch.Tensor]
 Config = Union[LlamaConfig, CNNConfig]
@@ -140,7 +141,7 @@ def build(cfg: Config, device: torch.device, seed: int, lr: float) -> Tuple[torc
     if isinstance(cfg, CNNConfig):
         cnn = SimpleCNN(cfg.num_classes, cfg.in_channels, cfg.image_hw, device=device, generator=gen)
         return cnn, torch.optim.Adam(cnn.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
-    model = Llama(cfg, device=device, generator=gen)
+    model = (LlamaMoE if isinstance(cfg, LlamaMoEConfig) else Llama)(cfg, device=device, generator=gen)
     opt = torch.optim.AdamW(
         model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4
     )

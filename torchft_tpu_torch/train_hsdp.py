@@ -10,9 +10,14 @@ with rank r of the others (:class:`~.parallel.hsdp.HSDPTrainer`).  One
 card holds one rank of a communicator, so on one H100 each replica group
 is one rank (fsdp = tp = sp = 1); the multi-rank layouts run on the CPU
 over gloo.  ``--sp N`` splits the sequence over N ranks (ring attention,
-FSDP2 over fsdp·sp).  ``--heal-transport comm`` heals each rank over its
-own communicator (``CommTransport``) instead of HTTP.  Run one replica
-group (all its ranks) per command::
+FSDP2 over fsdp·sp), ``--pp N`` the layers over N pipeline stages
+(``PipelinedLlama``, ``--microbatches M``, default 4·N), ``--ep N`` the
+experts of a Mixture-of-Experts model (``--model llama3_8b_moe`` or
+``llama_moe_debug``; ``--layers`` cuts its depth) over N ranks;
+``--remat {none,attn,ffn,layer}`` picks the rematerialization.
+``--heal-transport comm`` heals each rank over its own communicator
+(``CommTransport``) instead of HTTP.  Run one replica group (all its
+ranks) per command::
 
     python -m torchft_tpu_torch.lighthouse --min_replicas 2 --bind 0.0.0.0:29530 &
     TORCHFT_LIGHTHOUSE=localhost:29530 REPLICA_GROUP_ID=0 \\
@@ -48,8 +53,10 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from torchft_tpu_torch.models.llama import LlamaConfig
-from torchft_tpu_torch.train_ddp import HEAL_TRANSPORTS, LLAMA_MODELS, model_config
+from torchft_tpu_torch.models.llama import REMAT_MODES, LlamaConfig
+from torchft_tpu_torch.models.llama_moe import (
+    LlamaMoEConfig, config_from_json, config_to_json, llama3_8b_moe, llama_moe_debug)
+from torchft_tpu_torch.train_ddp import HEAL_TRANSPORTS, LLAMA_MODELS
 
 logger = logging.getLogger("train_hsdp")
 
@@ -64,14 +71,34 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _config_json(cfg: LlamaConfig) -> Dict[str, Any]:
-    out = dataclasses.asdict(cfg)
-    out["dtype"] = str(cfg.dtype).removeprefix("torch.")
-    return out
+# the presets train_hsdp trains: the Llama-3 family and its MoE variants
+HSDP_MODELS = {**LLAMA_MODELS, "llama3_8b_moe": llama3_8b_moe, "llama_moe_debug": llama_moe_debug}
 
 
-def _config_from_json(d: Dict[str, Any]) -> LlamaConfig:
-    return LlamaConfig(**{**d, "dtype": getattr(torch, d["dtype"])})
+def model_config(name: str, layers: Optional[int] = None, remat: Optional[str] = None) -> LlamaConfig:
+    """A preset at its published width; ``layers`` cuts its depth,
+    ``remat`` sets its ``remat_mode``."""
+    cfg = HSDP_MODELS[name]()
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return dataclasses.replace(cfg, remat_mode=remat) if remat else cfg
+
+
+def build_model(cfg: LlamaConfig, device: torch.device, seed: int, pp: int = 1,
+                microbatches: Optional[int] = None) -> torch.nn.Module:
+    """The model a rank trains, from ``seed``: a ``PipelinedLlama`` of
+    ``pp`` stages when pp > 1, else ``train_ddp.build``'s (``Llama`` or
+    ``LlamaMoE``)."""
+    from torchft_tpu_torch.train_ddp import build
+
+    if pp == 1:
+        return build(cfg, device, seed, 0.0)[0]
+    if isinstance(cfg, LlamaMoEConfig):
+        raise ValueError("pipeline parallelism takes a dense Llama, not a MoE model")
+    from torchft_tpu_torch.parallel.pipeline import PipelinedLlama
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return PipelinedLlama(cfg, device, gen, pp=pp, num_microbatches=microbatches)
 
 
 @dataclasses.dataclass
@@ -86,6 +113,9 @@ class RankSpec:
     fsdp: int
     tp: int
     sp: int
+    pp: int
+    ep: int
+    microbatches: Optional[int]
     steps: int
     batch: int
     seq: int
@@ -132,8 +162,7 @@ def _rank_main(spec: RankSpec) -> None:
     from torchft_tpu_torch.parallel.mesh import make_mesh
     from torchft_tpu_torch.tier import make_communicator, manager_server_cls
     from torchft_tpu_torch.obs.spans import device_fence
-    from torchft_tpu_torch.train_ddp import (
-        build, heal_transport_for, resolve_device, synthetic_batches)
+    from torchft_tpu_torch.train_ddp import heal_transport_for, resolve_device, synthetic_batches
 
     device = resolve_device(spec.device)
     if device.type == "cuda":
@@ -147,7 +176,7 @@ def _rank_main(spec: RankSpec) -> None:
         world_size=spec.world,
         timeout=datetime.timedelta(seconds=spec.timeout),
     )
-    wanted = spec.dp * spec.fsdp * spec.tp * spec.sp
+    wanted = spec.dp * spec.fsdp * spec.tp * spec.sp * spec.pp * spec.ep
     ranks = startup_surviving_devices(range(wanted))
     if len(ranks) != spec.world:
         raise RuntimeError(f"{spec.world} ranks started for {len(ranks)} surviving of {wanted}")
@@ -157,13 +186,14 @@ def _rank_main(spec: RankSpec) -> None:
         logger.warning("coming up degraded: %s (capacity %.3f)", plan.mesh_axes, plan.capacity)
         mesh = make_mesh(ranks=ranks, **plan.mesh_axes)
     else:
-        mesh = make_mesh(dp=spec.dp, fsdp=spec.fsdp, tp=spec.tp, sp=spec.sp)
-    cfg = _config_from_json(spec.cfg)
+        mesh = make_mesh(dp=spec.dp, fsdp=spec.fsdp, tp=spec.tp, sp=spec.sp, pp=spec.pp,
+                         ep=spec.ep)
+    cfg = config_from_json(spec.cfg)
     if spec.sp > 1:
         cfg = dataclasses.replace(cfg, sp_axis="sp")
 
     def model_fn():
-        return build(cfg, device, spec.seed, spec.lr)[0]
+        return build_model(cfg, device, spec.seed, spec.pp, spec.microbatches)
 
     comm = make_communicator(timeout_s=spec.timeout, tier=spec.tier)
     manager = Manager(
@@ -201,6 +231,11 @@ def _rank_main(spec: RankSpec) -> None:
     phases: List[Dict[str, float]] = []
     marks: List[float] = []
     grad_dtensor = None
+    # the MoE's experts and router: how many lack a gradient after each
+    # step, and the tokens past capacity in each step's forward
+    moe_params = [p for n, p in trainer.params.items() if ".moe." in n]
+    missing_moe_grads: List[int] = []
+    moe_dropped: List[int] = []
     while manager.current_step() < spec.steps:
         step = manager.current_step()
         if step == spec.kill_step:
@@ -217,6 +252,9 @@ def _rank_main(spec: RankSpec) -> None:
             sharded = [p for p in trainer.params.values() if isinstance(p, DTensor)]
             grad_dtensor = bool(sharded) and all(isinstance(p.grad, DTensor) for p in sharded)
         losses.append(loss)
+        if moe_params:
+            missing_moe_grads.append(sum(p.grad is None for p in moe_params))
+            moe_dropped.append(sum(int(m.last_dropped) for m in trainer.model.moe_layers()))
         participants.append(manager.num_participants())
         logger.info(
             "group %d rank %d step %d loss %.4f committed=%s participants=%d",
@@ -270,6 +308,9 @@ def _rank_main(spec: RankSpec) -> None:
             communicator=type(manager._comm).__name__,
         ),
         launches={**fa.launches, **qk.launches},
+        moe_params=len(moe_params),
+        missing_moe_grads=missing_moe_grads,
+        moe_dropped=moe_dropped,
         max_memory_allocated_gb=(
             torch.cuda.max_memory_allocated() / 1e9 if device.type == "cuda" else None),
     )
@@ -343,6 +384,9 @@ def run_hsdp_fleet(
     fsdp: int = 1,
     tp: int = 1,
     sp: int = 1,
+    pp: int = 1,
+    ep: int = 1,
+    microbatches: Optional[int] = None,
     steps: int = 4,
     batch: Optional[int] = None,
     seq: int = 2048,
@@ -360,7 +404,7 @@ def run_hsdp_fleet(
     group_ids: Optional[List[int]] = None,
     min_replicas: Optional[int] = None,
 ) -> List[List[Dict[str, Any]]]:
-    """Train ``groups`` replica groups, each ``dp·fsdp·tp·sp`` rank processes,
+    """Train ``groups`` replica groups, each ``dp·fsdp·tp·sp·pp·ep`` rank processes,
     against an in-process lighthouse that needs every group for a quorum
     (or the one at ``lighthouse_addr``, with ``group_ids`` the groups of
     the fleet this call runs and ``min_replicas`` its quorum size).
@@ -369,16 +413,21 @@ def run_hsdp_fleet(
     restarts with fresh models and heals its sharded state rank by rank
     from a live group.  ``device_loss={group: n}`` starts that group with
     its last n ranks lost (degraded).  ``batch`` (the global batch of a
-    group, default dp·fsdp) must divide by dp·fsdp, and ``seq`` by ``sp``
-    (the sequence-parallel ranks).  ``heal_transport`` ("http" or "comm")
+    group, default dp·fsdp, times the microbatches under pp) must divide
+    by dp·fsdp, and ``seq`` by ``sp`` (the sequence-parallel ranks).
+    ``pp`` > 1 pipelines a dense Llama over that many stages
+    (``microbatches``, default 4·pp); ``ep`` > 1 splits a MoE model's
+    experts.  ``heal_transport`` ("http" or "comm")
     names each rank's checkpoint transport.  Returns, per group,
     the result dict of each rank of its last incarnation (with
     ``incarnation``: the restarts).  Every rank process is stopped before
     this returns; a rank that fails fails the fleet with its log."""
     from torchft_tpu_torch.tier import make_lighthouse
 
-    wanted = dp * fsdp * tp * sp
-    batch = batch if batch is not None else dp * fsdp
+    wanted = dp * fsdp * tp * sp * pp * ep
+    if pp > 1:
+        microbatches = microbatches or 4 * pp
+    batch = batch if batch is not None else dp * fsdp * (microbatches if pp > 1 else 1)
     group_ids = list(group_ids) if group_ids is not None else list(range(groups))
     min_replicas = min_replicas or groups
     lighthouse = None
@@ -404,8 +453,8 @@ def run_hsdp_fleet(
         kill_step = pending_kill[1] if pending_kill and pending_kill[0] == g and incarnation == 0 else -1
         specs = [
             RankSpec(
-                cfg=_config_json(cfg), group=g, rank=r, world=world, dp=dp, fsdp=fsdp, tp=tp,
-                sp=sp, steps=steps, batch=batch, seq=seq, seed=seed, lr=lr,
+                cfg=config_to_json(cfg), group=g, rank=r, world=world, dp=dp, fsdp=fsdp, tp=tp,
+                sp=sp, pp=pp, ep=ep, microbatches=microbatches, steps=steps, batch=batch, seq=seq, seed=seed, lr=lr,
                 device=str(device),
                 tier=tier, lighthouse=lighthouse_addr, store_port=0, dist_port=dist_port,
                 min_replicas=min_replicas, timeout=timeout, quantize_outer=quantize_outer,
@@ -459,7 +508,7 @@ def run_hsdp_fleet(
 def main(argv: Optional[List[str]] = None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--rank-spec", default=None, help=argparse.SUPPRESS)
-    parser.add_argument("--model", choices=sorted(LLAMA_MODELS), default="llama3_8b")
+    parser.add_argument("--model", choices=sorted(HSDP_MODELS), default="llama3_8b")
     parser.add_argument("--layers", type=int, default=None, help="cut the preset's depth")
     parser.add_argument("--steps", type=int, default=20)
     parser.add_argument("--batch-size", type=int, default=None,
@@ -472,6 +521,14 @@ def main(argv: Optional[List[str]] = None) -> None:
     parser.add_argument("--dp", type=int, default=1)
     parser.add_argument("--sp", type=int, default=1,
                         help="split the sequence over this many ranks (ring attention)")
+    parser.add_argument("--pp", type=int, default=1,
+                        help="pipeline the layers over this many stages (GPipe)")
+    parser.add_argument("--microbatches", type=int, default=None,
+                        help="microbatches of the pipeline (default 4·pp)")
+    parser.add_argument("--ep", type=int, default=1,
+                        help="split a MoE model's experts over this many ranks")
+    parser.add_argument("--remat", choices=REMAT_MODES, default=None,
+                        help="rematerialize layers, their attention or FFN halves")
     parser.add_argument("--quantize-outer", action="store_true",
                         help="1-byte wire for the replica-dim gradient ring (int8 default, "
                         "fp8 via TORCHFT_QUANT_KIND)")
@@ -493,8 +550,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     from torchft_tpu_torch.train_ddp import resolve_device
 
     device = resolve_device(args.device)
-    cfg = model_config(args.model, args.layers)
-    common = dict(dp=args.dp, fsdp=args.fsdp, tp=args.tp, sp=args.sp, steps=args.steps,
+    cfg = model_config(args.model, args.layers, args.remat)
+    common = dict(dp=args.dp, fsdp=args.fsdp, tp=args.tp, sp=args.sp, pp=args.pp, ep=args.ep,
+                  microbatches=args.microbatches, steps=args.steps,
                   batch=args.batch_size, seq=args.seq_len, seed=args.seed, lr=args.lr,
                   quantize_outer=args.quantize_outer, heal_transport=args.heal_transport,
                   timeout=args.comm_timeout)
