@@ -53,7 +53,8 @@ It builds the port's CUDA kernels from ``torchft_tpu_torch/csrc/`` (one
 5. float train phases — the port's main path: two replica groups as threads
    (each its own Manager, manager sidecar, communicator and checkpoint
    transport) train Llama at Llama-3-8B width cut to 2 layers, bf16, B=1,
-   S=2048, for 4 steps; replica 1 is killed before step 2, restarts and
+   S=2048, for 3 steps (4 before the fleet phases joined); replica 1 is
+   killed before step 2, restarts and
    heals from replica 0 over the communicator (``CommTransport``).  The fleet runs once with every plane on the C++ tier
    (``tier="cpp"``, named, never resolved: a failed native build fails the
    run) and once on the Python tier.  Every loss must be finite, both
@@ -92,11 +93,12 @@ It builds the port's CUDA kernels from ``torchft_tpu_torch/csrc/`` (one
    the peak device memory, the peak host RSS over the phase and tokens/s
    per replica over the phase.  All three run 1 layer deep
    (:data:`DILOCO_LAYERS`; the width stays), as does ``spare_python``, so
-   the command stays under 900 s with phases 10–12.
+   the command stays inside its limit with phases 10–14.
 
-   ``spare_python`` — ``diloco_cpp``'s schedule with a hot spare, every
-   plane on the Python tier (the C++ sidecar refuses the spare role), 1
-   layer: 2 actives and 1 spare (``run_diloco_fleet(spares=1)``); replica
+   ``spare_python`` — ``diloco_cpp``'s schedule to 2 committed outer steps
+   with a hot spare, every plane on the Python tier (the C++ sidecar
+   refuses the spare role), 1 layer: 2 actives and 1 spare
+   (``run_diloco_fleet(spares=1)``); replica
    1 is killed before its inner step 5 and stays dead, and the lighthouse
    promotes the spare in its place.  Checks (``check_spare``): no replica
    restarted, the spare promoted once, in one membership edit, with no heal
@@ -126,7 +128,7 @@ It builds the port's CUDA kernels from ``torchft_tpu_torch/csrc/`` (one
 9. ``hsdp_cpp`` — ``train_hsdp``: Llama-3-8B width at 2 layers, bf16,
    B=1, S=2048, AdamW, 2 replica groups, each one process on the card at
    fsdp = tp = 1 (NCCL world 1; FSDP2 wraps every layer and the root), the
-   C++ tier, 4 steps; group 1 is killed before step 2 and heals its
+   C++ tier, 3 steps; group 1 is killed before step 2 and heals its
    sharded state over the communicator.  Checks: every loss finite, both
    groups at step 4 with equal parameter hashes (the expected one), every
    ``param.grad`` a DTensor, group 1 restarted once with a heal of its
@@ -161,6 +163,37 @@ It builds the port's CUDA kernels from ``torchft_tpu_torch/csrc/`` (one
    ``moe_hsdp_cpp``'s layouts beside the peaks those phases measured (a
    finding, not a check).
 
+13. ``baby_cpp`` (right after the four train phases) — ``train_cpp``'s
+   fleet and schedule with every replica's data plane a
+   ``BabyCommunicator(backend="cpp")``: the C++ ring in a killable child
+   process, payloads at or above ``TORCHFT_BABY_SHM_MIN`` through shared
+   memory.  ``train_phase``'s checks, the final hash
+   :data:`EXPECTED_SHA256`'s (the child runs the same ring on the same
+   bytes), every child a process of its own, the killed replica's child
+   gone before its restart spawns a new one, shared-memory ops counted, no
+   child left alive.  Prints the step, phases and ``commit`` split beside
+   ``train_cpp``'s from the same run (what the process hop costs; no gain is
+   claimed), the ops by path, the largest allreduce and arena, and
+   ``/dev/shm``'s size.
+14. ``supervised_cpp`` (after the train phases' hash checks) — the
+   deployment path: the port's ``ReplicaSupervisor`` runs one
+   ``python -m torchft_tpu_torch.train_ddp`` process per replica group (8B
+   width, 2 layers, 3 steps, the C++ tier, heal over comm) against a C++
+   lighthouse with ``bench.py``'s fleet settings, group 1 with a warm
+   standby parked behind its active process.  Once group 1 has committed a
+   step, ``chaos.ProcessReplica`` SIGKILLs its active process; the
+   supervisor promotes the standby, which joins, heals the whole state and
+   trains to the end.  Checks (``check_supervised``): both groups exit 0 at
+   step 3 with equal parameter hashes; group 1 promoted once, from the
+   parked standby, with no cold restart; the promoted process healed its
+   state's payload bytes; every process that reported launched each flash
+   kernel (group 0, the killed active, the standby when parked and at the
+   end); no fleet process left alive.  Prints cold start, park, kill to
+   adopted quorum and to first commit, the heal, each process's peak
+   device memory and the wall time.  The hash is not held to
+   :data:`EXPECTED_SHA256` (a signal at an arbitrary moment changes which
+   steps commit with one participant).
+
 Per sync, the C++ tier's parameter hash must equal the Python tier's.  The
 DDP train phases run with ``obs.spans`` on; each prints the ``commit`` split
 (seconds per steady step in ``manager::quorum_rpc``, ``comm::op``,
@@ -193,7 +226,9 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 ITERS = 10  # timed launches per kernel (plain versions: 2)
-STEPS = 4  # DDP train steps; replica 1 is killed before step 2
+# DDP and HSDP train steps; replica 1 is killed before step 2 (4 until the
+# fleet phases joined: the command stays inside its limit with them)
+STEPS = 3
 # (results key, should_quantize, tier) of each train phase, in run order;
 # the kernels line takes its launches from the C++ tier's phases
 TRAIN_PHASES = (
@@ -209,12 +244,14 @@ TRAIN_HEAL_TRANSPORT = {"train_cpp": "comm", "train_python": "comm",
                         "train_quantized_cpp": "http", "train_quantized_python": "http"}
 HSDP_HEAL_TRANSPORT = "comm"
 # the final parameter sha256 of each DDP sync and of hsdp_cpp, as every
-# earlier run of this script gave them (PERF.md): a heal is bit-exact,
-# whatever carries it, so any change is a fault
+# earlier run of this script at STEPS gave them (PERF.md): a heal is
+# bit-exact, whatever carries it, so any change is a fault.  At 4 steps
+# (before the fleet phases joined) they were c894c076..., fd116fce... and
+# 8dcd35ec...
 EXPECTED_SHA256 = {
-    "float": "c894c076df993341b8ff2f55f273eb61c75ae166362465d92f5dd5d7eb372186",
-    "quantized": "fd116fceb3a39d54db5b2410d0430367c4b7de4b39877a922b5de6e3c6f642fd",
-    "hsdp": "8dcd35ec7d2893ed5a17b1dc883fbb0ef8b7e2e24f24262a794f5674f8eb47a0",
+    "float": "963bb6894370d0036e34d8acafa3d7be5566419a0f4df4f417fb575dff1ec943",
+    "quantized": "54b70f3a5945b0df771ee59fdafd37d5c0d9c769f0743275e0ad5ba312851c48",
+    "hsdp": "c93b8cb0340484ee02a44812d83efbfe5d5653893648b8deb6cf008a6d426bbc",
 }
 PLANES = {
     "cpp": dict(lighthouse="CppLighthouseServer", manager_server="CppManagerServer",
@@ -251,8 +288,10 @@ DILOCO_LAYERS = {"diloco_cpp": 1, "diloco_quantized_cpp": 1, "localsgd_cpp": 1,
 # inner step 5 and stays dead, and the lighthouse promotes the spare in its
 # place.  SPARE_ENV sets existing knobs for the phase: the fleet holds at the
 # kill step while the spare warms, so its chunk fetch runs unpaced and one
-# refresh pass may take the whole snapshot.
-SPARE_PHASE = dict(DILOCO, should_quantize=False, spares=1)
+# refresh pass may take the whole snapshot.  Two committed outer steps
+# (three until the fleet phases joined): the promoted spare syncs each
+# fragment once with the survivor.
+SPARE_PHASE = dict(DILOCO, should_quantize=False, spares=1, outer_steps=2)
 SPARE_ENV = {"TORCHFT_SPARE_WARM_PACE_MS": "0", "TORCHFT_SPARE_WARM_BUDGET_S": "600"}
 # spare_drills: gray_failure_drill's spare modes at the JAX tests' sizes,
 # then the outer-delta feed on the card.  The feed refuses a delta over its
@@ -971,11 +1010,13 @@ def check_expected_hashes(hashes: dict) -> None:
 
 
 def train_phase(train_ddp, fa, qk, spans, card: str, should_quantize: bool, tier: str,
-                heal_transport: str) -> dict:
+                heal_transport: str, make_comm=None, planes: dict | None = None) -> dict:
     """The port's main path: 2 replica threads at Llama-3-8B width with a
     kill and heal over ``heal_transport``, averaging gradients in f32/bf16
     or through the int8 quantized wire, every plane on ``tier``; the launch
-    counts and the spans cover exactly this run."""
+    counts and the spans cover exactly this run.  ``make_comm`` replaces
+    each incarnation's communicator (``run_fleet``'s), and ``planes`` the
+    plane classes every replica must have run (default: ``tier``'s)."""
     steps, layers = STEPS, LAYERS
     cfg = train_ddp.model_config("llama3_8b", layers)
     device = torch.device("cuda")
@@ -991,6 +1032,7 @@ def train_phase(train_ddp, fa, qk, spans, card: str, should_quantize: bool, tier
     results = train_ddp.run_fleet(
         cfg, device, replicas=2, steps=steps, batch=1, seq=2048, kill_at=(1, 2),
         should_quantize=should_quantize, tier=tier, heal_transport=heal_transport,
+        make_comm=make_comm,
     )
     wall_s = time.perf_counter() - t0
     launches = {**fa.launches, **qk.launches}
@@ -1003,8 +1045,8 @@ def train_phase(train_ddp, fa, qk, spans, card: str, should_quantize: bool, tier
     if results[1].restarts != 1:
         raise AssertionError(f"replica 1 restarted {results[1].restarts} times, expected 1")
     for i, r in enumerate(results):
-        if r.planes != PLANES[tier]:
-            raise AssertionError(f"replica {i} ran {r.planes}, not the {tier} tier")
+        if r.planes != (planes or PLANES[tier]):
+            raise AssertionError(f"replica {i} ran {r.planes}, not {planes or PLANES[tier]}")
     heal = results[1].heal
     check_heal(None if heal is None else heal.bytes_total, results[1].state_bytes, heal_transport,
                "replica 1")
@@ -1657,6 +1699,316 @@ def rehearsal_phase(fa, qk, card: str, hsdp: dict, moe: dict) -> dict:
                 wall_s=time.perf_counter() - t0)
 
 
+# supervised_cpp: the deployment path.  The port's ReplicaSupervisor runs
+# one `python -m torchft_tpu_torch.train_ddp` process per replica group
+# against a C++ lighthouse with bench.py's fleet settings (min_replicas 1,
+# a 1 s join window, 50 ms ticks); group 1 keeps a warm standby parked
+# behind its active process.  Each worker holds its commits until both
+# groups are in the quorum (--min-replicas 2), so the survivor waits for
+# the promoted standby and heals it instead of finishing alone.
+SUPERVISED_STEPS = 3
+SUPERVISED_LIGHTHOUSE = dict(min_replicas=1, join_timeout_ms=1000, quorum_tick_ms=50)
+SUPERVISED_KILL_AFTER = 1  # group 1's active dies once it has committed this many steps
+SUPERVISED_DEADLINE_S = 600.0
+SUPERVISED_CMD = ("-m", "torchft_tpu_torch.train_ddp", "--model", "llama3_8b", "--layers",
+                  str(LAYERS), "--steps", str(SUPERVISED_STEPS), "--heal-transport", "comm",
+                  "--min-replicas", "2")
+FLEET_LINE_KINDS = ("STANDBY", "FIRST_COMMIT", "FINAL")
+
+
+def parse_fleet_log(text: str) -> list:
+    """The ``STANDBY``, ``FIRST_COMMIT`` and ``FINAL`` lines of a replica
+    group's log (``train_ddp``'s, ``KIND key=value ...``), in order, as
+    dicts with their ``kind``; ``launches`` parsed from its JSON."""
+    out = []
+    for line in text.splitlines():
+        kind, _, rest = line.strip().partition(" ")
+        if kind not in FLEET_LINE_KINDS:
+            continue
+        rec = {"kind": kind}
+        for token in rest.split():
+            key, sep, value = token.partition("=")
+            if sep:
+                rec[key] = json.loads(value) if key == "launches" else value
+        out.append(rec)
+    return out
+
+
+def pid_alive(pid: int) -> bool:
+    """A live (not zombie) process ``pid``, read from ``/proc``."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            stat = f.read()
+    except OSError:
+        return False
+    return stat[stat.rindex(")") + 2] != "Z"
+
+
+def child_pids(module: str) -> set:
+    """Pids of this process's children whose command line names
+    ``module``."""
+    me, out = os.getpid(), set()
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+            with open(f"/proc/{entry}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        if int(stat[stat.rindex(")") + 2:].split()[1]) == me and module in cmd:
+            out.add(int(entry))
+    return out
+
+
+def check_supervised(logs: dict, events: list, fleet_pids: set, steps: int) -> dict:
+    """supervised_cpp's checks over each group's parsed log lines
+    (``logs[g]``), the supervisor's log messages and every fleet pid seen;
+    returns group 0's and the promoted standby's FINAL records.  Raises on
+    the first that fails."""
+    finals = {g: [r for r in recs if r["kind"] == "FINAL"] for g, recs in logs.items()}
+    for g, recs in finals.items():
+        if len(recs) != 1:
+            raise AssertionError(f"group {g} printed {len(recs)} FINAL lines, expected 1")
+        if int(recs[0]["step"]) != steps:
+            raise AssertionError(f"group {g} ended at step {recs[0]['step']}, not {steps}")
+    g0, g1 = finals[0][0], finals[1][0]
+    if g0["params_sha"] != g1["params_sha"]:
+        raise AssertionError(f"groups diverged: {g0['params_sha']} != {g1['params_sha']}")
+    promoted = [e for e in events if "promoted warm standby" in e]
+    cold = [e for e in events if "restarting" in e]
+    if len(promoted) != 1 or "group 1" not in promoted[0] or cold:
+        raise AssertionError(f"expected one promotion of group 1's standby and no cold restart: "
+                             f"{promoted + cold}")
+    if "standby_park_s" not in g1:
+        raise AssertionError("group 1 finished in a process that was never a parked standby")
+    standby = [r for r in logs[1] if r["kind"] == "STANDBY" and r["pid"] == g1["pid"]]
+    if len(standby) != 1:
+        raise AssertionError(f"the promoted process {g1['pid']} did not park once as a standby")
+    if "heal_bytes" not in g1:
+        raise AssertionError("the promoted standby recorded no heal")
+    check_heal(int(g1["heal_bytes"]), int(g1["state_bytes"]), "comm", "the promoted standby")
+    # every process that reported launched each flash kernel: group 0, the
+    # killed active (at its first commit), the promoted standby (parked and
+    # at the end) and a fresh standby if it parked before the stop
+    reporting = {}
+    for recs in logs.values():
+        for r in recs:
+            reporting.setdefault(r["pid"], []).append(r)
+            for name in ("fwd", "dq", "dkv"):
+                if r["launches"].get(name, 0) <= 0:
+                    raise AssertionError(f"process {r['pid']} ({r['kind']}): kernel {name} "
+                                         f"never launched: {r['launches']}")
+    killed = [pid for pid, recs in reporting.items()
+              if pid not in (g0["pid"], g1["pid"]) and any(r["kind"] == "FIRST_COMMIT" for r in recs)]
+    if len(killed) != 1:
+        raise AssertionError(f"expected one killed active that committed before its kill: {killed}")
+    alive = sorted(pid for pid in fleet_pids | {int(p) for p in reporting} if pid_alive(pid))
+    if alive:
+        raise AssertionError(f"fleet processes left alive: {alive}")
+    return dict(group0=g0, promoted=g1, killed_pid=int(killed[0]), standby=standby[0],
+                processes=sorted(int(p) for p in reporting))
+
+
+def _gb(value: str) -> float | None:
+    return None if value == "none" else float(value)
+
+
+def supervised_phase(card: str) -> dict:
+    """supervised_cpp: two replica-group processes under the port's
+    ``ReplicaSupervisor``, group 1 with a warm standby; group 1's active
+    process is SIGKILLed (``chaos.ProcessReplica``) once it has committed
+    a step, the supervisor promotes the parked standby, which joins, heals
+    the whole state from group 0 over the communicator and trains with it
+    to the end.  Raises on any failed check (:func:`check_supervised`).
+
+    The final hash is not held to :data:`EXPECTED_SHA256`: a signal at an
+    arbitrary moment changes which steps commit with one participant (the
+    survivor's solo rounds), so only the groups' equality is checked."""
+    import logging
+    import tempfile
+
+    from torchft_tpu_torch import chaos, launcher
+    from torchft_tpu_torch.lighthouse import LighthouseClient
+    from torchft_tpu_torch.tier import make_lighthouse
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    workdir = tempfile.mkdtemp(prefix="supervised_cpp_")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {"PYTHONPATH": os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")])),
+           "TORCHFT_TIER": "cpp"}
+    logs = {g: os.path.join(workdir, f"group{g}.log") for g in (0, 1)}
+    specs = [launcher.ReplicaSpec(replica_group_id=g, cmd=[sys.executable, *SUPERVISED_CMD],
+                                  env=dict(env), log_path=logs[g], standby=g == 1)
+             for g in (0, 1)]
+    events: list = []
+
+    class _Events(logging.Handler):
+        def emit(self, record: logging.LogRecord) -> None:
+            events.append(record.getMessage())
+
+    sup_logger = logging.getLogger("torchft_tpu_torch.launcher")
+    handler = _Events(level=logging.INFO)
+    sup_logger.addHandler(handler)
+    sup_logger.setLevel(logging.INFO)
+    lighthouse = make_lighthouse(bind="127.0.0.1:0", tier="cpp", **SUPERVISED_LIGHTHOUSE)
+    addr = lighthouse.local_address()
+    client = LighthouseClient(addr, connect_timeout=10.0)
+    sup = launcher.ReplicaSupervisor(specs, addr, restart_delay_s=0.5)
+    rc: list = []
+    fleet_pids: set = set()
+    t_spawn = time.time()
+    runner = threading.Thread(target=lambda: rc.append(sup.run()), daemon=True)
+    runner.start()
+    deadline = time.monotonic() + SUPERVISED_DEADLINE_S
+
+    def _group1(status: dict) -> list:
+        return [p for p in status["participants"] if p["replica_id"].startswith("train_ddp_1:")]
+
+    def _wait(pred, what: str):
+        while time.monotonic() < deadline:
+            fleet_pids.update(child_pids("torchft_tpu_torch.train_ddp"))
+            got = pred()
+            if got:
+                return got
+            if not runner.is_alive():
+                break
+            time.sleep(0.05)
+        raise AssertionError(f"supervised_cpp: timed out waiting for {what}")
+
+    def _log(g: int) -> list:
+        try:
+            with open(logs[g], errors="replace") as f:
+                return parse_fleet_log(f.read())
+        except FileNotFoundError:  # the supervisor has not spawned it yet
+            return []
+
+    try:
+        # the kill waits for the standby to park and for group 1's active
+        # to have committed SUPERVISED_KILL_AFTER steps
+        _wait(lambda: any(r["kind"] == "STANDBY" for r in _log(1)), "group 1's standby to park")
+        victim = _wait(lambda: [p for p in _group1(client.status())
+                                if p["step"] >= SUPERVISED_KILL_AFTER],
+                       f"group 1 to commit {SUPERVISED_KILL_AFTER} step")[0]
+        qid_at_kill = client.status()["quorum_id"]
+        t_kill = time.time()
+        chaos.ProcessReplica("supervised_group1", sup, 1).inject(chaos.Failure.KILL)
+
+        def _promoted_in_quorum() -> list:
+            status = client.status()
+            if status["quorum_id"] <= qid_at_kill:
+                return []
+            return [p for p in _group1(status) if p["replica_id"] != victim["replica_id"]]
+
+        adopted = _wait(_promoted_in_quorum, "the promoted standby's quorum")[0]
+        t_adopt = time.time()
+        _wait(lambda: not runner.is_alive(), "both groups to finish")
+    finally:
+        sup.stop()
+        runner.join(timeout=30)
+        client.close()
+        lighthouse.shutdown()
+        sup_logger.removeHandler(handler)
+        fleet_pids.update(child_pids("torchft_tpu_torch.train_ddp"))
+    wall_s = time.time() - t_spawn
+    parsed = {g: _log(g) for g in (0, 1)}
+    try:
+        if rc != [0]:
+            raise AssertionError(f"the supervisor returned {rc}, not 0")
+        facts = check_supervised(parsed, events, fleet_pids, SUPERVISED_STEPS)
+    except AssertionError:
+        for g, path in logs.items():
+            with open(path, errors="replace") as f:
+                print(f"--- group {g} log (tail)\n" + "\n".join(f.read().splitlines()[-60:]),
+                      file=sys.stderr, flush=True)
+        raise
+    g0, g1 = facts["group0"], facts["promoted"]
+    return dict(
+        card=card, tier="cpp", model="llama3_8b width, %d layers, bf16" % LAYERS,
+        steps=SUPERVISED_STEPS, params_sha=g0["params_sha"],
+        cold_start_s=float(g0["first_commit_t"]) - t_spawn,
+        standby_park_s=float(g1["standby_park_s"]),
+        kill_to_adopt_s=t_adopt - t_kill,
+        kill_to_first_commit_s=float(g1["first_commit_t"]) - t_kill,
+        heal=dict(seconds=float(g1["heal_s"]), bytes=int(g1["heal_bytes"]),
+                  state_bytes=int(g1["state_bytes"]), transport="comm"),
+        peak_device_gb={"group0": _gb(g0["peak_device_gb"]),
+                        "promoted_standby": _gb(g1["peak_device_gb"]),
+                        "standby_parked": _gb(facts["standby"]["peak_device_gb"])},
+        launches={"group0": g0["launches"], "promoted_standby": g1["launches"]},
+        processes=len(fleet_pids), supervisor_events=events, adopted_quorum=adopted,
+        wall_s=wall_s,
+    )
+
+
+# baby_cpp: the float C++ train phase's fleet with each replica's data plane
+# a BabyCommunicator(backend="cpp") child (payloads at or above
+# TORCHFT_BABY_SHM_MIN through shared memory)
+BABY_PLANES = dict(PLANES["cpp"], communicator="BabyCommunicator")
+
+
+def check_baby(stats: list, parent_pid: int, restart: dict) -> None:
+    """baby_cpp's checks over every baby's ``stats()`` (in creation order)
+    and what the restarted replica's factory call saw (``restart``: the
+    shut-down babies' child pids still alive then, and the new child's
+    pid).  Raises on the first that fails."""
+    pids = [pid for s in stats for pid in s["child_pids"]]
+    if not pids or parent_pid in pids or len(set(pids)) != len(pids):
+        raise AssertionError(f"baby children {pids}: each must be its own process, not {parent_pid}")
+    if restart.get("dead_babies", 0) < 1:
+        raise AssertionError("the killed replica's baby was not shut down before its restart")
+    if restart.get("alive_old_children"):
+        raise AssertionError(f"the killed replica's old children live on: {restart['alive_old_children']}")
+    if sum(s["shm_ops"] for s in stats) <= 0:
+        raise AssertionError("no payload crossed to a baby through shared memory")
+    left = [s["live_pid"] for s in stats if s["live_pid"] is not None]
+    if left or any(pid_alive(pid) for pid in pids):
+        raise AssertionError(f"baby children left alive: {left or pids}")
+
+
+def baby_phase(train_ddp, baby, fa, qk, spans, card: str) -> dict:
+    """baby_cpp: train_cpp's fleet and schedule with every replica's data
+    plane a ``BabyCommunicator(backend="cpp")``: all of train_phase's
+    checks, the final hash :data:`EXPECTED_SHA256`'s (the child runs the
+    same ring on the same bytes), then :func:`check_baby`."""
+    import shutil
+
+    babies: list = []
+    restart: dict = {}
+    lock = threading.Lock()
+
+    def make_comm(timeout_s: float):
+        with lock:
+            if len(babies) >= 2:  # an incarnation after a kill
+                dead = [b for b in babies if b.stats()["live_pid"] is None]
+                restart["dead_babies"] = len(dead)
+                restart["alive_old_children"] = [
+                    pid for b in dead for pid in b.stats()["child_pids"] if pid_alive(pid)]
+            comm = baby.BabyCommunicator(timeout_s=timeout_s, backend="cpp")
+            babies.append(comm)
+            return comm
+
+    shm = shutil.disk_usage("/dev/shm")
+    t = train_phase(train_ddp, fa, qk, spans, card, False, "cpp", "comm", make_comm=make_comm,
+                    planes=BABY_PLANES)
+    check_expected_hashes({"float": t["params_sha256"]})
+    stats = [b.stats() for b in babies]
+    check_baby(stats, os.getpid(), restart)
+    t.update(
+        babies=stats, restart=restart,
+        shm_ops=sum(s["shm_ops"] for s in stats), pickled_ops=sum(s["pickled_ops"] for s in stats),
+        largest_arena_bytes=max(s["largest_arena_bytes"] for s in stats),
+        largest_allreduce_bytes=max(s["largest_shm_op_bytes"].get("allreduce_shm", 0)
+                                    for s in stats),
+        dev_shm_bytes=dict(total=shm.total, free_at_start=shm.free),
+        shm_min_bytes=baby._SHM_MIN,
+    )
+    return t
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description="on-card smoke test of torchft_tpu_torch")
     parser.add_argument("--out", default=None, help="also write the results as JSON here")
@@ -1666,7 +2018,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     # the port itself; in a directory without it this import fails
-    from torchft_tpu_torch import drill, native, train_ddp, train_diloco, train_hsdp
+    from torchft_tpu_torch import baby, drill, native, train_ddp, train_diloco, train_hsdp
     from torchft_tpu_torch.obs import spans
     from torchft_tpu_torch.ops import cuda_build
     from torchft_tpu_torch.ops import flash_attention as fa
@@ -1724,7 +2076,20 @@ def main() -> int:
               f"{json.dumps(t['commit_split_ms_median_last3'])}; heal over {h['transport']} "
               f"{h['seconds']:.3f} s for {h['bytes']} bytes ({h['gb_per_s']:.3f} GB/s; state "
               f"{h['state_bytes']} bytes); wall {t['wall_s']:.1f} s", flush=True)
+    results["baby_cpp"] = t = baby_phase(train_ddp, baby, fa, qk, spans, card)
     spans.configure(False)
+    print(f"baby_cpp: {json.dumps(t)}", flush=True)
+    ref = results["train_cpp"]
+    print(f"baby_cpp (cpp tier, BabyCommunicator children): hash as expected; step "
+          f"{t['step_ms_median_last3']:.1f} ms (train_cpp {ref['step_ms_median_last3']:.1f}), "
+          f"phases {json.dumps(t['phase_ms_median_last3'])} (train_cpp "
+          f"{json.dumps(ref['phase_ms_median_last3'])}), commit split (ms per replica) "
+          f"{json.dumps(t['commit_split_ms_median_last3'])} (train_cpp "
+          f"{json.dumps(ref['commit_split_ms_median_last3'])}); {t['shm_ops']} shm ops, "
+          f"{t['pickled_ops']} pickled, largest allreduce {t['largest_allreduce_bytes']} bytes, "
+          f"largest arena {t['largest_arena_bytes']} bytes, /dev/shm "
+          f"{t['dev_shm_bytes']['total']} bytes; heal {t['heal']['seconds']:.3f} s for "
+          f"{t['heal']['bytes']} bytes; wall {t['wall_s']:.1f} s", flush=True)
     hashes = check_cross_tier(results)
     if len({results[key]["heal"]["state_bytes"] for key, _, _ in TRAIN_PHASES}) != 1:
         raise AssertionError("the train phases healed states of different sizes")
@@ -1732,6 +2097,18 @@ def main() -> int:
     for sync, by_tier in hashes.items():
         print(f"{sync} sync parameter sha256: cpp {by_tier['cpp']}, python {by_tier['python']} "
               "(equal, and as expected)", flush=True)
+    results["supervised_cpp"] = t = supervised_phase(card)
+    # a finding, not a check: the survivor commits nothing alone, so the
+    # supervised fleet trains train_cpp's steps on the same batches
+    t["equals_train_cpp_sha256"] = results["train_cpp"]["params_sha256"].startswith(t["params_sha"])
+    print(f"supervised_cpp: {json.dumps(t)}", flush=True)
+    print(f"supervised_cpp (cpp tier, {t['processes']} processes): group 1's active SIGKILLed, its "
+          f"warm standby promoted; cold start {t['cold_start_s']:.1f} s, standby parked "
+          f"{t['standby_park_s']:.1f} s, kill to adopted quorum {t['kill_to_adopt_s']:.3f} s, kill "
+          f"to first commit {t['kill_to_first_commit_s']:.3f} s; heal {t['heal']['seconds']:.3f} s "
+          f"for {t['heal']['bytes']} bytes; peak device GB {json.dumps(t['peak_device_gb'])}; "
+          f"equal hashes {t['params_sha']} ({'equal to' if t['equals_train_cpp_sha256'] else 'not'} "
+          f"train_cpp's); wall {t['wall_s']:.1f} s", flush=True)
     for key, fleet in DILOCO_PHASES:
         results[key] = t = diloco_phase(train_diloco, train_ddp, fa, qk, card, fleet,
                                         DILOCO_LAYERS.get(key, LAYERS))
@@ -1848,6 +2225,11 @@ def main() -> int:
         row["pipeline_launches"] = results["pipeline"]["launches"].get(name, 0)
         row["moe_hsdp_launches"] = [n.get(name, 0) for n in results["moe_hsdp_cpp"]["launches"]]
         row["rehearsal_launches"] = results["rehearsal"]["launches"][name]
+        # this slice's: the baby data plane's fleet, and each supervised
+        # process that finished (group 0, the promoted standby)
+        row["baby_launches"] = results["baby_cpp"]["launches"][name]
+        row["supervised_launches"] = [
+            n.get(name, 0) for n in results["supervised_cpp"]["launches"].values()]
     print(json.dumps(line), flush=True)
     print(card, flush=True)  # nvidia-smi's own line: name, power limit
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -217,7 +217,8 @@ def test_host_rss_sampler_reads_this_process(chip_smoke) -> None:
 def test_cnn_and_hsdp_phases_take_their_entry_points_keywords(chip_smoke) -> None:
     """``cnn_cpp`` is ``train_ddp --model cnn`` at the example's defaults,
     ``hsdp_cpp`` is ``train_hsdp`` at 2 groups of one rank (fsdp = tp = 1),
-    4 steps, group 1 killed before step 2; both on the named C++ tier."""
+    3 steps (4 before the fleet phases joined), group 1 killed before step
+    2; both on the named C++ tier."""
     import inspect
 
     from torchft_tpu_torch import train_ddp, train_hsdp
@@ -226,7 +227,7 @@ def test_cnn_and_hsdp_phases_take_their_entry_points_keywords(chip_smoke) -> Non
     assert set(chip_smoke.HSDP_PHASE) <= set(
         inspect.signature(train_hsdp.run_hsdp_fleet).parameters)
     assert chip_smoke.CNN_PHASE == dict(replicas=2, steps=20, batch=32, lr=1e-3, kill_at=(1, 5))
-    assert chip_smoke.HSDP_PHASE == dict(groups=2, fsdp=1, tp=1, steps=4, batch=1, seq=2048,
+    assert chip_smoke.HSDP_PHASE == dict(groups=2, fsdp=1, tp=1, steps=3, batch=1, seq=2048,
                                          lr=1e-4, kill_at=(1, 2))
     source = (REPO / "chip_smoke.py").read_text()
     for key in ("cnn_cpp", "hsdp_cpp"):
@@ -422,18 +423,20 @@ def test_heal_check_needs_the_whole_state(chip_smoke, transport, nbytes, match) 
 
 
 def test_expected_hashes_are_held(chip_smoke) -> None:
+    """The card's hashes at 3 steps (c894c076, fd116fce, 8dcd35ec at 4)."""
     expected = chip_smoke.EXPECTED_SHA256
-    assert expected["float"].startswith("c894c076") and expected["quantized"].startswith("fd116fce")
-    assert expected["hsdp"].startswith("8dcd35ec") and all(len(h) == 64 for h in expected.values())
+    assert expected["float"].startswith("963bb689") and expected["quantized"].startswith("54b70f3a")
+    assert expected["hsdp"].startswith("c93b8cb0") and all(len(h) == 64 for h in expected.values())
     chip_smoke.check_expected_hashes(dict(expected))
     with pytest.raises(AssertionError, match="float: final parameter sha256"):
         chip_smoke.check_expected_hashes({"float": expected["quantized"]})
 
 
 def test_spare_phases_take_their_entry_points_keywords(chip_smoke) -> None:
-    """``spare_python`` is DILOCO's schedule with one spare on the Python
-    tier; the delta fleet of ``spare_drills`` is a Llama at head dim 64,
-    bf16, killed after a committed sync; both run ``run_diloco_fleet``."""
+    """``spare_python`` is DILOCO's schedule to 2 committed outer steps
+    (3 before the fleet phases joined) with one spare on the Python tier;
+    the delta fleet of ``spare_drills`` is a Llama at head dim 64, bf16,
+    killed after a committed sync; both run ``run_diloco_fleet``."""
     import inspect
 
     import torch
@@ -442,7 +445,8 @@ def test_spare_phases_take_their_entry_points_keywords(chip_smoke) -> None:
     from torchft_tpu_torch.models.llama import LlamaConfig
 
     params = set(inspect.signature(train_diloco.run_diloco_fleet).parameters)
-    assert chip_smoke.SPARE_PHASE == dict(chip_smoke.DILOCO, should_quantize=False, spares=1)
+    assert chip_smoke.SPARE_PHASE == dict(chip_smoke.DILOCO, should_quantize=False, spares=1,
+                                          outer_steps=2)
     assert chip_smoke.SPARE_PHASE["kill_at"] == (1, 5)
     assert set(chip_smoke.SPARE_PHASE) <= params and set(chip_smoke.SPARE_DELTA_FLEET) <= params
     cfg = LlamaConfig(**chip_smoke.SPARE_DELTA_CFG)
@@ -454,14 +458,14 @@ def test_spare_phases_take_their_entry_points_keywords(chip_smoke) -> None:
 
 
 def _spare_results(change=None):
-    """A passing fleet with one spare: replica 0, replica 1 (killed), the
-    promoted spare."""
+    """A passing fleet with one spare at ``SPARE_PHASE``'s 2 outer steps:
+    replica 0, replica 1 (killed), the promoted spare."""
     from types import SimpleNamespace
 
     def one(**kw):
         base = dict(restarts=0, killed=False, spare=None, heal=None, quorum_ids=[1, 2, 2],
                     fragment_sha256=["b0", "b1"], initial_fragment_sha256=["i0", "i1"],
-                    fragment_live_sha256=["l0", "l1"], final_step=3, losses=[12.0, 11.0])
+                    fragment_live_sha256=["l0", "l1"], final_step=2, losses=[12.0, 11.0])
         base.update(kw)
         return SimpleNamespace(**base)
 
@@ -495,8 +499,9 @@ LAUNCHES = dict(fwd=20, dq=20, dkv=20)
     ({(2, "fragment_sha256"): ["b0", "other"]}, LAUNCHES, "fragment 1: backups differ"),
     ({(0, "fragment_sha256"): ["i0", "b1"], (2, "fragment_sha256"): ["i0", "b1"]}, LAUNCHES,
      "initial weights"),
-    ({(2, "fragment_live_sha256"): ["other", "l1"]}, LAUNCHES, "live parameters differ"),
-    ({(2, "final_step"): 2}, LAUNCHES, "ended at step"),
+    # fragment 1 is the one synced last at 2 outer steps
+    ({(2, "fragment_live_sha256"): ["l0", "other"]}, LAUNCHES, "live parameters differ"),
+    ({(2, "final_step"): 3}, LAUNCHES, "ended at step"),
     ({(2, "losses"): [float("nan")]}, LAUNCHES, "non-finite"),
     # no kernel launches after the promotion
     ({}, dict(fwd=10, dq=11, dkv=11), "after the promotion"),
@@ -653,3 +658,155 @@ def test_new_phases_take_their_entry_points_keywords(chip_smoke) -> None:
 def test_release_host_memory_runs_on_the_cpu(chip_smoke) -> None:
     chip_smoke.release_host_memory()
     assert chip_smoke.HostRss.now() > 0
+
+
+# -- the fleet phases: supervised_cpp and baby_cpp ---------------------------
+
+_L = '{"fwd":2,"dq":2,"dkv":2}'
+
+
+def _fleet_logs(change=None) -> dict:
+    """A passing supervised_cpp: group 0, group 1's killed active, its
+    promoted standby and the fresh standby parked behind it (pids past the
+    kernel's ``pid_max``, so none is alive); ``change`` rewrites a group's
+    log text."""
+    logs = {
+        0: f"FIRST_COMMIT pid=4194410 step=1 t=100.0 launches={_L}\n"
+           f"FINAL step=3 params_sha=abc first_commit_t=100.0 state_bytes=50 launches={_L} "
+           f"peak_device_gb=14.9 pid=4194410\n",
+        1: f"STANDBY pid=4194412 t=90.0 launches={_L} peak_device_gb=7.2\n"
+           f"FIRST_COMMIT pid=4194411 step=1 t=100.1 launches={_L}\n"
+           "2026-10-17 12:00:00 train_ddp: step 1 loss 12.25 committed=True participants=2\n"
+           f"STANDBY pid=4194413 t=140.0 launches={_L} peak_device_gb=7.1\n"
+           f"FIRST_COMMIT pid=4194412 step=2 t=130.0 launches={_L}\n"
+           f"FINAL step=3 params_sha=abc standby_park_s=20.0 promoted_t=110.0 "
+           f"first_commit_t=130.0 heal_s=8.0 heal_bytes=50 state_bytes=50 launches={_L} "
+           f"peak_device_gb=14.9 pid=4194412\n",
+    }
+    for g, (old, new) in (change or {}).items():
+        assert old in logs[g]
+        logs[g] = logs[g].replace(old, new)
+    return logs
+
+
+_EVENTS = ["launching replica group 0", "launching replica group 1",
+           "replica group 1 exited rc=-9; promoted warm standby (1)", "replica group 1 finished"]
+
+
+def test_parse_fleet_log_reads_the_workers_lines(chip_smoke) -> None:
+    recs = chip_smoke.parse_fleet_log(_fleet_logs()[1])
+    assert [r["kind"] for r in recs] == ["STANDBY", "FIRST_COMMIT", "STANDBY", "FIRST_COMMIT",
+                                        "FINAL"]
+    assert recs[-1]["launches"] == {"fwd": 2, "dq": 2, "dkv": 2}
+    assert recs[-1]["heal_bytes"] == "50" and recs[-1]["standby_park_s"] == "20.0"
+
+
+def test_supervised_checks_pass_on_a_good_fleet(chip_smoke) -> None:
+    logs = {g: chip_smoke.parse_fleet_log(t) for g, t in _fleet_logs().items()}
+    facts = chip_smoke.check_supervised(logs, _EVENTS, {10**7}, 3)
+    assert facts["killed_pid"] == 4194411 and facts["promoted"]["pid"] == "4194412"
+    assert facts["processes"] == [4194410, 4194411, 4194412, 4194413]
+
+
+@pytest.mark.parametrize("change, events, match", [
+    ({1: ("params_sha=abc standby", "params_sha=abd standby")}, _EVENTS, "diverged"),
+    ({0: ("FINAL step=3", "FINAL step=2")}, _EVENTS, "ended at step"),
+    # the killed active restarted cold instead of the standby's promotion
+    ({}, _EVENTS[:2] + ["replica group 1 exited rc=-9; restarting (1)"], "one promotion"),
+    ({}, _EVENTS + ["replica group 1 exited rc=-9; promoted warm standby (2)"], "one promotion"),
+    # group 1 finished in a process that never parked
+    ({1: ("standby_park_s=20.0 promoted_t=110.0 ", "")}, _EVENTS, "never a parked standby"),
+    ({1: ("STANDBY pid=4194412", "STANDBY pid=4194414")}, _EVENTS, "did not park once"),
+    ({1: ("heal_bytes=50 state", "heal_bytes=49 state")}, _EVENTS, "not its state"),
+    ({1: ("heal_s=8.0 heal_bytes=50 ", "")}, _EVENTS, "recorded no heal"),
+    ({1: ('FIRST_COMMIT pid=4194411 step=1 t=100.1 launches={"fwd":2,"dq":2,"dkv":2}',
+          'FIRST_COMMIT pid=4194411 step=1 t=100.1 launches={"fwd":2,"dq":0,"dkv":2}')}, _EVENTS,
+     "kernel dq never launched"),
+    ({1: ("FIRST_COMMIT pid=4194411", "FIRST_COMMIT pid=4194412")}, _EVENTS, "one killed active"),
+])
+def test_supervised_checks_raise_on_failure(chip_smoke, change, events, match) -> None:
+    logs = {g: chip_smoke.parse_fleet_log(t) for g, t in _fleet_logs(change).items()}
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.check_supervised(logs, events, set(), 3)
+
+
+def test_supervised_check_fails_while_a_fleet_process_lives(chip_smoke) -> None:
+    import os
+
+    logs = {g: chip_smoke.parse_fleet_log(t) for g, t in _fleet_logs().items()}
+    with pytest.raises(AssertionError, match="left alive"):
+        chip_smoke.check_supervised(logs, _EVENTS, {os.getpid()}, 3)
+
+
+def test_child_pids_and_pid_alive_read_proc(chip_smoke) -> None:
+    import subprocess
+    import sys
+
+    proc = subprocess.Popen([sys.executable, "-c", "import time; time.sleep(30)  # fleet_marker"])
+    try:
+        assert proc.pid in chip_smoke.child_pids("fleet_marker")
+        assert chip_smoke.pid_alive(proc.pid)
+    finally:
+        proc.kill()
+        proc.wait()
+    assert not chip_smoke.pid_alive(proc.pid)
+    assert proc.pid not in chip_smoke.child_pids("fleet_marker")
+
+
+def test_supervised_phase_runs_the_port_worker_under_the_ports_supervisor(chip_smoke) -> None:
+    """The workers are ``python -m torchft_tpu_torch.train_ddp`` at the main
+    path's width and depth, 3 steps, healing over comm, holding commits for
+    both groups; the lighthouse takes bench.py's fleet settings."""
+    import argparse
+
+    cmd = chip_smoke.SUPERVISED_CMD
+    assert cmd[:2] == ("-m", "torchft_tpu_torch.train_ddp")
+    parser = argparse.ArgumentParser()
+    for flag in ("--model", "--layers", "--steps", "--heal-transport", "--min-replicas"):
+        parser.add_argument(flag)
+    args = parser.parse_args(cmd[2:])
+    assert (args.model, int(args.layers), int(args.steps), args.heal_transport,
+            int(args.min_replicas)) == ("llama3_8b", chip_smoke.LAYERS, 3, "comm", 2)
+    assert chip_smoke.SUPERVISED_LIGHTHOUSE == dict(min_replicas=1, join_timeout_ms=1000,
+                                                     quorum_tick_ms=50)
+    source = (REPO / "chip_smoke.py").read_text()
+    assert 'chaos.ProcessReplica("supervised_group1", sup, 1).inject(chaos.Failure.KILL)' in source
+    assert "launcher.ReplicaSupervisor(specs" in source
+
+
+def _baby_stats(change=None) -> list:
+    # pids past the kernel's pid_max: none is alive
+    base = [dict(shm_ops=40, child_pids=[1 << 23, (1 << 23) + 1], live_pid=None),
+            dict(shm_ops=44, child_pids=[(1 << 23) + 2], live_pid=None),
+            dict(shm_ops=30, child_pids=[(1 << 23) + 3], live_pid=None)]
+    for (i, key), value in (change or {}).items():
+        base[i][key] = value
+    return base
+
+
+def test_baby_checks(chip_smoke) -> None:
+    import os
+
+    good = dict(dead_babies=1, alive_old_children=[])
+    chip_smoke.check_baby(_baby_stats(), 1, good)
+    for stats, restart, match in (
+        (_baby_stats({(0, "child_pids"): [1, 102]}), good, "its own process"),
+        (_baby_stats({(2, "child_pids"): [(1 << 23) + 2]}), good, "its own process"),
+        (_baby_stats(), dict(good, dead_babies=0), "not shut down"),
+        (_baby_stats(), dict(good, alive_old_children=[1 << 23]), "live on"),
+        (_baby_stats({(0, "shm_ops"): 0, (1, "shm_ops"): 0, (2, "shm_ops"): 0}), good,
+         "shared memory"),
+        (_baby_stats({(2, "live_pid"): (1 << 23) + 3}), good, "left alive"),
+        (_baby_stats({(2, "child_pids"): [os.getpid()]}), good, "left alive"),
+    ):
+        with pytest.raises(AssertionError, match=match):
+            chip_smoke.check_baby(stats, 1, restart)
+
+
+def test_kernels_line_carries_the_fleet_phases_launches() -> None:
+    source = (REPO / "chip_smoke.py").read_text()
+    assert 'row["baby_launches"] = results["baby_cpp"]["launches"][name]' in source
+    assert 'results["supervised_cpp"]["launches"].values()' in source
+    assert 'results["baby_cpp"] = t = baby_phase(' in source
+    assert 'results["supervised_cpp"] = t = supervised_phase(card)' in source
+    assert "check_expected_hashes({\"float\": t[\"params_sha256\"]})" in source

@@ -352,3 +352,132 @@ def test_cnn_and_hsdp_entry_points_refuse_to_run_without_cuda_unless_asked(argv)
     module = importlib.import_module(f"torchft_tpu_torch.{argv[0]}")
     with pytest.raises(RuntimeError, match="--device cpu"):
         module.main(argv[1:])
+
+
+def _child_code_refs(tree: ast.AST):
+    """What a module hands a child interpreter: each string constant that
+    parses as Python with an import in it (a ``-c`` script), as its
+    imported module names, and each module after a ``-m`` in a list or
+    tuple literal (a command line) or inside a string (a shell command)."""
+    import re
+
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.List, ast.Tuple)):
+            elts = node.elts
+            for a, b in zip(elts, elts[1:]):
+                if (isinstance(a, ast.Constant) and a.value == "-m"
+                        and isinstance(b, ast.Constant) and isinstance(b.value, str)):
+                    yield "-m", b.value
+        if not (isinstance(node, ast.Constant) and isinstance(node.value, str)):
+            continue
+        for name in re.findall(r"-m\s+([A-Za-z_][\w.]*)", node.value):
+            yield "-m", name
+        if "import " not in node.value:
+            continue
+        try:
+            code = ast.parse(node.value)
+        except SyntaxError:
+            continue
+        for sub in ast.walk(code):
+            if isinstance(sub, ast.Import):
+                yield from (("-c", a.name) for a in sub.names)
+            elif isinstance(sub, ast.ImportFrom) and sub.level == 0 and sub.module:
+                yield "-c", sub.module
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")), ids=lambda p: str(p.relative_to(PKG)))
+def test_no_forbidden_module_in_what_a_child_interpreter_runs(path) -> None:
+    """The ``-c`` scripts and ``-m`` modules the port hands a child
+    interpreter (the scale harness's subprocess lighthouse, the launcher's
+    and scheduler's command lines, the rank processes) name no module of
+    the JAX package: an import hidden in a string escapes the AST scan
+    above."""
+    refs = list(_child_code_refs(ast.parse(path.read_text(), filename=str(path))))
+    bad = [ref for ref in refs if _forbidden(ref[1])]
+    assert not bad, f"{path.relative_to(REPO)} hands a child {bad}"
+
+
+def test_the_child_code_scan_sees_the_strings_it_guards() -> None:
+    """The scan finds the scale harness's lighthouse script and the rank
+    command of ``train_hsdp``, and flags a JAX import hidden in a script
+    or a ``-m`` name."""
+    scale = ast.parse((PKG / "coord" / "scale.py").read_text())
+    assert ("-c", "torchft_tpu_torch.lighthouse") in set(_child_code_refs(scale))
+    hsdp = ast.parse((PKG / "train_hsdp.py").read_text())
+    assert ("-m", "torchft_tpu_torch.train_hsdp") in set(_child_code_refs(hsdp))
+    planted = ast.parse(
+        'S = """import sys\\nfrom torchft_tpu.lighthouse import LighthouseServer\\n"""\n'
+        'CMD = [sys.executable, "-m", "torchft_tpu.launcher"]\n'
+        'SH = "python -m torchft_tpu.scheduler slurm"\n')
+    assert sorted(r for r in _child_code_refs(planted) if _forbidden(r[1])) == [
+        ("-c", "torchft_tpu.lighthouse"), ("-m", "torchft_tpu.launcher"),
+        ("-m", "torchft_tpu.scheduler")]
+
+
+def test_fleet_layer_runs_with_jax_blocked_in_every_child(tmp_path) -> None:
+    """In a fresh interpreter, and in every child it starts (a
+    ``sitecustomize`` on ``PYTHONPATH`` blocks the JAX package there too):
+    the scale harness's subprocess lighthouse answers, the launcher's CLI
+    runs a port module in a supervised child, a ``BabyCommunicator`` child
+    on each backend reduces a shared-memory payload, and the scheduler
+    renders the port's train module with the GPU resources."""
+    blocker = tmp_path / "sitecustomize.py"
+    blocker.write_text(f"import sys\nfor name in {list(FORBIDDEN)!r}:\n    sys.modules[name] = None\n")
+    script = textwrap.dedent(
+        f"""
+        import subprocess, sys, threading
+        import numpy as np
+        sys.path.insert(0, {str(REPO)!r})
+        assert sys.modules.get("torchft_tpu", 0) is None, "the blocker did not load"
+        from torchft_tpu_torch.baby import BabyCommunicator
+        from torchft_tpu_torch.coord.scale import _Lighthouse
+        from torchft_tpu_torch.lighthouse import LighthouseClient
+        from torchft_tpu_torch.scheduler import JobSpec, render_gke, render_sbatch
+        from torchft_tpu_torch.store import StoreServer
+
+        def main():
+            lh = _Lighthouse(1, 100, 50, 5000, subprocess_mode=True)
+            try:
+                assert "quorum_id" in LighthouseClient(lh.addr, connect_timeout=10.0).status()
+            finally:
+                lh.shutdown()
+            rc = subprocess.run(
+                [sys.executable, "-m", "torchft_tpu_torch.launcher", "--replicas", "1", "--",
+                 sys.executable, "-m", "torchft_tpu_torch.punisher", "--help"],
+                capture_output=True, timeout=120).returncode
+            assert rc == 0, rc
+            store = StoreServer("127.0.0.1:0")
+            for backend in ("tcp", "cpp"):
+                comms = [BabyCommunicator(timeout_s=30.0, backend=backend) for _ in range(2)]
+                ts = [threading.Thread(target=c.configure,
+                                       args=(f"127.0.0.1:{{store.port}}/{{backend}}", f"r{{i}}", i, 2))
+                      for i, c in enumerate(comms)]
+                [t.start() for t in ts]
+                [t.join() for t in ts]
+                works = [c.allreduce(np.ones(1 << 18, np.float32)) for c in comms]
+                assert all(float(w.wait(timeout=30.0)[0]) == 2.0 for w in works)
+                assert all(c.stats()["shm_ops"] == 1 for c in comms)
+                for c in comms:
+                    c.shutdown()
+            store.shutdown()
+            spec = JobSpec(replicas=1, cmd=["python", "-m", "torchft_tpu_torch.train_ddp"],
+                           lighthouse="lh:1")
+            (_, sbatch), = render_sbatch(spec)
+            (_, gke), = render_gke(spec)
+            assert "-m torchft_tpu_torch.train_ddp" in sbatch and "--gpus-per-node=1" in sbatch
+            assert "nvidia.com/gpu: 1" in gke and "gke-accelerator: nvidia-h100-80gb" in gke
+            print("ISOLATED_OK")
+
+        if __name__ == "__main__":
+            main()
+        """
+    )
+    main = tmp_path / "fleet_isolated.py"
+    main.write_text(script)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(tmp_path)
+    proc = subprocess.run(
+        [sys.executable, str(main)], capture_output=True, text=True, timeout=240, env=env,
+        cwd=str(REPO),
+    )
+    assert proc.returncode == 0 and "ISOLATED_OK" in proc.stdout, proc.stdout + proc.stderr

@@ -9,7 +9,10 @@ path (torch tensors stream as checkpoint leaves), gradient averaging over
 ``.grad`` tensors (float, or quantized to int8/fp8 on the card), a
 ``torch.optim`` wrapper, ``LocalSGD`` and (Streaming) ``DiLoCo`` with the
 sharded outer sync, hot spares (``spare.py``) and the chaos drills
-(``chaos.py``, ``drill.py``), the Llama-3 model, and the flash-attention
+(``chaos.py``, ``drill.py``), the fleet layer (zone aggregators and the
+scale harness in ``coord/``, the process supervisor with warm standbys in
+``launcher.py``, ``punisher.py``, ``scheduler.py``, the data plane in a
+killable child in ``baby.py``), the Llama-3 model, and the flash-attention
 and quantized-wire kernels, hand-written in CUDA for Hopper.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
@@ -18,7 +21,8 @@ The train loops are ``python -m torchft_tpu_torch.train_ddp``,
 ``python -m torchft_tpu_torch.train_hsdp`` (FSDP2, tensor, sequence,
 pipeline and expert parallelism inside a replica group);
 ``python -m torchft_tpu_torch.parallel.rehearsal`` checks pod-scale layouts
-without the cards.
+without the cards; ``python -m torchft_tpu_torch.launcher --replicas N --
+<cmd>`` supervises N replica-group processes.
 """
 
 __version__ = "0.1.0"
@@ -35,12 +39,17 @@ _LAZY = {
     # data plane
     "Communicator": ("torchft_tpu_torch.communicator", "Communicator"),
     "TCPCommunicator": ("torchft_tpu_torch.communicator", "TCPCommunicator"),
+    "BabyCommunicator": ("torchft_tpu_torch.baby", "BabyCommunicator"),
     "ReduceOp": ("torchft_tpu_torch.communicator", "ReduceOp"),
     # control plane
     "LighthouseServer": ("torchft_tpu_torch.lighthouse", "LighthouseServer"),
     "LighthouseClient": ("torchft_tpu_torch.lighthouse", "LighthouseClient"),
     "ManagerServer": ("torchft_tpu_torch.manager_server", "ManagerServer"),
     "ManagerClient": ("torchft_tpu_torch.manager_server", "ManagerClient"),
+    "ZoneAggregator": ("torchft_tpu_torch.coord.aggregator", "ZoneAggregator"),
+    # the process supervisor (warm standbys) and the scheduler shims
+    "ReplicaSupervisor": ("torchft_tpu_torch.launcher", "ReplicaSupervisor"),
+    "ReplicaSpec": ("torchft_tpu_torch.launcher", "ReplicaSpec"),
     # checkpointing
     "CheckpointTransport": ("torchft_tpu_torch.checkpointing.transport", "CheckpointTransport"),
     "HTTPTransport": ("torchft_tpu_torch.checkpointing.http_transport", "HTTPTransport"),

@@ -9,10 +9,10 @@ the port the same scriptable surface over both replica planes:
 
 - **process plane** (:class:`ProcessReplica`): replica groups as OS
   processes under a supervisor — failures are real signals (SIGKILL /
-  SIGSEGV / SIGSTOP-freeze).  The supervisor is duck-typed: anything with
-  ``kill(replica_group_id, sig=...) -> bool`` and, for the spawn-env
-  classes, ``_specs`` (the JAX package's ``launcher.ReplicaSupervisor``
-  shape; the port's launcher is a later slice).
+  SIGSEGV / SIGSTOP-freeze) delivered through the port's
+  :class:`~torchft_tpu_torch.launcher.ReplicaSupervisor` (its ``kill`` and,
+  for the spawn-env classes, its ``_specs``), whose restart and standby
+  promotion are the recovery under test.
 - **thread plane** (:class:`ThreadReplica`): replicas as threads in one
   process (the shape of ``drill.py``'s fleets) — failures arm the replica
   loop's cooperative hooks (kill flag, wedge, communicator abort).
@@ -333,8 +333,8 @@ class ThreadReplica(ReplicaHandle):
 
 
 class ProcessReplica(ReplicaHandle):
-    """Adapter over one replica group of a supervisor shaped like the JAX
-    package's ``launcher.ReplicaSupervisor`` (duck-typed) — failures are
+    """Adapter over one replica group of a
+    :class:`~torchft_tpu_torch.launcher.ReplicaSupervisor` — failures are
     real signals against the live process; the supervisor's restart/standby
     machinery is the recovery under test.
 

@@ -15,8 +15,12 @@ leaves the card as a host array for ``Manager.allreduce`` and the average
 comes back onto it.  The gradients and data are the JAX drill's, made with
 numpy from the same seeds.
 
-``joint_ft_spmd_drill``, ``postmortem_drill`` and ``coord_churn_drill``
-need modules of later slices and are not here.
+:func:`joint_ft_spmd_drill` composes FT across replica groups with HSDP
+inside each, on ``train_hsdp.run_hsdp_fleet``'s rank processes;
+:func:`postmortem_drill` reconstructs a fault's causal chain from the
+merged flight dumps on either tier; :func:`coord_churn_drill` holds the
+coordination plane's invariants through churn at fleet scale
+(:mod:`~torchft_tpu_torch.coord.scale`, host only).
 """
 
 from __future__ import annotations
@@ -1462,3 +1466,515 @@ def _first_index(seq: List[Any], value: Any) -> Optional[int]:
         return seq.index(value)
     except ValueError:
         return None
+
+
+def joint_ft_spmd_drill(
+    n_devices: int,
+    num_replicas: int = 2,
+    num_steps: int = 6,
+    kill_replica: Optional[int] = 1,
+    kill_at_step: int = 2,
+    timeout_s: float = 60.0,
+    quantize_outer: bool = False,
+    heal_source_chaos: bool = False,
+    device: str = "cuda",
+) -> Dict[str, Any]:
+    """FT across replica groups composed with HSDP inside each: the port of
+    the JAX drill, on the port's own fleet (``train_hsdp.run_hsdp_fleet``).
+
+    ``num_replicas`` replica groups of ``n_devices // num_replicas`` rank
+    processes each (fsdp = 2 when that divides, the rest tp; FSDP2 and TP
+    over gloo on the CPU, NCCL on the card) train ``llama_debug`` on the
+    Python tier against a lighthouse that needs every group.  With
+    ``kill_replica``, every rank of that group dies at the top of step
+    ``kill_at_step`` and its restart heals its sharded state from the live
+    groups.  ``quantize_outer`` runs the outer ring over the int8 wire.
+    ``heal_source_chaos`` (a kill and >= 3 groups, so the rejoiner heals
+    striped from 2+ sources) arms the next group's checkpoint transports
+    to die after serving 16 KiB of that striped heal
+    (:func:`~torchft_tpu_torch.chaos.arm_heal_source_kill`), over 64 KiB
+    heal chunks; the heal must finish from the other source.
+
+    Asserts that every group ends with bit-identical parameters, and for a
+    kill that the victim restarted and healed.  Returns ``{"restarts": int,
+    "healed": bool, "final_states": [{name: ndarray}, ...],
+    "heal_source_killed": bool, "heal_timings": {...}}`` as the JAX drill
+    does."""
+    import shutil
+    import tempfile
+
+    from torchft_tpu_torch.models.llama import llama_debug
+    from torchft_tpu_torch.train_hsdp import run_hsdp_fleet
+
+    if heal_source_chaos and (kill_replica is None or num_replicas < 3):
+        raise ValueError("heal_source_chaos needs a kill and >= 3 replicas (2+ sources)")
+    per_replica = n_devices // num_replicas
+    if per_replica < 1:
+        raise ValueError(f"{n_devices} devices cannot hold {num_replicas} replica groups")
+    fsdp = 2 if per_replica % 2 == 0 else 1
+    tp = per_replica // fsdp
+    chaos_source = (kill_replica + 1) % num_replicas if heal_source_chaos else None
+    saved_env = {"TORCHFT_HEAL_CHUNK_MB": os.environ.get("TORCHFT_HEAL_CHUNK_MB")}
+    if heal_source_chaos:
+        # small chunks on every source, so the kill lands with most of the
+        # transfer left to steal (the env's floor: 64 KiB)
+        os.environ["TORCHFT_HEAL_CHUNK_MB"] = "0.0625"
+    workdir = tempfile.mkdtemp(prefix="joint_ft_spmd_")
+    try:
+        groups = run_hsdp_fleet(
+            llama_debug(), _resolve_device(device), groups=num_replicas, fsdp=fsdp, tp=tp,
+            steps=num_steps, batch=2 * fsdp, seq=32, lr=1e-3,
+            kill_at=None if kill_replica is None else (kill_replica, kill_at_step),
+            quantize_outer=quantize_outer, tier="python", timeout=timeout_s,
+            dump_params=True, workdir=workdir, chaos_source=chaos_source,
+        )
+        final_states = []
+        for g in groups:
+            rank0 = next(r for r in g if r["rank"] == 0)
+            path = os.path.join(
+                workdir, f"group{rank0['group']}_rank0_inc{rank0['incarnation']}.json.pt")
+            saved = torch.load(path)
+            final_states.append({n: t.float().numpy() for n, t in saved.items()})
+    finally:
+        _restore_env(saved_env)
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    shas = {r["params_sha256"] for g in groups for r in g}
+    assert len(shas) == 1, f"replica groups diverged: {shas}"
+    restarts = sum(g[0]["incarnation"] for g in groups)
+    healed = False
+    heal_timings: Dict[str, float] = {}
+    if kill_replica is not None:
+        victim = groups[kill_replica]
+        healed = victim[0]["incarnation"] >= 1 and all(
+            r["heal"] and r["heal"]["bytes"] > 0 for r in victim)
+        assert restarts >= 1, "kill was never injected"
+        assert healed, "restarted replica group never completed a healed run"
+        heal = victim[0]["heal"]
+        heal_timings = dict(
+            heal_num_sources=float(heal["sources"]),
+            heal_bytes=float(heal["bytes"]),
+            heal_bytes_per_sec=heal["bytes"] / heal["seconds"] if heal["seconds"] > 0 else 0.0,
+            heal_stolen_chunks=float(heal["stolen_chunks"]),
+        )
+    killed_source = chaos_source is not None and any(
+        r["heal_source_killed"] for r in groups[chaos_source])
+    if heal_source_chaos:
+        assert killed_source, "heal-source kill never fired"
+    return {
+        "restarts": restarts,
+        "healed": healed,
+        "final_states": final_states,
+        "heal_source_killed": killed_source,
+        "heal_timings": heal_timings,
+    }
+
+
+def postmortem_drill(
+    num_replicas: int = 3,
+    steps: int = 10,
+    arm_at_step: int = 3,
+    # modest per-op timeout: after the kill, one survivor's collective can
+    # stall on a live-but-silent lane until the op watchdog fires, so this
+    # bounds the poison→shrink leg of the drill's wall clock
+    timeout_s: float = 6.0,
+    tier: str = "python",
+    payload_elems: int = 200_000,
+    fault_spec: str = "loss:0.02,reset:0.01",
+    lanes: int = 2,
+    out_dir: Optional[str] = None,
+    device: str = "cuda",
+) -> Dict[str, Any]:
+    """Chaos postmortem drill: the flight-recorder acceptance gate (the
+    port of the JAX drill; each replica's parameters are a tensor on
+    ``device``).
+
+    A real fleet (lighthouse + one Manager per replica, threads in one
+    process) commits steps while the drill injects a gray failure and a
+    kill, then the SURVIVORS' flight dumps (plus the victim's shutdown
+    dump, the restarted victim's heal dump, and the lighthouse's
+    coordination dump) are merged by ``scripts/flight_merge.py`` and the
+    causal chain is asserted IN ORDER on the aligned fleet timeline:
+
+    ``python`` tier: ``CHAOS_INJECT`` (NET_FLAKY armed fleet-wide) → lane
+    distress (``LANE_RECONNECT`` events, or injected-fault/stall counters
+    riding the poison event) → ``COMM_POISON`` on a survivor (the kill
+    severs the victim's sockets mid-collective) → ``QUORUM_ADOPT`` of the
+    shrunk quorum, correlated by identical ``(quorum_id, step)`` across
+    survivors → heal phases (``HEAL_RECV_END`` on the restarted victim,
+    ``HEAL_SEND_BEGIN`` on a survivor).
+
+    ``cpp`` tier: the native data plane has no fault injection, so the
+    chain starts at the kill — ``CHAOS_INJECT(kill)`` → poison → shrink →
+    heal — and additionally asserts the merged dump contains NATIVE ring
+    events (``COMM_CONFIGURE`` drained over ``tpuft_comm_flight_drain``).
+
+    Returns the chain timestamps and merge facts (asserts internally)."""
+    import glob
+    import tempfile
+
+    from torchft_tpu_torch.chaos import ChaosController, Failure, ThreadReplica
+    from torchft_tpu_torch.lighthouse import LighthouseServer
+    from torchft_tpu_torch.manager import Manager
+
+    flight_merge = _load_flight_merge()
+    dev = _resolve_device(device)
+    assert tier in ("python", "cpp"), tier
+    assert num_replicas >= 3, "postmortem drills need a surviving majority"
+    if tier == "cpp":
+        from torchft_tpu_torch import native
+
+        if not native.available():
+            raise RuntimeError("native tier unavailable")
+
+        def make_comm():
+            return native.CppCommunicator(timeout_s=timeout_s)
+    else:
+        from torchft_tpu_torch.communicator import TCPCommunicator
+
+        def make_comm():
+            return TCPCommunicator(timeout_s=timeout_s)
+
+    tmp_ctx = None
+    if out_dir is None:
+        tmp_ctx = tempfile.TemporaryDirectory(prefix="tpuft_flight_")
+        out_dir = tmp_ctx.name
+    saved_env = {
+        k: os.environ.get(k)
+        for k in ("TORCHFT_FLIGHT_DIR", "TORCHFT_RING_LANES", "TORCHFT_NET_FAULT_SEED")
+    }
+    os.environ["TORCHFT_FLIGHT_DIR"] = out_dir
+    os.environ["TORCHFT_NET_FAULT_SEED"] = "11"
+    if tier == "python":
+        os.environ["TORCHFT_RING_LANES"] = str(lanes)
+
+    lighthouse = LighthouseServer(
+        bind="127.0.0.1:0",
+        min_replicas=num_replicas - 1,
+        join_timeout_ms=300,
+        quorum_tick_ms=20,
+        heartbeat_timeout_ms=1500,
+    )
+    rng = np.random.default_rng(5)
+    grad = torch.from_numpy(rng.normal(size=payload_elems).astype(np.float32)).to(dev)
+    stop = threading.Event()
+
+    class _Rep:
+        def __init__(self, idx: int, life: int = 0) -> None:
+            self.idx = idx
+            self.life = life
+            self.params = torch.zeros(payload_elems, dtype=torch.float32, device=dev)
+            self.comm = make_comm()
+            self.manager = Manager(
+                comm=self.comm,
+                load_state_dict=self._load,
+                state_dict=self._save,
+                min_replica_size=num_replicas - 1,
+                replica_id=f"pm_{idx}" + ("r" * life),
+                lighthouse_addr=lighthouse.local_address(),
+                timeout=timeout_s,
+                quorum_timeout=timeout_s,
+                connect_timeout=timeout_s,
+                init_sync=False,
+            )
+            self.commits = 0
+            self.kill_flag = threading.Event()
+            self.healed = False
+
+        def _save(self) -> Dict[str, Any]:
+            return {"params": self.params.clone()}
+
+        def _load(self, sd: Dict[str, Any]) -> None:
+            self.params = sd["params"].to(dev, torch.float32).clone()
+            self.healed = True
+
+        def loop(self) -> None:
+            # no per-replica step bound: the MAIN thread ends the drill via
+            # ``stop`` once the rejoined victim has healed and committed —
+            # a fixed bound would let fast survivors exit (and stop
+            # issuing the quorum RPCs the rejoiner's heal needs) before
+            # the rejoin lands
+            while not stop.is_set():
+                try:
+                    self.manager.start_quorum()
+                    if self.kill_flag.is_set():
+                        # die AFTER joining the round's quorum: the peers'
+                        # collective is then in flight against this
+                        # replica's sockets, so severing them poisons the
+                        # survivors' epoch — the postmortem's poison link.
+                        # The shutdown dump preserves this incarnation's
+                        # ring.
+                        try:
+                            self.manager.wait_quorum()
+                        except Exception:  # noqa: BLE001 — dying anyway
+                            pass
+                        self.manager.shutdown()
+                        return
+                    work = self.manager.allreduce(_host(grad))
+                    avg = work.wait(timeout=timeout_s)
+                    ok = self.manager.should_commit()
+                except Exception:  # noqa: BLE001 — a failed step, not a crash
+                    ok = False
+                if ok and not stop.is_set():
+                    self.params += _on(avg, dev)
+                    self.commits += 1
+
+    replicas = [_Rep(i) for i in range(num_replicas)]
+    victim = replicas[num_replicas - 1]
+    chaos = ChaosController([ThreadReplica(f"pm_{r.idx}", r) for r in replicas])
+    threads = [threading.Thread(target=r.loop, daemon=True) for r in replicas]
+    report: Dict[str, Any] = {"tier": tier, "flight_dir": out_dir}
+    victim2: Optional[_Rep] = None
+    victim2_thread: Optional[threading.Thread] = None
+    try:
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + 120.0
+        while min(r.commits for r in replicas) < arm_at_step and time.monotonic() < deadline:
+            time.sleep(0.05)
+        assert min(r.commits for r in replicas) >= arm_at_step, (
+            "fleet never reached the arming step"
+        )
+
+        if tier == "python":
+            # phase 1: flaky links fleet-wide; recovery stays in-epoch but
+            # leaves fault/stall/reconnect evidence in every recorder
+            for handle in chaos.replicas:
+                chaos.inject(Failure.NET_FLAKY, victim=handle, spec=fault_spec)
+            flaky_target = min(steps, arm_at_step + 2)
+            deadline = time.monotonic() + 120.0
+            while (
+                min(r.commits for r in replicas) < flaky_target
+                and time.monotonic() < deadline
+            ):
+                time.sleep(0.05)
+            assert min(r.commits for r in replicas) >= flaky_target, (
+                "fleet stalled under the flaky link"
+            )
+
+        # phase 2: kill the victim mid-run — survivors poison, the quorum
+        # shrinks, and the restarted incarnation must heal back in
+        survivors = [r for r in replicas if r is not victim]
+        commits_at_kill = min(r.commits for r in survivors)
+        chaos.inject(Failure.KILL, victim=chaos.replicas[victim.idx])
+        deadline = time.monotonic() + 180.0
+        while (
+            min(r.commits for r in survivors) < commits_at_kill + 2
+            and time.monotonic() < deadline
+        ):
+            time.sleep(0.05)
+        assert min(r.commits for r in survivors) >= commits_at_kill + 2, (
+            "survivors never resumed after the kill"
+        )
+
+        # phase 3: the victim's replacement rejoins behind the fleet and
+        # heals (HEAL_RECV on it, HEAL_SEND on a survivor)
+        victim2 = _Rep(victim.idx, life=1)
+        victim2_thread = threading.Thread(target=victim2.loop, daemon=True)
+        victim2_thread.start()
+        deadline = time.monotonic() + 180.0
+        fleet = survivors + [victim2]
+        # the drill is over once the rejoiner has HEALED and committed at
+        # least twice with the fleet (and everyone has cleared the step
+        # target) — the main thread is the only exit path
+        while (
+            not (
+                victim2.healed
+                and victim2.commits >= 2
+                and min(r.manager.current_step() for r in fleet) >= steps
+            )
+            and time.monotonic() < deadline
+        ):
+            time.sleep(0.05)
+        stop.set()
+        for t in threads + [victim2_thread]:
+            t.join(timeout=2 * timeout_s + 10.0)
+        assert victim2.healed, "restarted victim never healed"
+        assert victim2.commits >= 2, (
+            f"restarted victim never committed with the fleet ({victim2.commits} commits)"
+        )
+        assert all(r.manager.current_step() >= steps for r in fleet), (
+            f"fleet stalled: {[r.manager.current_step() for r in fleet]}"
+        )
+
+        # final dumps: every live recorder's complete ring + the
+        # lighthouse's coordination feed (QUORUM_ISSUE anchors)
+        for r in fleet:
+            r.manager._flight.dump("drill_end")
+        lighthouse._flight.dump("drill_end")
+
+        merged = flight_merge.merge_flight_dumps(
+            sorted(glob.glob(os.path.join(out_dir, "flight_*.jsonl")))
+        )
+        events = merged["events"]
+        report["replicas_merged"] = len(merged["replicas"])
+        report["events_merged"] = len(events)
+        report["anchors"] = merged["anchors"]
+        assert len(merged["replicas"]) >= num_replicas + 1, merged["replicas"]
+        assert merged["anchors"] > 0, "no shared (quorum_id, step) anchors"
+
+        survivor_prefixes = [f"pm_{r.idx}" for r in survivors]
+
+        def _events_of(prefix: str) -> List[Dict[str, Any]]:
+            # one replica's events in ITS OWN recording order (seq is
+            # strictly monotonic per recorder incarnation).  Replica ids
+            # are "{prefix}:{uuid}/{rank}", so match on the ":" boundary
+            own = [e for e in events if e.get("replica_id", "").startswith(prefix + ":")]
+            own.sort(key=lambda e: e.get("seq", 0))
+            return own
+
+        # -- the causal chain: existence and (quorum_id, step) correlation
+        # from the merged timeline, ORDER per replica on its own ring
+        injects = [e for e in events if e["name"] == "CHAOS_INJECT"]
+        assert injects, "no CHAOS_INJECT recorded"
+        report["t_inject"] = min(e["t_aligned"] for e in injects)
+
+        if tier == "python":
+            distress = [
+                e
+                for e in events
+                if e["name"] in ("LANE_RECONNECT", "LANE_FAILOVER")
+                or (
+                    e["name"] == "COMM_POISON"
+                    and (e.get("faults_injected", 0) or e.get("stalls", 0))
+                )
+            ]
+            assert distress, (
+                "no lane-distress evidence (reconnects / injected faults / "
+                "stalls) after the injection"
+            )
+            report["t_distress"] = min(e["t_aligned"] for e in distress)
+
+        # every survivor adopted a shrunk quorum, and they all adopted the
+        # SAME (quorum_id, step)
+        shrink_by_survivor: Dict[str, List[Dict[str, Any]]] = {}
+        for prefix in survivor_prefixes:
+            shrinks = [
+                e
+                for e in _events_of(prefix)
+                if e["name"] == "QUORUM_ADOPT" and e.get("world") == num_replicas - 1
+            ]
+            assert shrinks, f"{prefix} never adopted the shrunk quorum"
+            shrink_by_survivor[prefix] = shrinks
+        shared_keys = set.intersection(
+            *(
+                {(e["quorum_id"], e["step"]) for e in shrinks}
+                for shrinks in shrink_by_survivor.values()
+            )
+        )
+        assert shared_keys, (
+            "shrunk-quorum adoption not correlated across survivors: "
+            f"{ {p: [(e['quorum_id'], e['step']) for e in s] for p, s in shrink_by_survivor.items()} }"
+        )
+        report["shrink_key"] = sorted(shared_keys)[0]
+
+        def _shrink_index(own: List[Dict[str, Any]]) -> Optional[int]:
+            return next(
+                (
+                    i
+                    for i, e in enumerate(own)
+                    if e["name"] == "QUORUM_ADOPT" and (e["quorum_id"], e["step"]) in shared_keys
+                ),
+                None,
+            )
+
+        # at least one survivor's OWN ring shows poison strictly before its
+        # shrunk-quorum adoption
+        ordered_chain = []
+        t_poisons = []
+        for prefix in survivor_prefixes:
+            own = _events_of(prefix)
+            names = [e["name"] for e in own]
+            poisons = [e for e in own if e["name"] == "COMM_POISON"]
+            t_poisons += [e["t_aligned"] for e in poisons]
+            if not poisons:
+                continue
+            shrink_idx = _shrink_index(own)
+            if shrink_idx is not None and names.index("COMM_POISON") < shrink_idx:
+                ordered_chain.append(prefix)
+        assert t_poisons, "no survivor COMM_POISON after the kill"
+        assert ordered_chain, "no survivor's own ring shows poison -> shrunk-quorum adoption"
+        report["t_poison"] = min(t_poisons)
+        report["t_shrink"] = min(
+            e["t_aligned"] for shrinks in shrink_by_survivor.values() for e in shrinks
+        )
+
+        # heal: the restarted victim fetched, and a survivor served AFTER
+        # its shrunk-quorum adoption (its own ring's order)
+        recv_ends = [e for e in _events_of(f"pm_{victim.idx}r") if e["name"] == "HEAL_RECV_END"]
+        assert recv_ends, "restarted victim recorded no HEAL_RECV_END"
+        report["t_heal"] = recv_ends[0]["t_aligned"]
+        served = False
+        for prefix in survivor_prefixes:
+            own = _events_of(prefix)
+            shrink_idx = _shrink_index(own)
+            if shrink_idx is not None and any(
+                e["name"] == "HEAL_SEND_BEGIN" for e in own[shrink_idx + 1 :]
+            ):
+                served = True
+                break
+        assert served, "no survivor recorded HEAL_SEND_BEGIN after the shrunk quorum"
+
+        if tier == "cpp":
+            native_events = [
+                e for e in events if e.get("native") and e["name"] == "COMM_CONFIGURE"
+            ]
+            assert native_events, "no native C-ring events merged into the dumps"
+            report["native_events"] = len(native_events)
+        report["chain_ok"] = True
+    finally:
+        stop.set()
+        for t in threads + ([victim2_thread] if victim2_thread is not None else []):
+            t.join(timeout=5.0)
+        for r in replicas + ([victim2] if victim2 is not None else []):
+            try:
+                r.manager.shutdown()
+            except Exception:  # noqa: BLE001
+                pass
+        lighthouse.shutdown()
+        _restore_env(saved_env)
+        if tmp_ctx is not None:
+            tmp_ctx.cleanup()
+    return report
+
+
+def coord_churn_drill(
+    num_replicas: int = 60,
+    num_aggregators: int = 2,
+    num_spares: int = 2,
+    kills: int = 1,
+    rejoins: int = 1,
+    deadline_s: float = 120.0,
+) -> Dict[str, Any]:
+    """Coordination-plane churn drill: a thin assertion wrapper over the
+    :mod:`torchft_tpu_torch.coord.scale` harness at drill-friendly scale
+    (host only: the coordination plane holds no tensors).
+
+    Drives a subprocess lighthouse + zone aggregators + a simulated fleet
+    (with a spare pool and a mixed direct/aggregated membership) through
+    kill/rejoin/promote churn AND an aggregator crash/restart, asserting:
+
+    - zero spurious membership edits (observed ``quorum_id`` bumps equal
+      the churn plan's kills + rejoins — an aggregator bounce contributes
+      none: aggregator death is a reporting gap, not a member death);
+    - every kill with a warm spare registered lands as a promotion;
+    - the aggregated steady state reaches the lighthouse with fewer beat
+      RPCs than the all-direct calibration window.
+    """
+    from torchft_tpu_torch.coord.scale import run_scale_harness
+
+    report = run_scale_harness(
+        num_replicas=num_replicas,
+        num_aggregators=num_aggregators,
+        num_spares=num_spares,
+        kills=kills,
+        rejoins=rejoins,
+        agg_bounce=True,
+        deadline_s=deadline_s,
+    )
+    assert report["spurious_membership_edits"] == 0, report
+    assert report["agg_bounce_edits"] == 0, report
+    assert report["promotions_total"] >= min(kills, num_spares), report
+    reduction = report.get("rpc_reduction_vs_direct")
+    assert reduction is not None and reduction > 1.0, report
+    return report

@@ -6,7 +6,7 @@ source of truth the ``ftlint`` knob checker (``torchft_tpu/analysis``)
 enforces: every knob-shaped name appearing anywhere in package source must
 be declared here, and the knob reference table in ``docs/operations.md``
 must agree with this registry in both directions (run
-``python -m torchft_tpu.knobs`` to re-emit the table).
+``python -m torchft_tpu_torch.knobs`` to emit the port's copy of it).
 
 Declaring a knob here does NOT change how it is read — modules with
 bespoke parse semantics (fault-program specs, ``auto`` tri-states, custom

@@ -242,11 +242,6 @@ class ManagerServer:
         capacity_fn: Optional[Callable[[], float]] = None,
         metrics_fn: Optional[Callable[[], Dict[str, float]]] = None,
     ) -> None:
-        if knobs.get_str("TORCHFT_AGG_ADDR", ""):
-            raise NotImplementedError(
-                "zone aggregators (TORCHFT_AGG_ADDR) land in a later slice "
-                "of the port"
-            )
         self._replica_id = replica_id
         self._lighthouse_addr = lighthouse_addr
         self._hostname = hostname or socket.gethostname()
@@ -448,9 +443,10 @@ class ManagerServer:
                     if agg_client is None or agg_client.addr != agg_addr:
                         if agg_client is not None:
                             agg_client.close()
-                        raise NotImplementedError(
-                            "zone aggregators (TORCHFT_AGG_ADDR) land in a "
-                            "later slice of the port"
+                        from torchft_tpu_torch.coord.aggregator import AggMemberClient
+
+                        agg_client = AggMemberClient(
+                            agg_addr, connect_timeout=self._connect_timeout
                         )
                     resp = agg_client.beat(
                         self._replica_id,

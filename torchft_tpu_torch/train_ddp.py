@@ -27,6 +27,22 @@ process per replica group::
 (``examples/train_ddp.py``): the toy CNN (``models/cnn.py``) with Adam on
 the synthetic CIFAR-shaped dataset, each replica reading its shard through
 ``data.DistributedSampler`` (``NUM_REPLICA_GROUPS`` groups).
+
+Under the launcher's warm standby (``TPUFT_STANDBY_GATE=<file>`` in the
+environment, ``launcher.ReplicaSupervisor``) the process builds its model,
+runs one forward and backward (the kernels load and launch), frees the
+gradients and parks until the gate file appears; only then does it build
+its ``Manager``, so a parked standby never touches the quorum.  It is the
+counterpart of ``bench.py``'s fleet worker, which the JAX package's
+launcher promotes the same way.  Three lines report to a supervisor's log,
+each ``<KIND> key=value ...``: ``STANDBY`` when the standby parks (its
+flash launch counts and peak device memory so far), ``FIRST_COMMIT`` at
+the process's first committed step (its wall-clock time and launches),
+and ``FINAL`` at the end: the step, the parameter hash, the flash launch
+counts, the peak device memory, the heal's seconds and bytes (after a
+heal), the state's array payload bytes, the time of the first committed
+step, the pid and, for a promoted standby, its seconds parked and the
+time of its promotion.
 """
 
 from __future__ import annotations
@@ -35,6 +51,7 @@ import argparse
 import dataclasses
 import gc
 import hashlib
+import json
 import logging
 import os
 import threading
@@ -46,6 +63,7 @@ import numpy as np
 import torch
 
 from torchft_tpu_torch.checkpointing.serialization import plan_pytree
+from torchft_tpu_torch.communicator import Communicator
 from torchft_tpu_torch.data import DistributedSampler, batch_indices
 from torchft_tpu_torch.ddp import allreduce_gradients
 from torchft_tpu_torch.manager import Manager
@@ -54,6 +72,7 @@ from torchft_tpu_torch.models.llama import Llama, LlamaConfig, llama3_8b, llama3
 from torchft_tpu_torch.models.llama_moe import LlamaMoE, LlamaMoEConfig
 from torchft_tpu_torch.obs.spans import device_fence
 from torchft_tpu_torch.observability import HealMetrics
+from torchft_tpu_torch.ops import flash_attention as fa
 from torchft_tpu_torch.optim import OptimizerWrapper
 from torchft_tpu_torch.tier import (
     default_tier,
@@ -206,10 +225,12 @@ def train_loop(
     on_step: Optional[Callable[[int], None]] = None,
     phases: Optional[List[Dict[str, float]]] = None,
     should_quantize: bool = False,
+    on_commit: Optional[Callable[[int], None]] = None,
 ) -> List[float]:
     """Run until the manager's committed step reaches ``steps``; returns
     each iteration's loss.  ``on_step(step)`` runs before each iteration
-    (fault injection, pacing).  With ``phases`` given, each iteration
+    (fault injection, pacing), ``on_commit(step)`` after each iteration
+    this process committed (a heal's jump is not a commit).  With ``phases`` given, each iteration
     appends its wall seconds per phase, fenced with device synchronizes:
     ``compute`` (forward + backward, the quorum overlapping it),
     ``allreduce`` (bucketing, copies to host, ring submission) and
@@ -238,6 +259,8 @@ def train_loop(
             marks.append(fence())
             phases.append(dict(zip(("compute", "allreduce", "commit"), np.diff(marks).tolist())))
         losses.append(float(loss.detach()))
+        if committed and on_commit is not None:
+            on_commit(manager.current_step())
         logger.info(
             "step %d loss %.4f committed=%s participants=%d",
             step, losses[-1], committed, manager.num_participants(),
@@ -291,6 +314,7 @@ def run_fleet(
     should_quantize: bool = False,
     tier: Optional[str] = None,
     heal_transport: str = "http",
+    make_comm: Optional[Callable[[float], Communicator]] = None,
 ) -> List[ReplicaResult]:
     """Train ``replicas`` replica groups as threads of this process, each
     with its own Manager, manager sidecar, communicator and checkpoint
@@ -304,7 +328,9 @@ def run_fleet(
     from a live peer.  ``init_state`` (a ``state_dict``) replaces the seeded
     init; ``should_quantize`` is passed to :func:`train_loop`.  ``cfg``
     names the workload: a Llama, or the CNN (:class:`CNNConfig`, whose
-    replicas read their sampler shards of ``batch`` samples)."""
+    replicas read their sampler shards of ``batch`` samples).  ``make_comm``
+    (``timeout_s -> Communicator``) builds each incarnation's data plane in
+    place of ``tier``'s communicator (a ``BabyCommunicator``, say)."""
     lighthouse = make_lighthouse(
         bind="127.0.0.1:0",
         min_replicas=replicas,
@@ -325,7 +351,8 @@ def run_fleet(
             if init_state is not None:
                 model.load_state_dict(init_state)
             save, load = state_fns(model, inner)
-            comm = make_communicator(timeout_s=timeout, tier=tier)
+            comm = (make_comm(timeout) if make_comm is not None
+                    else make_communicator(timeout_s=timeout, tier=tier))
             manager = Manager(
                 comm=comm,
                 checkpoint_transport=heal_transport_for(heal_transport, comm),
@@ -400,6 +427,37 @@ def run_fleet(
         lighthouse.shutdown()
 
 
+def park_standby(model: torch.nn.Module, batch: Batch, gate: str) -> float:
+    """A warm standby's start: one forward and backward on ``batch`` (the
+    kernels load and launch), the gradients and the allocator's cache
+    freed, so the parked process holds its weights; then wait for the
+    ``gate`` file.  Builds no optimizer state and no Manager.  Returns the
+    seconds parked."""
+    tokens, targets = batch
+    model.loss(tokens, targets).backward()
+    device_fence(tokens.device)()
+    model.zero_grad(set_to_none=True)
+    if tokens.is_cuda:
+        torch.cuda.empty_cache()
+    print(f"STANDBY pid={os.getpid()} t={time.time():.3f} "
+          f"launches={_compact(fa.launches)} peak_device_gb={_peak_device_gb(tokens.device)}",
+          flush=True)
+    t0 = time.monotonic()
+    while not os.path.exists(gate):
+        time.sleep(0.05)
+    return time.monotonic() - t0
+
+
+def _compact(obj: Any) -> str:
+    return json.dumps(obj, separators=(",", ":"))
+
+
+def _peak_device_gb(device: torch.device) -> str:
+    if device.type != "cuda":
+        return "none"
+    return f"{torch.cuda.max_memory_allocated(device) / 1e9:.3f}"
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--model", choices=sorted(MODELS), default="llama3_8b")
@@ -435,6 +493,15 @@ def main(argv: Optional[List[str]] = None) -> None:
     batch = args.batch_size or (32 if cnn else 1)
     lr = args.lr or (1e-3 if cnn else 1e-4)
     model, inner = build(cfg, device, args.seed, lr)
+    batches = make_batches(
+        cfg, batch, args.seq_len, args.replica_group_id, args.num_replica_groups, device
+    )
+    gate = os.environ.get("TPUFT_STANDBY_GATE")
+    final = {}
+    if gate:
+        final["standby_park_s"] = f"{park_standby(model, batches[0], gate):.3f}"
+        final["promoted_t"] = f"{time.time():.3f}"
+        logger.info("standby promoted after %s s parked", final["standby_park_s"])
     save, load = state_fns(model, inner)
     tier = default_tier()  # the C++ plane when the native library loads
     # the comm's tier resolves separately (data_plane_tier): auto
@@ -451,13 +518,26 @@ def main(argv: Optional[List[str]] = None) -> None:
         timeout=args.comm_timeout,
     )
     opt = OptimizerWrapper(manager, inner)
-    batches = make_batches(
-        cfg, batch, args.seq_len, args.replica_group_id, args.num_replica_groups, device
-    )
+
+    def _first_commit(step: int) -> None:
+        if "first_commit_t" not in final:
+            final["first_commit_t"] = f"{time.time():.3f}"
+            print(f"FIRST_COMMIT pid={os.getpid()} step={step} t={final['first_commit_t']} "
+                  f"launches={_compact(fa.launches)}", flush=True)
+
     t0 = time.perf_counter()
-    train_loop(manager, model, opt, batches, args.steps)
+    train_loop(manager, model, opt, batches, args.steps, on_commit=_first_commit)
     logger.info("trained %d steps in %.1f s", manager.current_step(), time.perf_counter() - t0)
-    print(f"FINAL step={manager.current_step()} params_sha={params_sha256(model)[:16]}")
+    heal = getattr(manager._checkpoint_transport, "last_heal_metrics", None)
+    if heal is not None:
+        final["heal_s"] = f"{heal.duration_s:.3f}"
+        final["heal_bytes"] = str(heal.bytes_total)
+    final["state_bytes"] = str(sum(plan_pytree(save()).leaf_nbytes))
+    final["launches"] = _compact(fa.launches)
+    final["peak_device_gb"] = _peak_device_gb(device)
+    final["pid"] = str(os.getpid())
+    print(f"FINAL step={manager.current_step()} params_sha={params_sha256(model)[:16]} "
+          + " ".join(f"{k}={v}" for k, v in final.items()), flush=True)
     manager.shutdown()
 
 

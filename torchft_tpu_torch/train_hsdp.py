@@ -131,6 +131,9 @@ class RankSpec:
     quantize_outer: bool
     heal_transport: str = "http"
     kill_step: int = -1  # os._exit(KILLED_EXIT) at the top of this step
+    # arm the checkpoint transport to die after serving 16 KiB of a striped
+    # heal (chaos.arm_heal_source_kill)
+    chaos_source: bool = False
     incarnation: int = 0
     result: str = ""  # JSON result path ("" prints the FINAL line only)
     dump_params: bool = False  # rank 0 also saves the whole parameters (.pt)
@@ -220,6 +223,12 @@ def _rank_main(spec: RankSpec) -> None:
         # the C++ sidecar advertises no capacity and refuses here: degraded
         # runs pin TORCHFT_TIER=python
         manager.complete_relower(plan.capacity)
+    source_killed = None
+    if spec.chaos_source:
+        from torchft_tpu_torch.chaos import arm_heal_source_kill
+
+        source_killed = arm_heal_source_kill(
+            manager._checkpoint_transport, after_bytes=1 << 14, striped_only=True)
     trainer = HSDPTrainer(
         model_fn(), adamw(spec.lr), mesh, manager, quantize_outer=spec.quantize_outer,
         model_fn=model_fn,
@@ -298,7 +307,9 @@ def _rank_main(spec: RankSpec) -> None:
         step_s=[b - a for a, b in zip(marks, marks[1:])],
         phase_s=phases,
         heal=None if heal is None else dict(
-            seconds=heal.duration_s, bytes=heal.bytes_total, sources=heal.num_sources),
+            seconds=heal.duration_s, bytes=heal.bytes_total, sources=heal.num_sources,
+            stolen_chunks=heal.stolen_chunks),
+        heal_source_killed=source_killed is not None and source_killed.is_set(),
         heal_transport=spec.heal_transport,
         state_bytes=state_bytes,
         last_quorum_timings=dict(manager.last_quorum_timings),
@@ -403,6 +414,7 @@ def run_hsdp_fleet(
     lighthouse_addr: Optional[str] = None,
     group_ids: Optional[List[int]] = None,
     min_replicas: Optional[int] = None,
+    chaos_source: Optional[int] = None,
 ) -> List[List[Dict[str, Any]]]:
     """Train ``groups`` replica groups, each ``dp·fsdp·tp·sp·pp·ep`` rank processes,
     against an in-process lighthouse that needs every group for a quorum
@@ -418,7 +430,10 @@ def run_hsdp_fleet(
     ``pp`` > 1 pipelines a dense Llama over that many stages
     (``microbatches``, default 4·pp); ``ep`` > 1 splits a MoE model's
     experts.  ``heal_transport`` ("http" or "comm")
-    names each rank's checkpoint transport.  Returns, per group,
+    names each rank's checkpoint transport; the ranks of group
+    ``chaos_source`` arm theirs to die partway through serving a striped
+    heal (``chaos.arm_heal_source_kill``; ``heal_source_killed`` in their
+    results).  Returns, per group,
     the result dict of each rank of its last incarnation (with
     ``incarnation``: the restarts).  Every rank process is stopped before
     this returns; a rank that fails fails the fleet with its log."""
@@ -459,6 +474,7 @@ def run_hsdp_fleet(
                 tier=tier, lighthouse=lighthouse_addr, store_port=0, dist_port=dist_port,
                 min_replicas=min_replicas, timeout=timeout, quantize_outer=quantize_outer,
                 heal_transport=heal_transport, kill_step=kill_step, incarnation=incarnation,
+                chaos_source=g == chaos_source,
                 result=os.path.join(workdir, f"group{g}_rank{r}_inc{incarnation}.json"),
                 dump_params=dump_params,
             )
