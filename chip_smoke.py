@@ -5,8 +5,12 @@ Run from the repository root on a machine with one NVIDIA H100::
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from ``torchft_tpu_torch/csrc/`` (one
-``nvcc`` per source, in parallel), then:
+It first runs the port's device probe (``utils/probe.py``): a subprocess
+that must execute a small matmul on the card and read it back within
+:data:`PROBE_TIMEOUT_S`, retried for :data:`PROBE_WINDOW_S`; if the card does
+not execute, the run fails with :class:`CardProbeError` before anything is
+built.  It then builds the port's CUDA kernels from
+``torchft_tpu_torch/csrc/`` (one ``nvcc`` per source, in parallel), then:
 
 1. flash kernel phase — holds each flash-attention kernel (fwd, dq, dkv)
    against its plain PyTorch version on the card at the Llama-3-8B
@@ -79,8 +83,24 @@ It builds the port's CUDA kernels from ``torchft_tpu_torch/csrc/`` (one
    3 committed outer steps; replica 1 is killed before its inner step 5,
    restarts and heals at its next quorum, then syncs fragment 1 and
    fragment 0; ``diloco_quantized_cpp`` — the
-   same over the int8 wire; ``localsgd_cpp`` — LocalSGD, ``sync_every=4``,
-   until 1 committed sync, no fault.  Checks: every loss finite; both
+   same over the int8 wire; ``localsgd_cpp`` — a job loss and its restore
+   from a durable checkpoint (``jobloss_phase``): LocalSGD,
+   ``sync_every=4``, runs to 1 committed sync, after which the participating
+   rank 0 writes the model, its AdamW moments and the Manager's step to
+   disk (``run_diloco_fleet(ckpt_dir=...)``, in ``build/``, removed at the
+   end; a filesystem short of room for two steps fails by name first); the
+   fleet and its lighthouse are torn down, and a second fleet with a fresh
+   lighthouse restores the checkpoint and runs to committed step 2, where it
+   saves again.  Its checks (``check_job_loss``, beside the ones below on
+   each fleet): one save, at step 1; on both restored replicas the model
+   and optimizer state's content hash (``utils.checkpoint.ChunkDigest``)
+   at restore equals the saved bytes' and the Manager's step is the saved
+   step; no heal after the restore; the directory holds steps 1 and 2;
+   each flash kernel launched in the restored fleet.  It prints the
+   checkpoint's bytes, the save's seconds (host copy, write, fsync), the
+   load's, kill to the restored fleet's first committed sync, peak device
+   memory and host RSS.
+   Checks of every phase: every loss finite; both
    replicas at the same committed step; (DiLoCo) replica 1 restarted once
    and its heal carried every ``StreamingDiLoCoFragment_*`` state, and it
    synced every fragment after the heal; per
@@ -209,8 +229,10 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from unittest import mock
@@ -276,6 +298,15 @@ DILOCO_PHASES = (
     ("localsgd_cpp", dict(algo="localsgd", sync_every=4, num_fragments=1,
                           fragment_sync_delay=0, outer_steps=1, should_quantize=False)),
 )
+# localsgd_cpp is a job loss (jobloss_phase): its fleet runs to
+# outer_steps and saves a durable checkpoint, and a second fleet restores it
+# and runs one committed sync more.  A checkpoint holds the bf16 weights and
+# both bf16 AdamW moments: 6 bytes a parameter (7.6 GB at 1 layer)
+JOBLOSS_BYTES_PER_PARAM = 6
+# the card must execute a matmul (utils/probe.py, in a subprocess) before
+# anything is built: each attempt times out after PROBE_TIMEOUT_S, and the
+# attempts stop after PROBE_WINDOW_S
+PROBE_TIMEOUT_S, PROBE_WINDOW_S = 60.0, 120.0
 # the DiLoCo and spare phases cut to 1 layer (the width stays) so the
 # command stays under 900 s with the pipeline, MoE and rehearsal phases;
 # diloco_cpp and spare_python share a depth, so the cold heal printed
@@ -383,6 +414,11 @@ CASES = [
     dict(name="causal_ragged_b2", B=2, H=8, KV=2, Sq=1000, Sk=1000, D=128, causal=True),
     dict(name="causal_short", B=1, H=32, KV=8, Sq=100, Sk=100, D=128, causal=True),
 ]
+
+
+class CardProbeError(RuntimeError):
+    """The card did not execute the probe's matmul within its window: the
+    run stops before building anything, and never goes on on the CPU."""
 
 
 def _time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -1172,10 +1208,13 @@ def check_post_heal_syncs(healed, num_fragments: int) -> list:
 
 
 def diloco_phase(train_diloco, train_ddp, fa, qk, card: str, fleet: dict,
-                 layers: int = LAYERS) -> dict:
+                 layers: int = LAYERS, ckpt_dir: str | None = None) -> dict:
     """DiLoCo or LocalSGD at Llama-3-8B width and ``layers`` deep with 2
     replicas, every plane on the C++ tier; raises on any failed check.  The
-    launch counts cover exactly this run."""
+    launch counts cover exactly this run.  With ``ckpt_dir`` (LocalSGD) the
+    fleet restores from and saves durable checkpoints there, and the result
+    carries each replica's restore, saves, first commit and whether it
+    healed."""
     import resource
 
     cfg = train_ddp.model_config("llama3_8b", layers)
@@ -1187,7 +1226,8 @@ def diloco_phase(train_diloco, train_ddp, fa, qk, card: str, fleet: dict,
     t0 = time.perf_counter()
     with HostRss() as rss:
         results = train_diloco.run_diloco_fleet(
-            cfg, torch.device("cuda"), replicas=2, batch=1, seq=2048, tier="cpp", **fleet)
+            cfg, torch.device("cuda"), replicas=2, batch=1, seq=2048, ckpt_dir=ckpt_dir,
+            tier="cpp", **fleet)
     wall_s = time.perf_counter() - t0
     launches = {**fa.launches, **qk.launches}
     diloco = fleet["algo"] == "diloco"
@@ -1227,6 +1267,12 @@ def diloco_phase(train_diloco, train_ddp, fa, qk, card: str, fleet: dict,
     shard = [t for t in r0.outer_shard if "outer_shard_wall_s" in t]
     split = {k: _median(t[f"outer_shard_{k}_s"] for t in shard)
              for k in ("wall", "scatter", "update", "gather")} if shard else None
+    durable = {} if ckpt_dir is None else dict(
+        restored=[r.restored for r in results],
+        saves=[r.saves for r in results],
+        first_commit_ts=[r.first_commit_ts for r in results],
+        healed=[r.heal is not None for r in results],
+    )
     return dict(
         card=card,
         tier="cpp",
@@ -1256,7 +1302,126 @@ def diloco_phase(train_diloco, train_ddp, fa, qk, card: str, fleet: dict,
         tokens_per_s_per_replica=r0.inner_steps * 2048 / wall_s,
         wall_s=wall_s,
         launches=launches,
+        **durable,
     )
+
+
+def check_job_loss(first: dict, restored: dict, ckpt_steps: list) -> dict:
+    """The job-loss ``localsgd_cpp``: ``first`` ran to its last committed
+    sync and saved; ``restored`` (a second fleet) restored and ran one
+    committed sync more (``diloco_phase``'s results, which hold the steps,
+    finite losses, equal final hashes and flash launches).  Raises unless
+    exactly one replica of the first fleet saved, once, at its last step;
+    both restored replicas loaded that step, their Manager at it, with model
+    and optimizer state bit-equal to what was saved (their digests); no restored
+    replica healed; the restored fleet saved its own last step; and the
+    directory holds those two steps.  Returns the first fleet's save."""
+    saves = [sv for per in first["saves"] for sv in per]
+    if len(saves) != 1 or saves[0]["step"] != first["final_step"]:
+        raise AssertionError(f"the first fleet saved {[sv['step'] for sv in saves]}, "
+                             f"not step {first['final_step']} once")
+    saved = saves[0]
+    if any(r is not None for r in first["restored"]):
+        raise AssertionError(f"the first fleet restored {first['restored']} from an empty dir")
+    for i, r in enumerate(restored["restored"]):
+        if r is None or r["step"] != saved["step"] or r["manager_step"] != saved["step"]:
+            raise AssertionError(f"replica {i} restored {r}, not step {saved['step']}")
+        if r["digest"] != saved["digest"]:
+            raise AssertionError(f"replica {i}: state digest at restore {r['digest']} differs "
+                                 f"from the saved {saved['digest']}")
+    if any(restored["healed"]):
+        raise AssertionError(f"a restored replica healed ({restored['healed']}): the restore "
+                             "did not put both at the saved step")
+    last = [sv["step"] for per in restored["saves"] for sv in per]
+    if last != [restored["final_step"]]:
+        raise AssertionError(f"the restored fleet saved steps {last}, not "
+                             f"[{restored['final_step']}]")
+    if sorted(ckpt_steps) != [saved["step"], restored["final_step"]]:
+        raise AssertionError(f"the checkpoint dir holds steps {ckpt_steps}, not "
+                             f"{[saved['step'], restored['final_step']]}")
+    return saved
+
+
+def jobloss_phase(train_diloco, train_ddp, fa, qk, card: str, fleet: dict, layers: int) -> dict:
+    """``localsgd_cpp`` as a job loss: the fleet runs to its last committed
+    sync and the participating rank 0 writes a durable checkpoint; the
+    fleet and its lighthouse are torn down (every replica, Manager, sidecar
+    and communicator); a second fleet with a fresh lighthouse restores it
+    and runs one committed sync more.  The checkpoint lives on the
+    checkout's disk (``build/``, never ``/dev/shm``: it must be durable) in
+    a directory removed at the end; a filesystem without room for two steps
+    fails by name before the first fleet.  Raises on any failed check
+    (``diloco_phase``'s on each fleet, then :func:`check_job_loss`)."""
+    from torchft_tpu_torch.models.llama import Llama
+    from torchft_tpu_torch.utils.checkpoint import InsufficientSpaceError, _all_steps
+
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(base, exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="jobloss_ckpt_", dir=base)
+    try:
+        params = Llama(train_ddp.model_config("llama3_8b", layers), device="meta").num_params()
+        need = 2 * JOBLOSS_BYTES_PER_PARAM * params
+        free = shutil.disk_usage(ckpt_dir).free
+        if free < need:
+            raise InsufficientSpaceError(
+                f"job-loss phase: two checkpoints of {params} parameters need ~{need} bytes, "
+                f"{ckpt_dir} has {free} free")
+        first = diloco_phase(train_diloco, train_ddp, fa, qk, card, fleet, layers, ckpt_dir)
+        kill_ts = time.monotonic()  # the first fleet is gone: the job is lost
+        release_host_memory()
+        again = dict(fleet, outer_steps=fleet["outer_steps"] + 1)
+        restored = diloco_phase(train_diloco, train_ddp, fa, qk, card, again, layers, ckpt_dir)
+        ckpt_steps = _all_steps(ckpt_dir)
+        saved = check_job_loss(first, restored, ckpt_steps)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    loads = restored["restored"]
+    kill_to_first_commit = min(restored["first_commit_ts"]) - kill_ts
+    return dict(
+        first_fleet=first,
+        restored_fleet=restored,
+        params=params,
+        free_disk_bytes=free,
+        ckpt_steps=sorted(ckpt_steps),
+        ckpt_bytes=saved["bytes"],
+        bytes_per_param=saved["bytes"] / params,
+        save=dict(step=saved["step"], seconds=saved["save_s"], host_copy_s=saved["host_copy_s"],
+                  write_s=saved["write_s"], fsync_s=saved["fsync_s"],
+                  digest=saved["digest"]),
+        restored_save=[sv for per in restored["saves"] for sv in per][0],
+        load_s=[r["read_s"] for r in loads],
+        apply_s=[r["apply_s"] for r in loads],
+        restore_digest_s=[r["digest_s"] for r in loads],
+        kill_to_first_commit_s=kill_to_first_commit,
+        # less the slower replica's restore digest, which is the check's
+        # own work (the two replicas hash in parallel, before training)
+        kill_to_first_commit_less_check_s=kill_to_first_commit - max(
+            r["digest_s"] for r in loads),
+        max_memory_allocated_gb=max(first["max_memory_allocated_gb"],
+                                    restored["max_memory_allocated_gb"]),
+        peak_host_rss_gb=max(first["peak_host_rss_gb"], restored["peak_host_rss_gb"]),
+        launches=restored["launches"],
+        wall_s=first["wall_s"] + restored["wall_s"],
+    )
+
+
+def jobloss_line(key: str, t: dict) -> str:
+    """The job-loss phase's summary line."""
+    sv = t["save"]
+    return (f"{key} (cpp tier, job loss): checkpoint of step {sv['step']}, "
+            f"{t['ckpt_bytes']} bytes ({t['bytes_per_param']:.3f} a parameter), saved in "
+            f"{sv['seconds']:.3f} s with the check's digest hashed alongside (host copy "
+            f"{sv['host_copy_s']:.3f}, write {sv['write_s']:.3f}, overlapping; fsync "
+            f"{sv['fsync_s']:.3f}); loaded in {json.dumps(t['load_s'])} s, copied to the card "
+            f"in {json.dumps(t['apply_s'])} s, hashed for the check in "
+            f"{json.dumps(t['restore_digest_s'])} s; kill to the restored fleet's first "
+            f"committed sync {t['kill_to_first_commit_s']:.3f} s, "
+            f"{t['kill_to_first_commit_less_check_s']:.3f} s less the check's restore digest; "
+            f"restored digests equal the saved "
+            f"{sv['digest'][:16]}, no heal, steps {t['ckpt_steps']} on disk; flash launches in "
+            f"the restored fleet {json.dumps(t['launches'])}; peak device "
+            f"{t['max_memory_allocated_gb']:.1f} GB, peak host RSS {t['peak_host_rss_gb']:.1f} GB; "
+            f"wall {t['wall_s']:.1f} s")
 
 
 def check_spare(results, fleet: dict, launches: dict, min_deltas: int = 0) -> dict:
@@ -1828,8 +1993,6 @@ def supervised_phase(card: str) -> dict:
     arbitrary moment changes which steps commit with one participant (the
     survivor's solo rounds), so only the groups' equality is checked."""
     import logging
-    import tempfile
-
     from torchft_tpu_torch import chaos, launcher
     from torchft_tpu_torch.lighthouse import LighthouseClient
     from torchft_tpu_torch.tier import make_lighthouse
@@ -1974,8 +2137,6 @@ def baby_phase(train_ddp, baby, fa, qk, spans, card: str) -> dict:
     plane a ``BabyCommunicator(backend="cpp")``: all of train_phase's
     checks, the final hash :data:`EXPECTED_SHA256`'s (the child runs the
     same ring on the same bytes), then :func:`check_baby`."""
-    import shutil
-
     babies: list = []
     restart: dict = {}
     lock = threading.Lock()
@@ -2024,6 +2185,13 @@ def main() -> int:
     from torchft_tpu_torch.ops import flash_attention as fa
     from torchft_tpu_torch.ops import quant as qk
     from torchft_tpu_torch.parallel import ring_attention as ring
+    from torchft_tpu_torch.utils import probe
+
+    t0 = time.perf_counter()
+    if not probe.backend_executes_with_retries(
+            PROBE_WINDOW_S, PROBE_TIMEOUT_S, log=lambda m: print(f"probe: {m}", flush=True)):
+        raise CardProbeError(f"the card did not execute a matmul within {PROBE_WINDOW_S:.0f} s")
+    print(f"probe: the card executes ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2110,6 +2278,12 @@ def main() -> int:
           f"equal hashes {t['params_sha']} ({'equal to' if t['equals_train_cpp_sha256'] else 'not'} "
           f"train_cpp's); wall {t['wall_s']:.1f} s", flush=True)
     for key, fleet in DILOCO_PHASES:
+        if key == "localsgd_cpp":
+            results[key] = t = jobloss_phase(train_diloco, train_ddp, fa, qk, card, fleet,
+                                             DILOCO_LAYERS[key])
+            print(f"{key}: {json.dumps(t)}", flush=True)
+            print(jobloss_line(key, t), flush=True)
+            continue
         results[key] = t = diloco_phase(train_diloco, train_ddp, fa, qk, card, fleet,
                                         DILOCO_LAYERS.get(key, LAYERS))
         print(f"{key}: {json.dumps(t)}", flush=True)
@@ -2230,6 +2404,8 @@ def main() -> int:
         row["baby_launches"] = results["baby_cpp"]["launches"][name]
         row["supervised_launches"] = [
             n.get(name, 0) for n in results["supervised_cpp"]["launches"].values()]
+        # this slice's: the fleet restored from the durable checkpoint
+        row["jobloss_launches"] = results["localsgd_cpp"]["launches"].get(name, 0)
     print(json.dumps(line), flush=True)
     print(card, flush=True)  # nvidia-smi's own line: name, power limit
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,9 @@ and the rotation come from importing ``chip_smoke.py``, which needs only
 torch (no card) to import."""
 
 import ast
+import os
 import sys
+import time
 from pathlib import Path
 
 import pytest
@@ -810,3 +812,141 @@ def test_kernels_line_carries_the_fleet_phases_launches() -> None:
     assert 'results["baby_cpp"] = t = baby_phase(' in source
     assert 'results["supervised_cpp"] = t = supervised_phase(card)' in source
     assert "check_expected_hashes({\"float\": t[\"params_sha256\"]})" in source
+
+
+def _job_loss(change=None):
+    """A passing job loss: the first fleet saved step 1 from replica 0; the
+    restored fleet loaded it on both replicas and saved step 2."""
+    saved = dict(step=1, digest="d1", bytes=100)
+    first = dict(final_step=1, saves=[[saved], []], restored=[None, None], healed=[False, False])
+    restored = dict(
+        final_step=2, saves=[[dict(step=2, digest="d2", bytes=100)], []], healed=[False, False],
+        restored=[dict(step=1, manager_step=1, digest="d1", read_s=1.0, apply_s=1.0)
+                  for _ in range(2)])
+    if change:
+        change(first, restored)
+    return first, restored
+
+
+def _set(which, key, value, replica=None, field=None):
+    def change(first, restored):
+        target = first if which == "first" else restored
+        if replica is None:
+            target[key] = value
+        else:
+            target[key][replica][field] = value
+    return change
+
+
+@pytest.mark.parametrize("change, steps, match", [
+    (None, [1, 2], None),
+    (_set("first", "saves", [[dict(step=1, digest="d1")], [dict(step=1, digest="d1")]]), [1, 2],
+     "saved"),
+    (_set("first", "saves", [[], []]), [1, 2], "saved"),
+    (_set("first", "restored", [dict(step=0), None]), [1, 2], "empty dir"),
+    (_set("restored", "restored", "d0", 1, "digest"), [1, 2], "digest at restore"),
+    (_set("restored", "restored", 0, 0, "step"), [1, 2], "restored"),
+    (_set("restored", "restored", 0, 1, "manager_step"), [1, 2], "restored"),
+    (_set("restored", "restored", [None, None]), [1, 2], "restored None"),
+    (_set("restored", "healed", [False, True]), [1, 2], "healed"),
+    (_set("restored", "saves", [[], []]), [1, 2], "restored fleet saved"),
+    (None, [2], "holds steps"),
+    (None, [1, 2, 3], "holds steps"),
+])
+def test_job_loss_checks_raise_on_failure(chip_smoke, change, steps, match) -> None:
+    first, restored = _job_loss(change)
+    if match is None:
+        assert chip_smoke.check_job_loss(first, restored, steps)["digest"] == "d1"
+        return
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.check_job_loss(first, restored, steps)
+
+
+def test_localsgd_cpp_is_the_job_loss(chip_smoke) -> None:
+    """localsgd_cpp runs through ``jobloss_phase``: its fleet to 1 committed
+    sync, then the restored fleet to 2; a checkpoint is 6 bytes a
+    parameter; the kernels line carries the restored fleet's launches."""
+    fleet = dict(chip_smoke.DILOCO_PHASES)["localsgd_cpp"]
+    assert fleet["outer_steps"] == 1 and fleet["sync_every"] == 4
+    assert chip_smoke.DILOCO_LAYERS["localsgd_cpp"] == 1
+    assert chip_smoke.JOBLOSS_BYTES_PER_PARAM == 6
+    source = (REPO / "chip_smoke.py").read_text()
+    assert 'if key == "localsgd_cpp":' in source and "jobloss_phase(" in source
+    assert 'row["jobloss_launches"]' in source
+
+
+def test_a_failed_probe_stops_the_run_by_name(chip_smoke, monkeypatch, capsys) -> None:
+    """With a card reported but not executing, ``main`` raises
+    ``CardProbeError`` before it builds anything, and prints no ok line."""
+    import torch
+
+    from torchft_tpu_torch.ops import cuda_build
+    from torchft_tpu_torch.utils import probe
+
+    built = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(probe, "backend_executes_with_retries", lambda *a, **k: False)
+    monkeypatch.setattr(cuda_build, "build", lambda names: built.append(names))
+    monkeypatch.setattr(sys, "argv", ["chip_smoke.py"])
+    with pytest.raises(chip_smoke.CardProbeError, match="did not execute"):
+        chip_smoke.main()
+    assert built == []
+    assert '"ok": true' not in capsys.readouterr().out
+
+
+def test_a_short_checkpoint_filesystem_stops_the_phase_by_name(chip_smoke, monkeypatch,
+                                                               tmp_path) -> None:
+    """``jobloss_phase`` checks the free space for two checkpoints before
+    its first fleet, fails with ``InsufficientSpaceError`` and removes its
+    directory."""
+    from collections import namedtuple
+
+    from torchft_tpu_torch import train_ddp
+    from torchft_tpu_torch.utils.checkpoint import InsufficientSpaceError
+
+    usage = namedtuple("usage", "total used free")
+    monkeypatch.setattr(chip_smoke.shutil, "disk_usage", lambda _p: usage(1 << 40, 0, 1 << 30))
+    ran = []
+    monkeypatch.setattr(chip_smoke, "diloco_phase", lambda *a, **k: ran.append(a))
+    build = REPO / "build"
+    before = set(build.glob("jobloss_ckpt_*")) if build.exists() else set()
+    fleet = dict(chip_smoke.DILOCO_PHASES)["localsgd_cpp"]
+    with pytest.raises(InsufficientSpaceError, match="two checkpoints"):
+        chip_smoke.jobloss_phase(None, train_ddp, None, None, "card", fleet, 1)
+    assert ran == [] and set(build.glob("jobloss_ckpt_*")) == before
+
+
+def test_job_loss_phase_reports_the_check_apart(chip_smoke, monkeypatch) -> None:
+    """``jobloss_phase`` over two stand-in fleets: the restore digest's
+    seconds stand apart, kill to first commit is given with and without
+    them, and ``jobloss_line`` prints both; the directory is removed."""
+    from torchft_tpu_torch import train_ddp
+
+    timed = dict(save_s=3.0, host_copy_s=1.0, write_s=1.5, fsync_s=1.25, bytes=600)
+    calls = []
+
+    def fleet_run(*args):
+        ckpt_dir, step = args[-1], len(calls) + 1
+        os.makedirs(os.path.join(ckpt_dir, f"step_{step}"))
+        open(os.path.join(ckpt_dir, f"step_{step}", "state.tftc"), "wb").close()
+        calls.append(ckpt_dir)
+        now = time.monotonic()
+        restored = ([None, None] if step == 1 else
+                    [dict(step=1, manager_step=1, digest="d1", read_s=1.0, apply_s=0.5,
+                          digest_s=s) for s in (2.0, 3.0)])
+        return dict(final_step=step, saves=[[dict(timed, step=step, digest=f"d{step}")], []],
+                    restored=restored, healed=[False, False],
+                    first_commit_ts=[now + 10.0, now + 11.0], max_memory_allocated_gb=1.0,
+                    peak_host_rss_gb=2.0, launches={"flash_fwd": 8}, wall_s=5.0)
+
+    monkeypatch.setattr(chip_smoke, "diloco_phase", fleet_run)
+    fleet = dict(chip_smoke.DILOCO_PHASES)["localsgd_cpp"]
+    t = chip_smoke.jobloss_phase(None, train_ddp, None, None, "card", fleet, 1)
+    assert len(calls) == 2 and not os.path.exists(calls[0])
+    assert t["ckpt_steps"] == [1, 2] and t["restore_digest_s"] == [2.0, 3.0]
+    assert 10.0 <= t["kill_to_first_commit_s"] < 12.0
+    assert t["kill_to_first_commit_less_check_s"] == pytest.approx(
+        t["kill_to_first_commit_s"] - 3.0)
+    line = chip_smoke.jobloss_line("localsgd_cpp", t)
+    assert "hashed for the check in [2.0, 3.0] s" in line
+    assert "less the check's restore digest" in line

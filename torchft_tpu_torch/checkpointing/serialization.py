@@ -14,7 +14,7 @@ Like the reference (which pickles tensor metadata over its transports,
 the same trust model: checkpoint peers are other replicas of the same job
 inside the cluster, never untrusted parties.
 
-Tensors are copied to host one leaf at a time on save and every array leaf
+Tensors are copied to host a chunk at a time on save and every array leaf
 comes back as a CPU torch tensor on load; a DTensor leaf (a parameter or
 optimizer moment sharded inside a replica group) ships this rank's local
 shard and comes back as a :class:`ShardedHostArray` — the consumer decides placement
@@ -32,8 +32,11 @@ import os
 import pickle
 import struct
 import threading
+import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
-from typing import Any, BinaryIO, List, Optional, Tuple
+from typing import Any, BinaryIO, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +54,13 @@ _FOREIGN_PACKAGES = ("torchft_tpu", "jax", "jaxlib", "ml_dtypes")
 # multi-MB transfers.
 HEAL_CHUNK_MB_ENV = "TORCHFT_HEAL_CHUNK_MB"
 DEFAULT_HEAL_CHUNK_BYTES = 4 << 20
+
+# save_pytree's unit of staging: a leaf moves to host in chunks of this
+# many bytes (the last one of a leaf shorter), and a digest takes each
+CHUNK_BYTES = 64 << 20
+# chunks staged ahead of the slowest consumer: the pinned ring a save of a
+# CUDA state holds (RING_CHUNKS * CHUNK_BYTES = 512 MiB)
+RING_CHUNKS = 8
 
 
 def heal_chunk_bytes() -> int:
@@ -383,17 +393,83 @@ def plan_pytree(state: Any, snapshot: bool = False) -> PytreePlan:
     )
 
 
-def save_pytree(state: Any, stream: BinaryIO) -> None:
-    """Stream-serialize: leaves are materialized to host one at a time as
-    they are written (peak extra host RSS ≈ one leaf)."""
+def _leaf_source(leaf: Any) -> Any:
+    """A leaf's bytes as something sliceable into chunks: a flat uint8
+    tensor on the card for a plain CUDA tensor (staged chunk by chunk),
+    else a host byte view (copied to host whole, as a heal does)."""
+    if isinstance(leaf, torch.Tensor) and leaf.is_cuda:
+        return leaf.detach().contiguous().view(-1).view(torch.uint8)
+    return as_byte_view(materialize_leaf(leaf))
+
+
+def save_pytree(
+    state: Any, stream: Optional[BinaryIO] = None, digest: Any = None
+) -> Dict[str, float]:
+    """Stream-serialize ``state``: the header, then each leaf's 8-byte
+    length and bytes.  Leaves move to host in :data:`CHUNK_BYTES` chunks,
+    in order, on this thread, while a writer thread writes the chunks
+    before them to ``stream``; a chunk of a CUDA tensor is staged through
+    a ring of :data:`RING_CHUNKS` pinned buffers, which copies several
+    times faster than a pageable copy (peak extra host RSS: the ring, or
+    one leaf of a host state).  ``digest``, if given, takes every chunk of
+    every leaf (``digest.submit(view) -> futures``, done before the view is
+    reused, as :class:`~torchft_tpu_torch.utils.checkpoint.ChunkDigest`
+    does); with no ``stream`` nothing is written and the leaves are only
+    hashed.  Returns the busy seconds of the copies (``host_copy_s``) and
+    of the writes (``write_s``); they overlap."""
     plan = plan_pytree(state)
-    stream.write(plan.header)
-    for leaf, nbytes in zip(plan.leaves, plan.leaf_nbytes):
-        arr = materialize_leaf(leaf)
-        if arr.nbytes != nbytes:
-            raise ValueError(f"leaf changed size while saving: {arr.nbytes} != {nbytes}")
-        stream.write(struct.pack("<Q", nbytes))
-        stream.write(as_byte_view(arr))
+    busy = {"host_copy_s": 0.0, "write_s": 0.0}
+
+    def _write(data: Any) -> None:
+        t0 = time.perf_counter()
+        stream.write(data)
+        busy["write_s"] += time.perf_counter() - t0  # the writer thread alone
+
+    cuda_nbytes = [n for leaf, n in zip(plan.leaves, plan.leaf_nbytes)
+                   if isinstance(leaf, torch.Tensor) and leaf.is_cuda]
+    slot_bytes = min(CHUNK_BYTES, max(cuda_nbytes, default=0))
+    writer = ThreadPoolExecutor(1, thread_name_prefix="save_pytree") if stream else None
+    ring: List[Optional[torch.Tensor]] = [None] * RING_CHUNKS
+    pending: deque = deque()  # each staged chunk's futures, oldest first
+    slot = 0
+    try:
+        if writer is not None:
+            pending.append([writer.submit(_write, plan.header)])
+        for leaf, nbytes in zip(plan.leaves, plan.leaf_nbytes):
+            src = _leaf_source(leaf)
+            if len(src) != nbytes:
+                raise ValueError(f"leaf changed size while saving: {len(src)} != {nbytes}")
+            for off in range(0, max(nbytes, 1), CHUNK_BYTES):
+                if len(pending) >= RING_CHUNKS:  # the slot about to be reused
+                    for fut in pending.popleft():
+                        fut.result()
+                t0 = time.perf_counter()
+                end = min(off + CHUNK_BYTES, nbytes)
+                if isinstance(src, torch.Tensor):
+                    if ring[slot] is None:
+                        ring[slot] = torch.empty(slot_bytes, dtype=torch.uint8, pin_memory=True)
+                    staged = ring[slot][: end - off]
+                    staged.copy_(src[off:end])
+                    view = memoryview(staged.numpy())
+                else:
+                    view = src[off:end]
+                busy["host_copy_s"] += time.perf_counter() - t0
+                futs = []
+                if writer is not None:
+                    if off == 0:
+                        futs.append(writer.submit(_write, struct.pack("<Q", nbytes)))
+                    futs.append(writer.submit(_write, view))
+                if digest is not None:
+                    futs += digest.submit(view)
+                pending.append(futs)
+                slot = (slot + 1) % RING_CHUNKS
+        while pending:
+            for fut in pending.popleft():
+                fut.result()
+    finally:
+        if writer is not None:
+            writer.shutdown(wait=True)
+    return busy
 
 
 def _read_exact(stream: BinaryIO, n: int) -> bytes:
@@ -406,6 +482,12 @@ def _read_exact(stream: BinaryIO, n: int) -> bytes:
     return out
 
 
+class ForeignSnapshotError(ValueError):
+    """A snapshot written by the JAX package (``torchft_tpu``): the port
+    refuses it by name, and a reader that skips unreadable snapshots must
+    not take it for a torn one."""
+
+
 class _SkeletonUnpickler(pickle.Unpickler):
     """Unpickles a skeleton, refusing any class of the JAX package (and of
     jax, jaxlib, ml_dtypes) without importing it: a snapshot written by
@@ -414,7 +496,7 @@ class _SkeletonUnpickler(pickle.Unpickler):
 
     def find_class(self, module: str, name: str) -> Any:
         if module.split(".", 1)[0] in _FOREIGN_PACKAGES:
-            raise ValueError(
+            raise ForeignSnapshotError(
                 f"checkpoint skeleton names {module}.{name}: the snapshot was written by "
                 "the JAX package (torchft_tpu), and a heal across packages is not supported"
             )

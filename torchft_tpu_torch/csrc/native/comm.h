@@ -394,8 +394,9 @@ inline size_t stripe_floor_from_env(const Pacer* pacer) {
 // assembled in a staging copy on either side.
 
 // max payload iovec segments per sendmsg/recvmsg call (the header rides as
-// one more); bounded well under IOV_MAX.  Mirrored in native.py
-// (_MAX_IOV_SEGS) so the binding's segment batching agrees.
+// one more); bounded well under IOV_MAX.  The batching is this file's
+// alone: the binding passes whole buffer lists, so nothing in Python
+// mirrors it.
 constexpr size_t kMaxIovSegs = 64;
 
 // paced sends coalesce token dribbles: below this floor (clamped to half

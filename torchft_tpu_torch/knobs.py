@@ -2,11 +2,12 @@
 
 The stack's knob surface grew to ~100 distinct environment variables,
 each read ad-hoc at its point of use.  This module is the single
-source of truth the ``ftlint`` knob checker (``torchft_tpu/analysis``)
-enforces: every knob-shaped name appearing anywhere in package source must
-be declared here, and the knob reference table in ``docs/operations.md``
+source of truth the port's ``ftlint`` knob checker
+(``python -m torchft_tpu_torch.analysis``) enforces: every knob-shaped name
+appearing anywhere in the port's source and ``chip_smoke.py`` must be
+declared here, and the knob reference table in ``docs/torch_operations.md``
 must agree with this registry in both directions (run
-``python -m torchft_tpu_torch.knobs`` to emit the port's copy of it).
+``python -m torchft_tpu_torch.knobs`` to emit it).
 
 Declaring a knob here does NOT change how it is read — modules with
 bespoke parse semantics (fault-program specs, ``auto`` tri-states, custom
@@ -18,7 +19,7 @@ their parse errors.
 
 To add a knob: declare it below (name, type, default, one-line doc), use
 an accessor (or a bespoke reader) at the point of use, and refresh the
-``docs/operations.md`` knob table.  ``ftlint`` fails the build on any
+``docs/torch_operations.md`` knob table.  ``ftlint`` fails the build on any
 undeclared knob and on registry/docs drift.
 """
 
@@ -375,7 +376,7 @@ def get_bool(name: str, default: bool = False) -> bool:
 
 
 def operations_md_table() -> str:
-    """The ``docs/operations.md`` knob-reference table, generated from this
+    """The ``docs/torch_operations.md`` knob-reference table, generated from this
     registry so the two can never drift (ftlint cross-checks both ways)."""
     lines = [
         "| Knob | Type | Default | What it does |",

@@ -365,6 +365,9 @@ def _last_error(lib: ctypes.CDLL) -> str:
 
 
 class CppStoreServer:
+    """The C++ key-value store server (``csrc/native/store.h``), drop-in
+    behind :class:`~torchft_tpu_torch.store.StoreClient`; the library builds
+    at first use."""
     def __init__(self, bind: str = "0.0.0.0:0") -> None:
         lib = _require()
         self._lib = lib
@@ -391,6 +394,9 @@ class CppStoreServer:
 
 
 class CppLighthouseServer:
+    """The C++ lighthouse (``csrc/native/lighthouse.h``): global membership
+    and quorums, drop-in behind
+    :class:`~torchft_tpu_torch.lighthouse.LighthouseClient`."""
     def __init__(
         self,
         bind: str = "0.0.0.0:0",
@@ -430,6 +436,9 @@ class CppLighthouseServer:
 
 
 class CppManagerServer:
+    """The C++ manager sidecar (``csrc/native/manager.h``): a replica
+    group's quorum and commit barrier, drop-in behind
+    :class:`~torchft_tpu_torch.manager_server.ManagerClient`."""
     def __init__(
         self,
         replica_id: str,

@@ -1,10 +1,11 @@
 """Central metric-name registry + Prometheus text-format rendering.
 
 Every name served on a ``/metrics`` endpoint (the lighthouse's and every
-ManagerServer's) is declared here EXACTLY ONCE — the ftlint
-``metrics-registry`` checker enforces that each declared name is legal
+ManagerServer's) is declared here EXACTLY ONCE — the port's ftlint
+(``python -m torchft_tpu_torch.analysis``) ``metrics-registry`` checker
+enforces that each declared name is legal
 Prometheus (``[a-z_:][a-z0-9_:]*``, counters end in ``_total``), unique,
-documented in ``docs/operations.md`` §17, and that every
+documented in ``docs/torch_operations.md`` §2, and that every
 ``metric_sample("...")`` call site in the package names a declared metric.
 :func:`metric_sample` also enforces it at runtime, so an undeclared name
 can never reach a scrape.
@@ -266,7 +267,7 @@ def _split_label_pairs(raw: str, lineno: int) -> List[str]:
 
 
 def operations_md_table() -> str:
-    """The docs/operations.md §17 metric-reference table, generated from
+    """The docs/torch_operations.md §2 metric-reference table, generated from
     this registry (the ftlint metrics-registry checker cross-checks it)."""
     lines = [
         "| Metric | Type | What it reports |",

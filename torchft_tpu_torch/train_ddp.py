@@ -484,6 +484,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     )
     parser.add_argument("--heal-transport", choices=HEAL_TRANSPORTS, default="http",
                         help="heal over HTTP or over the communicator (CommTransport)")
+    parser.add_argument("--step-time", type=float, default=0.0,
+                        help="seconds to sleep before each step (paces chaos-test scenarios)")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
 
@@ -525,8 +527,12 @@ def main(argv: Optional[List[str]] = None) -> None:
             print(f"FIRST_COMMIT pid={os.getpid()} step={step} t={final['first_commit_t']} "
                   f"launches={_compact(fa.launches)}", flush=True)
 
+    def _pace(step: int) -> None:
+        time.sleep(args.step_time)
+
     t0 = time.perf_counter()
-    train_loop(manager, model, opt, batches, args.steps, on_commit=_first_commit)
+    train_loop(manager, model, opt, batches, args.steps,
+               on_step=_pace if args.step_time > 0 else None, on_commit=_first_commit)
     logger.info("trained %d steps in %.1f s", manager.current_step(), time.perf_counter() - t0)
     heal = getattr(manager._checkpoint_transport, "last_heal_metrics", None)
     if heal is not None:

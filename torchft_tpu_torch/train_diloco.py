@@ -17,7 +17,11 @@ group::
     TORCHFT_LIGHTHOUSE=localhost:29520 REPLICA_GROUP_ID=1 \\
         python -m torchft_tpu_torch.train_diloco --layers 2 &
 
-``--algo localsgd`` runs LocalSGD.  ``--heal-transport comm`` heals over
+``--algo localsgd`` runs LocalSGD; with ``--ckpt-dir DIR`` it restores the
+newest durable checkpoint in ``DIR`` at start (model, AdamW moments and the
+Manager's step) and, after each committed sync, the participating rank 0
+writes one (:mod:`.utils.checkpoint`), so the job survives the loss of every
+replica.  ``--heal-transport comm`` heals over
 the replica's communicator (``CommTransport``) instead of HTTP.
 ``--device`` defaults to ``cuda``; pass ``--device cpu`` (with ``--model
 llama_debug``) to run without a card.
@@ -58,6 +62,12 @@ from torchft_tpu_torch.train_ddp import (
     state_fns,
     synthetic_batches,
 )
+from torchft_tpu_torch.utils.checkpoint import (
+    ChunkDigest,
+    load_latest,
+    save_checkpoint,
+    state_digest,
+)
 
 logger = logging.getLogger("train_diloco")
 
@@ -73,6 +83,57 @@ STAGE_RETRY_S = 10.0
 # a run stops after this many inner steps per committed sync it asked for,
 # even if the syncs did not commit (bench.py's cap)
 INNER_STEP_CAP = 5
+
+
+class DurableCheckpointError(ValueError):
+    """Durable checkpoints asked of DiLoCo: they carry the model, the inner
+    optimizer and the Manager's step, not DiLoCo's fragment backups and
+    outer momenta, so a restored DiLoCo job would run on with wrong outer
+    state.  LocalSGD's whole state is in them."""
+
+
+def check_ckpt_algo(algo: str, ckpt_dir: Optional[str]) -> None:
+    """Raise :class:`DurableCheckpointError` for a ``ckpt_dir`` under any
+    algorithm but LocalSGD."""
+    if ckpt_dir is not None and algo != "localsgd":
+        raise DurableCheckpointError(
+            f"durable checkpoints (ckpt_dir={ckpt_dir!r}) need algo='localsgd', not "
+            f"{algo!r}: DiLoCo's fragment backups and outer momenta are not in them"
+        )
+
+
+def restore_durable(ckpt_dir: str, load, manager: Manager) -> Optional[Dict[str, Any]]:
+    """Restore the newest readable checkpoint in ``ckpt_dir`` (the model and
+    optimizer through ``load``, then the Manager's step); returns its step
+    and the seconds to read it (``read_s``) and to copy it into the live
+    tensors (``apply_s``), or None when there is none."""
+    t0 = time.perf_counter()
+    found = load_latest(ckpt_dir)
+    if found is None:
+        return None
+    step, state = found
+    t1 = time.perf_counter()
+    load(state)
+    manager.load_state_dict(state["torchft"])
+    apply_s = time.perf_counter() - t1
+    logger.info("restored durable checkpoint at step %d", step)
+    return dict(step=step, read_s=t1 - t0, apply_s=apply_s)
+
+
+def save_durable(ckpt_dir: str, save, manager: Manager, digest: Any = None) -> Dict[str, Any]:
+    """Write the model, the optimizer and the Manager's state as the
+    checkpoint of the committed step; returns its step, bytes and seconds
+    (``save_s`` in all, split as :func:`~.utils.checkpoint.save_checkpoint`
+    splits them)."""
+    step = manager.current_step()
+    timings: Dict[str, Any] = {}
+    t0 = time.perf_counter()
+    save_checkpoint(ckpt_dir, step, {**save(), "torchft": manager.state_dict()},
+                    timings=timings, digest=digest)
+    timings.update(step=step, save_s=time.perf_counter() - t0)
+    logger.info("saved durable checkpoint of step %d (%d bytes, %.1f s)",
+                step, timings["bytes"], timings["save_s"])
+    return timings
 
 
 def make_wrapper(
@@ -163,6 +224,15 @@ class DiLoCoReplicaResult:
     # lighthouse's ``promotions_total`` and the flash kernels' launch
     # counts at the promotion
     spare: Optional[Dict[str, Any]] = None
+    # with ``ckpt_dir``: the last incarnation's restore (``restore_durable``'s
+    # record, ``digest``, the content hash of its model and optimizer state
+    # just after it, and ``manager_step``, the Manager's step then; None
+    # when it found no checkpoint) and its saves (``save_durable``'s
+    # records, each with the ``digest`` of what it wrote)
+    restored: Optional[Dict[str, Any]] = None
+    saves: List[Dict[str, Any]] = dataclasses.field(default_factory=list)
+    # ``time.monotonic()`` of the last incarnation's first committed sync
+    first_commit_ts: Optional[float] = None
 
 
 @dataclasses.dataclass
@@ -176,6 +246,8 @@ class _Run:
     quorum_ids: List[int] = dataclasses.field(default_factory=list)
     steps: int = 0
     first_commit_ts: Optional[float] = None
+    restored: Optional[Dict[str, Any]] = None
+    saves: List[Dict[str, Any]] = dataclasses.field(default_factory=list)
 
 
 def run_diloco_fleet(
@@ -200,6 +272,7 @@ def run_diloco_fleet(
     init_state: Optional[dict] = None,
     heal_transport: str = "http",
     spares: int = 0,
+    ckpt_dir: Optional[str] = None,
 ) -> List[DiLoCoReplicaResult]:
     """Train ``replicas`` replica groups as threads of this process with
     DiLoCo (``algo="diloco"``) or LocalSGD (``"localsgd"``), each with its
@@ -226,7 +299,17 @@ def run_diloco_fleet(
     snapshot of the commit front, and promotion stays off
     (``TORCHFT_SPARE_PROMOTE=0``) until a spare has loaded a complete
     snapshot (its chunk store's fresh fraction reached 1.0) and stands at
-    that front.  The results list the actives, then the spares."""
+    that front.  The results list the actives, then the spares.
+
+    ``ckpt_dir`` (LocalSGD only: :class:`DurableCheckpointError` otherwise)
+    gives the job durable checkpoints, as ``--ckpt-dir`` does: each
+    incarnation restores the newest one before it trains, and after each
+    committed sync the participating rank 0 writes one.  Two calls with one
+    ``ckpt_dir`` are a job loss and its restore.  Each result records the
+    restore and the saves with the content hash of the model and optimizer
+    state (``utils.checkpoint.state_digest``): at a save, of the bytes
+    written; at a restore, of the live state just after it."""
+    check_ckpt_algo(algo, ckpt_dir)
     if spares and (algo != "diloco" or (tier or default_tier()) != "python"):
         raise ValueError(
             "spares need algo='diloco' on the Python tier (the C++ manager "
@@ -283,9 +366,25 @@ def run_diloco_fleet(
             algo, manager, model, sync_every, num_fragments, fragment_sync_delay,
             fragment_update_alpha, should_quantize,
         )
-        return model, inner, manager, wrapper
+        return model, inner, manager, wrapper, save, load
 
-    def _train(idx, model, inner, manager, wrapper, run: _Run, before_step=None) -> None:
+    def _restore(manager, save, load, run: _Run) -> None:
+        if ckpt_dir is None:
+            return
+        run.restored = restore_durable(ckpt_dir, load, manager)
+        if run.restored is not None:
+            t0 = time.perf_counter()  # the check's own seconds, apart from the restore's
+            digest = state_digest(save())
+            run.restored.update(digest=digest, digest_s=time.perf_counter() - t0,
+                                manager_step=manager.current_step())
+
+    def _save(manager, save, run: _Run) -> None:
+        with ChunkDigest() as digest:
+            run.saves.append(dict(save_durable(ckpt_dir, save, manager, digest),
+                                  digest=digest.hexdigest()))
+
+    def _train(idx, model, inner, manager, wrapper, run: _Run, before_step=None,
+               save=None) -> None:
         batches = synthetic_batches(cfg, batch, seq, idx, 4, device)
         fence = device_fence(device)
         guard = wrapper.pre_step if algo == "diloco" else None
@@ -314,6 +413,9 @@ def run_diloco_fleet(
                         "replica %d inner step %d: sync committed=%s step=%d loss %.4f",
                         idx, run.steps, committed, manager.current_step(), run.losses[-1],
                     )
+                    # one writer per checkpoint dir: the participating rank 0
+                    if ckpt_dir and committed and manager.participating_rank() == 0:
+                        _save(manager, save, run)
 
     def _result(model, manager, wrapper, run: _Run, restarts: int, initial, **extra):
         frags = getattr(wrapper, "fragments", [])
@@ -337,6 +439,9 @@ def run_diloco_fleet(
                 "communicator": type(manager._comm).__name__,
             },
             quorum_ids=run.quorum_ids,
+            restored=run.restored,
+            saves=run.saves,
+            first_commit_ts=run.first_commit_ts,
             **extra,
         )
 
@@ -346,9 +451,10 @@ def run_diloco_fleet(
                 raise TimeoutError("a spare never registered with the lighthouse")
         restarts = 0
         while True:
-            model, inner, manager, wrapper = _make(idx, "active")
+            model, inner, manager, wrapper, save, load = _make(idx, "active")
             initial = [f.backup_sha256() for f in getattr(wrapper, "fragments", [])]
             run = _Run()
+            _restore(manager, save, load, run)
 
             def before_step(steps: int) -> None:
                 if spares and kill_at is not None and steps == kill_at[1] and not armed.is_set():
@@ -371,7 +477,7 @@ def run_diloco_fleet(
                         raise InjectedKill(f"replica {idx} killed before inner step {steps}")
 
             try:
-                _train(idx, model, inner, manager, wrapper, run, before_step)
+                _train(idx, model, inner, manager, wrapper, run, before_step, save)
             except InjectedKill:
                 # a dead process stops heartbeating at once: tear the
                 # manager down and (without a spare) start over with a
@@ -382,7 +488,7 @@ def run_diloco_fleet(
                     return _result(model, manager, wrapper, run, restarts, initial, killed=True)
                 restarts += 1
                 manager.shutdown()
-                del manager, model, inner, wrapper
+                del manager, model, inner, wrapper, save, load
                 gc.collect()
                 continue
             result = _result(model, manager, wrapper, run, restarts, initial)
@@ -394,7 +500,7 @@ def run_diloco_fleet(
         from torchft_tpu_torch.spare import SpareAgent, diloco_delta_apply
 
         idx = replicas + j
-        model, inner, manager, wrapper = _make(idx, "spare")
+        model, inner, manager, wrapper, _, _ = _make(idx, "spare")
         initial = [f.backup_sha256() for f in wrapper.fragments]
         agent = SpareAgent(manager, delta_apply=diloco_delta_apply(wrapper))
         fresh_max = 0.0
@@ -495,8 +601,12 @@ def main(argv: Optional[List[str]] = None) -> None:
     parser.add_argument("--comm-timeout", type=float, default=60.0)
     parser.add_argument("--heal-transport", choices=HEAL_TRANSPORTS, default="http",
                         help="heal over HTTP or over the communicator (CommTransport)")
+    parser.add_argument("--ckpt-dir", default=None,
+                        help="durable checkpoints here (--algo localsgd only): restore the "
+                             "newest at start, write one after each committed sync")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
+    check_ckpt_algo(args.algo, args.ckpt_dir)
 
     device = resolve_device(args.device)
     cfg = model_config(args.model, args.layers)
@@ -519,6 +629,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         args.algo, manager, model, args.sync_every, args.num_fragments,
         args.fragment_sync_delay, args.fragment_update_alpha, args.quantize,
     )
+    if args.ckpt_dir:
+        restore_durable(args.ckpt_dir, load, manager)
     batches = synthetic_batches(cfg, args.batch_size, args.seq_len, args.replica_group_id, 4, device)
     guard = wrapper.pre_step if args.algo == "diloco" else None
     per_sync = inner_steps_per_sync(args.algo, args.sync_every, args.num_fragments)
@@ -534,6 +646,9 @@ def main(argv: Optional[List[str]] = None) -> None:
                     "sync at inner step %d committed=%s step=%d loss %.4f",
                     steps, committed, manager.current_step(), float(loss),
                 )
+                # one writer per checkpoint dir: the participating rank 0
+                if args.ckpt_dir and committed and manager.participating_rank() == 0:
+                    save_durable(args.ckpt_dir, save, manager)
     logger.info("%d inner steps in %.1f s", steps, time.perf_counter() - t0)
     print(f"FINAL step={manager.current_step()} params_sha={params_sha256(model)[:16]}")
     manager.shutdown()
