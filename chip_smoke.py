@@ -50,10 +50,10 @@ built.  It then builds the port's CUDA kernels from
    model's attention gate on the card (``card_gate_check``): a one-layer
    model at 8B attention width at S = 16, 100 and 640 launches each flash
    kernel once;
-4. native hand-off check — builds the port's C++ runtime
-   (``torchft_tpu_torch/csrc/native/``, g++, timed) and checks that a pinned
-   host tensor, bf16 included, reaches it as a view of its own memory and
-   that a tensor on the card is refused;
+4. native hand-off check — the port's C++ runtime
+   (``torchft_tpu_torch/csrc/native/``, built by g++ beside the CUDA build,
+   timed) loads, a pinned host tensor, bf16 included, reaches it as a view
+   of its own memory, and a tensor on the card is refused;
 5. float train phases — the port's main path: two replica groups as threads
    (each its own Manager, manager sidecar, communicator and checkpoint
    transport) train Llama at Llama-3-8B width cut to 2 layers, bf16, B=1,
@@ -65,12 +65,14 @@ built.  It then builds the port's CUDA kernels from
    replicas must end at the same step with equal parameter hashes, every
    replica must have run the named tier's lighthouse, sidecar and
    communicator, and every flash kernel must have launched;
-6. quantized train phases — the same two fleets with
+6. quantized train phase — the same fleet on the C++ tier with
    ``should_quantize=True`` (int8 wire): gradients quantized on the card,
    the windowed quantized pipeline with its per-window reduce on the card;
-   they heal over HTTP, so one run holds both transports to the same
+   it heals over HTTP, so one run holds both transports to the same
    state.  The same checks, and the quantize and reduce kernels must have
-   launched.  Every train phase's heal must move the replica's whole state:
+   launched.  (Its Python-tier twin went to keep the command inside its
+   1200 s limit: the Python planes run in ``train_python`` and
+   ``spare_python``.)  Every train phase's heal must move the replica's whole state:
    over the communicator exactly its array payload bytes, over HTTP those
    and its stream's framing; and each sync's final hash must be
    :data:`EXPECTED_SHA256`'s (a heal is bit-exact, whatever carries it).
@@ -82,8 +84,20 @@ built.  It then builds the port's CUDA kernels from
    ``sync_every=8``, 2 fragments, ``fragment_sync_delay=2``, alpha 0, until
    3 committed outer steps; replica 1 is killed before its inner step 5,
    restarts and heals at its next quorum, then syncs fragment 1 and
-   fragment 0; ``diloco_quantized_cpp`` — the
-   same over the int8 wire; ``localsgd_cpp`` — a job loss and its restore
+   fragment 0; ``diloco_stream_cpp`` — the same under the streamed outer
+   sync (``TORCHFT_STREAM_SYNC=1``: each fragment's sync is submitted 2
+   inner steps before its sync step and resolved at a barrier 1 inner step
+   after it), replica 1 killed right after it submitted fragment 1's
+   streamed sync; beside ``diloco_cpp``'s checks (``check_stream``): every
+   incarnation streamed, every commit decision came at a stream barrier,
+   and the sync in flight at the kill committed nowhere (the survivor's
+   vote on it failed, the victim died before its barrier); it prints its
+   numbers beside ``diloco_cpp``'s; ``diloco_quantized_cpp`` — the same
+   schedule over the int8 wire to 1 committed outer step (fragment 0's
+   sync) with no kill (its kill, its heal over HTTP and its later syncs
+   went for time: ``diloco_cpp`` heals the same state over the same
+   transport);
+   ``localsgd_cpp`` — a job loss and its restore
    from a durable checkpoint (``jobloss_phase``): LocalSGD,
    ``sync_every=4``, runs to 1 committed sync, after which the participating
    rank 0 writes the model, its AdamW moments and the Manager's step to
@@ -101,17 +115,18 @@ built.  It then builds the port's CUDA kernels from
    load's, kill to the restored fleet's first committed sync, peak device
    memory and host RSS.
    Checks of every phase: every loss finite; both
-   replicas at the same committed step; (DiLoCo) replica 1 restarted once
-   and its heal carried every ``StreamingDiLoCoFragment_*`` state, and it
-   synced every fragment after the heal; per
+   replicas at the same committed step; (DiLoCo with a kill) replica 1
+   restarted once and its heal carried every ``StreamingDiLoCoFragment_*``
+   state, and it synced every fragment after the heal; (without one) no
+   replica restarted or healed; per
    fragment the backup's sha256 is equal across replicas and differs from
-   the initial weights; the fragment synced last has equal live parameters
+   the initial weights if a sync of it committed, else equals them; the fragment synced last has equal live parameters
    across replicas; (LocalSGD) equal parameter hashes; the C++ tier's
    planes ran; the flash kernels launched in each phase.  Each prints the
    median inner step, the seconds per outer sync from ``outer_shard_wall_s``
    and its scatter / update / gather split, the heal's seconds and bytes,
    the peak device memory, the peak host RSS over the phase and tokens/s
-   per replica over the phase.  All three run 1 layer deep
+   per replica over the phase.  All run 1 layer deep
    (:data:`DILOCO_LAYERS`; the width stays), as does ``spare_python``, so
    the command stays inside its limit with phases 10–14.
 
@@ -168,8 +183,8 @@ built.  It then builds the port's CUDA kernels from
 11. ``moe_hsdp_cpp`` — ``train_hsdp`` over ``llama3_8b_moe`` cut to 1 layer
    (8 experts, capacity factor 1.5, 2,032,185,344 parameters), 2 replica
    groups each one process on the card at ep = fsdp = tp = 1, the C++
-   tier, 3 steps, no kill (a kill and heal of its 12.19 GB state took the
-   command past 900 s; ``hsdp_cpp`` heals the same path).  ``hsdp_cpp``'s
+   tier, 3 steps, no kill (a kill and heal of its 12.19 GB state would take
+   the command past its 1200 s limit; ``hsdp_cpp`` heals the same path).  ``hsdp_cpp``'s
    checks but the heal's, and every router and expert parameter has a
    gradient on every step; prints the tokens past each expert's capacity
    (384 slots for 2048 tokens a step; a finding, not a check), the step
@@ -183,7 +198,7 @@ built.  It then builds the port's CUDA kernels from
    ``moe_hsdp_cpp``'s layouts beside the peaks those phases measured (a
    finding, not a check).
 
-13. ``baby_cpp`` (right after the four train phases) — ``train_cpp``'s
+13. ``baby_cpp`` (right after the three train phases) — ``train_cpp``'s
    fleet and schedule with every replica's data plane a
    ``BabyCommunicator(backend="cpp")``: the C++ ring in a killable child
    process, payloads at or above ``TORCHFT_BABY_SHM_MIN`` through shared
@@ -214,7 +229,20 @@ built.  It then builds the port's CUDA kernels from
    :data:`EXPECTED_SHA256` (a signal at an arbitrary moment changes which
    steps commit with one participant).
 
-Per sync, the C++ tier's parameter hash must equal the Python tier's.  The
+15. ``chaos_deadlock`` (beside ``hsdp_cpp``, in a process of its own) —
+   ``python -m torchft_tpu_torch.chaos_drill --failure deadlock``: two
+   ``train_ddp`` processes under the port's supervisor train ``cnn_cpp``'s
+   CNN on the card on the C++ tier for 100 steps paced 0.5 s (0.4 s of
+   work planned past the pace); group 1 is frozen with SIGSTOP past the
+   per-op timeout the drill derives from that step and evicted; it thaws, exits on its lapsed
+   should_commit RPC deadline, and is restarted by its supervisor and
+   heals (or rejoins in place and heals).  Checks
+   (``check_chaos_deadlock``): one deadlock injected; the victim's next
+   commit after its freeze; both groups end at step 100 with equal hashes;
+   the victim healed past step 0; no worker left alive.  Prints the
+   timing, the heal and the wall time.
+
+The float sync's C++-tier parameter hash must equal its Python tier's.  The
 DDP train phases run with ``obs.spans`` on; each prints the ``commit`` split
 (seconds per steady step in ``manager::quorum_rpc``, ``comm::op``,
 ``manager::fence`` and ``manager::should_commit``) and the heal's seconds
@@ -229,6 +257,7 @@ import gc
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -252,18 +281,20 @@ ITERS = 10  # timed launches per kernel (plain versions: 2)
 # fleet phases joined: the command stays inside its limit with them)
 STEPS = 3
 # (results key, should_quantize, tier) of each train phase, in run order;
-# the kernels line takes its launches from the C++ tier's phases
+# the kernels line takes its launches from the C++ tier's phases.  The
+# quantized sync runs on the C++ tier alone (its Python-tier twin went to
+# keep the command inside its limit: the Python planes run in train_python
+# and spare_python)
 TRAIN_PHASES = (
     ("train_cpp", False, "cpp"),
     ("train_python", False, "python"),
     ("train_quantized_cpp", True, "cpp"),
-    ("train_quantized_python", True, "python"),
 )
 # heal transport of each train phase: the float phases heal over the
-# communicator (CommTransport), the quantized ones over HTTP, so one run
-# compares both transports on the same state and tier
+# communicator (CommTransport), the quantized one over HTTP, so one run
+# compares both transports on the same state
 TRAIN_HEAL_TRANSPORT = {"train_cpp": "comm", "train_python": "comm",
-                        "train_quantized_cpp": "http", "train_quantized_python": "http"}
+                        "train_quantized_cpp": "http"}
 HSDP_HEAL_TRANSPORT = "comm"
 # the final parameter sha256 of each DDP sync and of hsdp_cpp, as every
 # earlier run of this script at STEPS gave them (PERF.md): a heal is
@@ -285,19 +316,37 @@ PLANES = {
 # communicator's op thread, the vote's fence on the pending works, the vote
 SPLIT_SPANS = ("manager::quorum_rpc", "comm::op", "manager::fence", "manager::should_commit")
 # (results key, run_diloco_fleet keywords) of each DiLoCo / LocalSGD phase,
-# all on the C++ tier: bench.py's phase D schedule, its int8 twin, LocalSGD
-# (3 committed outer steps, and LocalSGD 1 sync, since the CNN and HSDP
-# phases joined the script; 4 and 2 before: the command stays under 900 s).
-# Three is the fewest at which the restarted replica syncs every fragment
-# after its heal: fragment 1 at outer step 2, fragment 0 at step 3.
+# all on the C++ tier: bench.py's phase D schedule, the same streamed, and
+# LocalSGD (3 committed outer steps, and LocalSGD 1 sync, since the CNN and
+# HSDP phases joined the script; 4 and 2 before: the command stays inside
+# its 1200 s limit).  Three is the fewest at which the restarted replica
+# syncs every fragment after its heal: fragment 1 at outer step 2,
+# fragment 0 at step 3.
 DILOCO = dict(algo="diloco", sync_every=8, num_fragments=2, fragment_sync_delay=2,
               outer_steps=3, kill_at=(1, 5))
+# diloco_stream_cpp: DILOCO under the streamed outer sync (STREAM_ENV): at a
+# per-fragment cadence of 4 with delay 2 the stall is 1 inner step
+# (stream_stall_for(4, 2)).  Replica 1 is killed before its inner step 6,
+# right after the wrapper step that submitted fragment 1's streamed sync,
+# so the kill lands between that submit and its barrier (3 inner steps
+# later), as the stream drill's does
+STREAM_ENV = {"TORCHFT_STREAM_SYNC": "1"}
+STREAM_KILL_AT = (1, 6)
+# diloco_quantized_cpp: DILOCO over the int8 wire to 1 committed outer
+# step (fragment 0's sync) with no kill: its kill, its 11.5 GB heal over
+# HTTP and its later syncs went to keep the command inside its limit
+# (diloco_cpp heals the same state over the same transport; each sync is
+# one fragment's, through the same int8 path)
+DILOCO_QUANTIZED = dict(DILOCO, should_quantize=True, outer_steps=1, kill_at=None)
 DILOCO_PHASES = (
     ("diloco_cpp", dict(DILOCO, should_quantize=False)),
-    ("diloco_quantized_cpp", dict(DILOCO, should_quantize=True)),
+    ("diloco_stream_cpp", dict(DILOCO, should_quantize=False, kill_at=STREAM_KILL_AT)),
+    ("diloco_quantized_cpp", DILOCO_QUANTIZED),
     ("localsgd_cpp", dict(algo="localsgd", sync_every=4, num_fragments=1,
                           fragment_sync_delay=0, outer_steps=1, should_quantize=False)),
 )
+# the knobs each DiLoCo phase runs under (the others: none)
+DILOCO_ENV = {"diloco_stream_cpp": STREAM_ENV}
 # localsgd_cpp is a job loss (jobloss_phase): its fleet runs to
 # outer_steps and saves a durable checkpoint, and a second fleet restores it
 # and runs one committed sync more.  A checkpoint holds the bf16 weights and
@@ -308,11 +357,11 @@ JOBLOSS_BYTES_PER_PARAM = 6
 # attempts stop after PROBE_WINDOW_S
 PROBE_TIMEOUT_S, PROBE_WINDOW_S = 60.0, 120.0
 # the DiLoCo and spare phases cut to 1 layer (the width stays) so the
-# command stays under 900 s with the pipeline, MoE and rehearsal phases;
-# diloco_cpp and spare_python share a depth, so the cold heal printed
-# beside the promotion moves the same state
-DILOCO_LAYERS = {"diloco_cpp": 1, "diloco_quantized_cpp": 1, "localsgd_cpp": 1,
-                 "spare_python": 1}
+# command stays inside its 1200 s limit with the pipeline, MoE and
+# rehearsal phases; diloco_cpp and spare_python share a depth, so the cold
+# heal printed beside the promotion moves the same state
+DILOCO_LAYERS = {"diloco_cpp": 1, "diloco_stream_cpp": 1, "diloco_quantized_cpp": 1,
+                 "localsgd_cpp": 1, "spare_python": 1}
 # spare_python: DILOCO's schedule with one hot spare, every plane on the
 # Python tier (the C++ manager sidecar refuses the spare role): 2 actives
 # and the spare as threads of this process; replica 1 is killed before its
@@ -339,6 +388,24 @@ SPARE_DELTA_ENV = {"TORCHFT_SPARE_WARM_REFRESH_S": "60"}
 # run_fleet keywords of cnn_cpp (examples/train_ddp.py's defaults) and
 # run_hsdp_fleet keywords of hsdp_cpp; both on the C++ tier
 CNN_PHASE = dict(replicas=2, steps=20, batch=32, lr=1e-3, kill_at=(1, 5))
+# chaos_deadlock: the chaos drill's CLI (chaos_deadlock_cmd), a deadlock on
+# two train_ddp processes training cnn_cpp's model on the card (the C++
+# tier, and the timing the drill derives from a 0.5 s pace and 0.4 s of
+# work: a 5 s per-op timeout, a 12 s freeze).  On the
+# card the thawed member exits with its should_commit RPC's deadline
+# lapsed and its supervisor restarts it (~33 s from the thaw to its first
+# commit), so the survivor must train ~42 s past the eviction: a lone
+# survivor steps at about its pace, and 100 steps paced 0.5 s keep it
+# training ~47 s, with a pace near the paired step (~0.55 s) so the run's
+# length does not hang on how the member returns
+CHAOS_DEADLOCK = dict(replicas=2, failure="deadlock", victim=1, steps=100, step_time=0.5,
+                      step_work=0.4)
+# the CLI's worker flags: the CNN keeps its preset (--layers 0)
+CHAOS_WORKER = ["--device", "cuda", "--model", "cnn", "--layers", "0"]
+# it runs beside hsdp_cpp (start_chaos_deadlock), whose numbers no other
+# phase is held against, at the cost of a fraction of one core; alone it
+# took 76-88 s
+CHAOS_DEADLOCK_TIMEOUT_S = 600.0
 HSDP_PHASE = dict(groups=2, fsdp=1, tp=1, steps=STEPS, batch=1, seq=2048, lr=1e-4, kill_at=(1, 2))
 # pipeline_phase: PipelinedLlama at Llama-3-8B width, 2 layers over 2
 # stages (one a stage) in one process, every layer recomputed ("layer"),
@@ -351,8 +418,8 @@ PIPE_TIMED_STEPS = 3
 # moe_hsdp_cpp: train_hsdp over llama3_8b_moe (8 experts, capacity factor
 # 1.5) cut to MOE_LAYERS, 2 groups of one process at ep = fsdp = tp = 1,
 # the C++ tier, 3 steps, no kill: the kill and heal of a 2.03B-parameter
-# state (~40 s) would take the command past 900 s, and hsdp_cpp heals the
-# same code path
+# state (~40 s) would take the command past its 1200 s limit, and hsdp_cpp
+# heals the same code path
 MOE_LAYERS = 1
 MOE_PHASE = dict(groups=2, fsdp=1, tp=1, ep=1, steps=3, batch=1, seq=2048, lr=1e-4)
 SPAN_CAP = 200_000  # the quantized phase records ~1,400 comm ops a step
@@ -999,6 +1066,17 @@ def check_cross_tier(results: dict) -> dict:
     return hashes
 
 
+def _timed_build(native, out: dict) -> None:
+    """``native.build()``, its seconds into ``out["build_s"]``; a failure
+    is left for :func:`native_phase`'s own build call to raise."""
+    t0 = time.perf_counter()
+    try:
+        native.build()
+    except Exception:  # noqa: BLE001 — native_phase raises it with g++'s output
+        pass
+    out["build_s"] = time.perf_counter() - t0
+
+
 def native_phase(native) -> dict:
     """Build the C++ runtime (timed) and check the hand-off of host
     tensors: a pinned tensor, bf16 included, reaches it as a view of its own
@@ -1196,25 +1274,97 @@ def _median(xs) -> float:
 
 def check_post_heal_syncs(healed, num_fragments: int) -> list:
     """The fragments the restarted replica ``healed`` synced after its heal,
-    in order (commit k of a run syncs fragment (k - 1) mod
-    ``num_fragments``); raises unless every fragment is among them."""
-    n = len(healed.outer_shard)
-    synced = [(step - 1) % num_fragments
-              for step in range(healed.final_step - n + 1, healed.final_step + 1)]
+    in order (the sync that commits from step s syncs fragment s mod
+    ``num_fragments``; a decision that did not commit synced nothing);
+    raises unless every fragment is among them."""
+    synced = [step % num_fragments for step, committed in healed.sync_decisions if committed]
     if set(synced) != set(range(num_fragments)):
         raise AssertionError(f"after its heal the restarted replica synced fragments {synced}, "
                              f"not all {num_fragments}")
     return synced
 
 
+def check_restarts(results, killed: bool):
+    """A two-replica DiLoCo fleet: with a kill, replica 1 restarted once and
+    its heal carried fragment state; without one, no replica restarted or
+    healed.  Returns replica 1's heal; raises on the first check that
+    fails."""
+    restarts = [r.restarts for r in results]
+    if restarts != [0, int(killed)]:
+        raise AssertionError(f"restarts {restarts}, expected {[0, int(killed)]}")
+    heal = results[1].heal
+    if not killed and any(r.heal is not None for r in results):
+        raise AssertionError("a replica healed in a fleet without a kill")
+    if killed and (heal is None or heal.bytes_total <= 0 or min(results[1].fragment_heals) < 1):
+        raise AssertionError(f"replica 1's heal carried no fragment state: heal {heal}, "
+                             f"fragment heals {results[1].fragment_heals}")
+    return heal
+
+
+def check_backups(results, num_fragments: int) -> None:
+    """Each fragment's backup is equal across replicas; it moved from the
+    initial weights if replica 0 committed a sync of that fragment (the
+    sync that commits from step s syncs fragment s mod ``num_fragments``),
+    and is still the initial weights if not.  Raises on the first that
+    fails."""
+    synced = {step % num_fragments for step, committed in results[0].sync_decisions if committed}
+    for f in range(num_fragments):
+        backups = {r.fragment_sha256[f] for r in results}
+        if len(backups) != 1:
+            raise AssertionError(f"fragment {f}: backups differ across replicas {backups}")
+        initial = backups == {results[0].initial_fragment_sha256[f]}
+        if initial and f in synced:
+            raise AssertionError(f"fragment {f}: the backup is still the initial weights")
+        if not initial and f not in synced:
+            raise AssertionError(f"fragment {f}: never synced, yet its backup moved")
+
+
+def check_stream(results, fleet: dict) -> dict:
+    """diloco_stream_cpp: raises unless every incarnation of every replica
+    streamed its outer sync; every commit decision of each replica's last
+    incarnation came at a stream barrier (as many barriers as decisions)
+    and the ones that committed took it from its first decision's step to
+    its final one; the victim (``kill_at[0]``) was killed once, and no other
+    replica, with a fragment's sync submitted and not resolved; and that
+    sync committed nowhere: the victim died before its barrier, and each
+    survivor's first decision at the kill's step did not commit.  Returns
+    the kill and each replica's decisions and barriers."""
+    victim = fleet["kill_at"][0]
+    for i, r in enumerate(results):
+        if not r.streaming or not all(r.streaming):
+            raise AssertionError(f"replica {i} streamed {r.streaming}, not on every incarnation")
+        if not r.sync_decisions or sum(r.stream_barriers) != len(r.sync_decisions):
+            raise AssertionError(f"replica {i}: {len(r.sync_decisions)} commit decisions, "
+                                 f"{r.stream_barriers} stream barriers")
+        commits = sum(committed for _, committed in r.sync_decisions)
+        if commits != r.final_step - r.sync_decisions[0][0]:
+            raise AssertionError(f"replica {i}: decisions {r.sync_decisions} do not account for "
+                                 f"its final step {r.final_step}")
+        if (i == victim) != bool(r.kills):
+            raise AssertionError(f"replica {i} was killed {r.kills}")
+    kills = results[victim].kills
+    if len(kills) != 1 or not kills[0]["in_flight"]:
+        raise AssertionError(f"replica {victim}'s kills {kills}: not one with a sync in flight")
+    kill = kills[0]
+    for i, r in enumerate(results):
+        at_kill = [committed for step, committed in r.sync_decisions if step == kill["step"]]
+        if i != victim and (not at_kill or at_kill[0]):
+            raise AssertionError(f"replica {i}'s decisions at step {kill['step']}, {at_kill}: the "
+                                 "sync in flight at the kill committed")
+    return dict(kill=kill, sync_decisions=[r.sync_decisions for r in results],
+                stream_barriers=[r.stream_barriers for r in results])
+
+
 def diloco_phase(train_diloco, train_ddp, fa, qk, card: str, fleet: dict,
-                 layers: int = LAYERS, ckpt_dir: str | None = None) -> dict:
+                 layers: int = LAYERS, ckpt_dir: str | None = None,
+                 env: dict | None = None) -> dict:
     """DiLoCo or LocalSGD at Llama-3-8B width and ``layers`` deep with 2
-    replicas, every plane on the C++ tier; raises on any failed check.  The
-    launch counts cover exactly this run.  With ``ckpt_dir`` (LocalSGD) the
-    fleet restores from and saves durable checkpoints there, and the result
-    carries each replica's restore, saves, first commit and whether it
-    healed."""
+    replicas, every plane on the C++ tier, under the knobs ``env``; raises
+    on any failed check.  The launch counts cover exactly this run.  With
+    ``ckpt_dir`` (LocalSGD) the fleet restores from and saves durable
+    checkpoints there, and the result carries each replica's restore,
+    saves, first commit and whether it healed.  Under
+    :data:`STREAM_ENV` the fleet is held to :func:`check_stream` too."""
     import resource
 
     cfg = train_ddp.model_config("llama3_8b", layers)
@@ -1224,7 +1374,7 @@ def diloco_phase(train_diloco, train_ddp, fa, qk, card: str, fleet: dict,
     fa.reset_launches()
     qk.reset_launches()
     t0 = time.perf_counter()
-    with HostRss() as rss:
+    with mock.patch.dict(os.environ, env or {}), HostRss() as rss:
         results = train_diloco.run_diloco_fleet(
             cfg, torch.device("cuda"), replicas=2, batch=1, seq=2048, ckpt_dir=ckpt_dir,
             tier="cpp", **fleet)
@@ -1239,21 +1389,15 @@ def diloco_phase(train_diloco, train_ddp, fa, qk, card: str, fleet: dict,
                                  f"not {fleet['outer_steps']}")
         if r.planes != PLANES["cpp"]:
             raise AssertionError(f"replica {i} ran {r.planes}, not the cpp tier")
-    heal = post_heal = None
+    heal = post_heal = stream = None
+    killed = fleet.get("kill_at") is not None
     if diloco:
-        if [r.restarts for r in results] != [0, 1]:
-            raise AssertionError(f"restarts {[r.restarts for r in results]}, expected [0, 1]")
-        heal = results[1].heal
-        if heal is None or heal.bytes_total <= 0 or min(results[1].fragment_heals) < 1:
-            raise AssertionError(f"replica 1's heal carried no fragment state: heal {heal}, "
-                                 f"fragment heals {results[1].fragment_heals}")
-        for f in range(fleet["num_fragments"]):
-            backups = {r.fragment_sha256[f] for r in results}
-            if len(backups) != 1:
-                raise AssertionError(f"fragment {f}: backups differ across replicas {backups}")
-            if backups == {results[0].initial_fragment_sha256[f]}:
-                raise AssertionError(f"fragment {f}: the backup is still the initial weights")
-        post_heal = check_post_heal_syncs(results[1], fleet["num_fragments"])
+        heal = check_restarts(results, killed)
+        check_backups(results, fleet["num_fragments"])
+        if killed:
+            post_heal = check_post_heal_syncs(results[1], fleet["num_fragments"])
+        if env == STREAM_ENV:
+            stream = check_stream(results, fleet)
         last = (results[0].final_step - 1) % fleet["num_fragments"]
         live = {r.fragment_live_sha256[last] for r in results}
         if len(live) != 1:
@@ -1277,6 +1421,7 @@ def diloco_phase(train_diloco, train_ddp, fa, qk, card: str, fleet: dict,
         card=card,
         tier="cpp",
         fleet=fleet,
+        env=env or {},
         model="llama3_8b width, %d layers, bf16" % layers,
         final_step=r0.final_step,
         inner_steps=[r.inner_steps for r in results],
@@ -1286,6 +1431,7 @@ def diloco_phase(train_diloco, train_ddp, fa, qk, card: str, fleet: dict,
         restarts=[r.restarts for r in results],
         fragment_heals=[r.fragment_heals for r in results],
         post_heal_sync_fragments=post_heal,
+        stream=stream,
         inner_step_s_replica0=r0.inner_step_s,
         inner_step_ms_median=_median(r0.inner_step_s) * 1e3,
         wrapper_step_s_replica0=r0.wrapper_step_s,
@@ -1620,6 +1766,140 @@ def cnn_phase(train_ddp, card: str) -> dict:
         heal=dict(seconds=heal.duration_s, bytes=heal.bytes_total, sources=heal.num_sources),
         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
         wall_s=wall_s,
+    )
+
+
+def check_chaos_deadlock(result: dict, steps: int, victim: int) -> None:
+    """chaos_deadlock: raises unless the drill injected one deadlock into
+    group ``victim``; its next commit came after the freeze thawed; every
+    group printed a FINAL line at ``steps`` (``run_drill`` holds their
+    hashes equal); the frozen member healed from its peer at a step past 0
+    (its log); and no worker process is left alive."""
+    name = f"rg{victim}"
+    if result["events"] != [("deadlock", name)]:
+        raise AssertionError(f"the drill injected {result['events']}, not one deadlock into {name}")
+    if not result["inject_to_commit_s"] > result["timing"]["freeze_s"]:
+        raise AssertionError(f"{name} committed {result['inject_to_commit_s']:.1f} s after the "
+                             f"injection, inside its {result['timing']['freeze_s']} s freeze")
+    finals = result["finals"]
+    if {gid: f.get("step") for gid, f in finals.items()} != {
+            gid: str(steps) for gid in finals}:
+        raise AssertionError(f"the groups' FINAL lines {finals}, not all at step {steps}")
+    with open(result["logs"][victim]) as f:
+        heal_steps = [int(n) for n in re.findall(
+            r"healing required, fetching checkpoint metadata from \S+ max_step=(\d+)", f.read())]
+    # the step-0 sync heals every group but one; the frozen member's heal
+    # after it thawed is one at a later step
+    if not heal_steps or max(heal_steps) <= 0 or int(finals[victim].get("heal_bytes", 0)) <= 0:
+        raise AssertionError(f"{name} rejoined without a heal: heals at steps {heal_steps}, "
+                             f"FINAL {finals[victim]}")
+    alive = [f["pid"] for f in finals.values() if pid_alive(int(f["pid"]))]
+    if alive:
+        raise AssertionError(f"worker processes {alive} outlived the drill")
+
+
+def chaos_deadlock_cmd() -> list:
+    """``python -m torchft_tpu_torch.chaos_drill`` with CHAOS_DEADLOCK's
+    arguments and CHAOS_WORKER's workers."""
+    d = CHAOS_DEADLOCK
+    return [sys.executable, "-m", "torchft_tpu_torch.chaos_drill", "--replicas",
+            str(d["replicas"]), "--failure", d["failure"], "--victim", str(d["victim"]),
+            "--steps", str(d["steps"]), "--step-time", str(d["step_time"]),
+            "--step-work", str(d["step_work"]), *CHAOS_WORKER]
+
+
+def start_chaos_deadlock() -> dict:
+    """Start chaos_deadlock's drill (:func:`chaos_deadlock_cmd`) in a
+    process of its own, its output and its workers' logs in a directory
+    under ``build/`` (its ``TMPDIR``); :func:`chaos_deadlock_phase` waits
+    for it and checks it.  The drill's workers train the CNN at a 0.5 s
+    pace, so it runs beside another phase at the cost of a fraction of
+    one core."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    base = os.path.join(root, "build")
+    os.makedirs(base, exist_ok=True)
+    logdir = tempfile.mkdtemp(prefix="chaos_deadlock_", dir=base)
+    path = [root, os.environ.get("PYTHONPATH")]
+    env = dict(os.environ, TMPDIR=logdir, PYTHONPATH=os.pathsep.join(p for p in path if p))
+    with open(os.path.join(logdir, "drill.out"), "w") as out:
+        # a session of its own: stop_chaos_deadlock signals the drill and the
+        # workers its supervisor started, as one process group
+        proc = subprocess.Popen(chaos_deadlock_cmd(), stdout=out, stderr=subprocess.STDOUT,
+                                env=env, cwd=root, start_new_session=True)
+    return dict(proc=proc, logdir=logdir, t0=time.perf_counter())
+
+
+def stop_chaos_deadlock(started: dict) -> None:
+    """Stop the drill :func:`start_chaos_deadlock` started, and its workers,
+    if it still runs: SIGTERM to its process group, SIGKILL after 10 s."""
+    import signal
+
+    proc = started["proc"]
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        if proc.poll() is not None:
+            return
+        try:
+            os.killpg(proc.pid, sig)
+        except ProcessLookupError:
+            return
+        try:
+            proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            pass
+
+
+def _drill_result(text: str) -> dict:
+    """The drill CLI's ``drill numbers: {...}`` line, its per-group keys
+    back to ints; raises if it printed none."""
+    lines = [line for line in text.splitlines() if line.startswith("drill numbers: ")]
+    if "DRILL PASSED" not in text or not lines:
+        raise AssertionError("the chaos drill did not pass")
+    result = json.loads(lines[-1].removeprefix("drill numbers: "))
+    for key in ("logs", "finals"):
+        result[key] = {int(gid): v for gid, v in result[key].items()}
+    result["events"] = [tuple(e) for e in result["events"]]
+    return result
+
+
+def chaos_deadlock_phase(started: dict, card: str) -> dict:
+    """chaos_deadlock: waits for the drill :func:`start_chaos_deadlock`
+    started (at most CHAOS_DEADLOCK_TIMEOUT_S) and raises on any failed
+    check (:func:`check_chaos_deadlock`), printing the ends of the drill's
+    output and of its workers' logs; its directory is removed once every
+    check passed."""
+    proc, logdir = started["proc"], started["logdir"]
+    try:
+        proc.wait(timeout=CHAOS_DEADLOCK_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        stop_chaos_deadlock(started)
+    wall_s = time.perf_counter() - started["t0"]
+    try:
+        with open(os.path.join(logdir, "drill.out")) as f:
+            result = _drill_result(f.read())
+        check_chaos_deadlock(result, CHAOS_DEADLOCK["steps"], CHAOS_DEADLOCK["victim"])
+    except Exception:
+        for folder, _, names in os.walk(logdir):
+            for name in sorted(names):
+                with open(os.path.join(folder, name)) as f:
+                    tail = f.read().splitlines()[-40:]
+                print(f"chaos_deadlock {name} (rc {proc.returncode}):\n"
+                      + "\n".join(line[:300] for line in tail), flush=True)
+        raise
+    with open(result["logs"][CHAOS_DEADLOCK["victim"]]) as f:
+        # each incarnation of the victim's group prints one FIRST_COMMIT
+        victim_restarts = f.read().count("FIRST_COMMIT ") - 1
+    shutil.rmtree(logdir, ignore_errors=True)
+    finals = result["finals"]
+    return dict(
+        card=card, command=chaos_deadlock_cmd()[1:],
+        timing=result["timing"],
+        inject_to_commit_s=result["inject_to_commit_s"], params_sha=result["params_sha"],
+        victim_restarts=victim_restarts,
+        heal=dict(seconds=float(finals[CHAOS_DEADLOCK["victim"]]["heal_s"]),
+                  bytes=int(finals[CHAOS_DEADLOCK["victim"]]["heal_bytes"])),
+        peak_device_gb={gid: f.get("peak_device_gb") for gid, f in finals.items()},
+        launches=[json.loads(f["launches"]) for _, f in sorted(finals.items())],
+        drill_wall_s=result["wall_s"], wall_s=wall_s,
     )
 
 
@@ -2202,6 +2482,10 @@ def main() -> int:
           flush=True)
     print(f"host memory: {host_mem_total_gb():.1f} GB (MemTotal)", flush=True)
 
+    # g++ builds the native tier beside nvcc; native_phase checks it later
+    native_build: dict = {}
+    native_thread = threading.Thread(target=_timed_build, args=(native, native_build))
+    native_thread.start()
     t0 = time.perf_counter()
     sources = [*fa.KERNEL_SOURCES, *qk.KERNEL_SOURCES]
     cuda_build.build(sources)
@@ -2226,8 +2510,11 @@ def main() -> int:
     gate = card_gate_check(fa, train_ddp)
     print(f"card gate: the model at S = {', '.join(map(str, GATE_SEQS))} launched each flash "
           f"kernel once: {json.dumps(gate)}", flush=True)
-    handoff = native_phase(native)
-    print(f"native runtime: built {handoff['library']} in {handoff['build_s']:.1f} s (g++); "
+    native_thread.join()
+    handoff = native_phase(native)  # raises with g++'s output if the build failed
+    handoff["build_s"] = native_build["build_s"]
+    print(f"native runtime: built {handoff['library']} in {handoff['build_s']:.1f} s (g++, "
+          "beside the CUDA build); "
           "pinned f32/bf16 tensors hand off as views, a tensor on the card is refused",
           flush=True)
     results = {"card": card, "build_s": build_s, "native": handoff, "kernels": kernels,
@@ -2263,8 +2550,9 @@ def main() -> int:
         raise AssertionError("the train phases healed states of different sizes")
     check_expected_hashes({sync: by_tier["cpp"] for sync, by_tier in hashes.items()})
     for sync, by_tier in hashes.items():
-        print(f"{sync} sync parameter sha256: cpp {by_tier['cpp']}, python {by_tier['python']} "
-              "(equal, and as expected)", flush=True)
+        tiers = ", ".join(f"{tier} {sha}" for tier, sha in by_tier.items())
+        print(f"{sync} sync parameter sha256: {tiers} ({'equal, and ' * (len(by_tier) > 1)}"
+              "as expected)", flush=True)
     results["supervised_cpp"] = t = supervised_phase(card)
     # a finding, not a check: the survivor commits nothing alone, so the
     # supervised fleet trains train_cpp's steps on the same batches
@@ -2285,7 +2573,7 @@ def main() -> int:
             print(jobloss_line(key, t), flush=True)
             continue
         results[key] = t = diloco_phase(train_diloco, train_ddp, fa, qk, card, fleet,
-                                        DILOCO_LAYERS.get(key, LAYERS))
+                                        DILOCO_LAYERS.get(key, LAYERS), env=DILOCO_ENV.get(key))
         print(f"{key}: {json.dumps(t)}", flush=True)
         heal = (f"heal {t['heal']['seconds']:.3f} s for {t['heal']['bytes']} bytes"
                 if t["heal"] else "no heal")
@@ -2297,6 +2585,23 @@ def main() -> int:
               f"({t['start_host_rss_gb']:.1f} GB at its start); "
               f"{t['tokens_per_s_per_replica']:.1f} tokens/s per replica; wall {t['wall_s']:.1f} s",
               flush=True)
+        if t["stream"]:
+            ref, st = results["diloco_cpp"], t["stream"]
+            print(f"{key} (TORCHFT_STREAM_SYNC=1): every sync at a stream barrier "
+                  f"{json.dumps(st['stream_barriers'])}; replica 1 killed with fragment "
+                  f"{st['kill']['in_flight']} in flight at step {st['kill']['step']}, which "
+                  f"committed nowhere (decisions {json.dumps(st['sync_decisions'])}); beside "
+                  f"diloco_cpp: inner step {t['inner_step_ms_median']:.1f} ms "
+                  f"({ref['inner_step_ms_median']:.1f}), held {t['sync_s_per_commit']:.3f} s per "
+                  f"committed sync ({ref['sync_s_per_commit']:.3f}), outer sync "
+                  f"{t['outer_shard_s_median']['wall']:.3f} s "
+                  f"({ref['outer_shard_s_median']['wall']:.3f}), heal {t['heal']['seconds']:.3f} s "
+                  f"for {t['heal']['bytes']} bytes ({ref['heal']['seconds']:.3f} s for "
+                  f"{ref['heal']['bytes']}), peak device {t['max_memory_allocated_gb']:.1f} GB "
+                  f"({ref['max_memory_allocated_gb']:.1f}), peak host RSS "
+                  f"{t['peak_host_rss_gb']:.1f} GB ({ref['peak_host_rss_gb']:.1f}), "
+                  f"{t['tokens_per_s_per_replica']:.1f} tokens/s per replica "
+                  f"({ref['tokens_per_s_per_replica']:.1f})", flush=True)
     results["spare_python"] = t = spare_phase(train_diloco, train_ddp, fa, qk, card,
                                               results["diloco_cpp"]["heal"])
     print(f"spare_python: {json.dumps(t)}", flush=True)
@@ -2328,9 +2633,23 @@ def main() -> int:
           f"loss {t['losses'][0][0]:.4f} -> {t['losses'][0][-1]:.4f}; heal "
           f"{t['heal']['seconds']:.3f} s for {t['heal']['bytes']} bytes; wall {t['wall_s']:.1f} s",
           flush=True)
-    results["hsdp_cpp"] = t = hsdp_phase(
-        train_hsdp, train_ddp, card, results["train_cpp"]["params_sha256"])
-    check_expected_hashes({"hsdp": t["params_sha256"]})
+    chaos = start_chaos_deadlock()  # beside hsdp_cpp, collected after it
+    try:
+        results["hsdp_cpp"] = t = hsdp_phase(
+            train_hsdp, train_ddp, card, results["train_cpp"]["params_sha256"])
+        check_expected_hashes({"hsdp": t["params_sha256"]})
+        results["chaos_deadlock"] = c = chaos_deadlock_phase(chaos, card)
+    finally:
+        stop_chaos_deadlock(chaos)  # a no-op once it has been collected
+    print(f"chaos_deadlock: {json.dumps(c)}", flush=True)
+    print(f"chaos_deadlock (cpp tier, {' '.join(c['command'])}; beside hsdp_cpp): rg1 "
+          f"frozen {c['timing']['freeze_s']:g} s past a "
+          f"{c['timing']['comm_timeout_s']:g} s per-op timeout (a "
+          f"{c['timing']['step_s']:g} s step planned), evicted, thawed, restarted by its "
+          f"supervisor {c['victim_restarts']} time(s) and healed {c['heal']['bytes']} "
+          f"bytes in {c['heal']['seconds']:.3f} s; injection to its next commit "
+          f"{c['inject_to_commit_s']:.1f} s; equal hashes {c['params_sha']}; wall "
+          f"{c['wall_s']:.1f} s", flush=True)
     print(f"hsdp_cpp: {json.dumps(t)}", flush=True)
     print(f"hsdp_cpp (cpp tier, FSDP2 at world 1 per group): step "
           f"{t['step_ms_median_last3']:.1f} ms, phases {json.dumps(t['phase_ms_median_last3'])}; "
@@ -2404,8 +2723,13 @@ def main() -> int:
         row["baby_launches"] = results["baby_cpp"]["launches"][name]
         row["supervised_launches"] = [
             n.get(name, 0) for n in results["supervised_cpp"]["launches"].values()]
-        # this slice's: the fleet restored from the durable checkpoint
+        # the fleet restored from the durable checkpoint
         row["jobloss_launches"] = results["localsgd_cpp"]["launches"].get(name, 0)
+        # this slice's: the streamed DiLoCo fleet, and each chaos drill
+        # worker's FINAL launches (the CNN runs no kernel of the table)
+        row["stream_launches"] = results["diloco_stream_cpp"]["launches"].get(name, 0)
+        row["chaos_deadlock_launches"] = [
+            n.get(name, 0) for n in results["chaos_deadlock"]["launches"]]
     print(json.dumps(line), flush=True)
     print(card, flush=True)  # nvidia-smi's own line: name, power limit
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -119,11 +119,14 @@ def test_source_exists_and_replaces_points_at_a_pallas_kernel_def(name) -> None:
 
 
 def test_four_train_phases_name_their_tier(chip_smoke) -> None:
-    """Float and quantized, each on the C++ tier and on the Python tier;
-    every phase names its tier (never ``auto``, which falls back quietly)."""
+    """Float on the C++ tier and on the Python tier, quantized on the C++
+    tier (its Python-tier twin, the fourth phase, went to keep the command
+    inside its limit); every phase names its tier (never ``auto``, which
+    falls back quietly)."""
     phases = [(q, t) for _, q, t in chip_smoke.TRAIN_PHASES]
-    assert sorted(phases) == [(False, "cpp"), (False, "python"), (True, "cpp"), (True, "python")]
-    assert len({key for key, _, _ in chip_smoke.TRAIN_PHASES}) == 4
+    assert sorted(phases) == [(False, "cpp"), (False, "python"), (True, "cpp")]
+    assert len({key for key, _, _ in chip_smoke.TRAIN_PHASES}) == 3
+    assert "train_quantized_python" not in (REPO / "chip_smoke.py").read_text()
     assert chip_smoke.PLANES["cpp"] == dict(
         lighthouse="CppLighthouseServer", manager_server="CppManagerServer",
         communicator="CppCommunicator")
@@ -162,47 +165,137 @@ def test_commit_split_sums_each_window_per_replica(chip_smoke) -> None:
 
 
 def test_cross_tier_hash_check(chip_smoke) -> None:
+    """The float pair stays held across the tiers; the quantized sync,
+    on the C++ tier alone, is held to its expected hash only."""
     results = {key: {"params_sha256": ("q" if quantized else "f")}
                for key, quantized, _ in chip_smoke.TRAIN_PHASES}
     assert chip_smoke.check_cross_tier(results) == {
-        "float": {"cpp": "f", "python": "f"}, "quantized": {"cpp": "q", "python": "q"}}
-    results["train_quantized_python"] = {"params_sha256": "other"}
-    with pytest.raises(AssertionError, match="quantized sync"):
+        "float": {"cpp": "f", "python": "f"}, "quantized": {"cpp": "q"}}
+    results["train_python"] = {"params_sha256": "other"}
+    with pytest.raises(AssertionError, match="float sync"):
         chip_smoke.check_cross_tier(results)
 
 
 def test_diloco_phases_are_bench_phase_d_and_its_twins(chip_smoke) -> None:
-    """The three DiLoCo / LocalSGD phases: bench.py's phase D schedule
-    (sync_every 8, 2 fragments, delay 2) with a kill, float and int8, and
-    LocalSGD; every keyword is one ``run_diloco_fleet`` takes, and the tier
-    is named by the phase runner, never resolved."""
+    """The DiLoCo / LocalSGD phases: bench.py's phase D schedule (sync_every
+    8, 2 fragments, delay 2) with a kill, the same streamed with its kill
+    between a submit and its barrier, the same over the int8 wire to 1
+    outer step with no kill, and LocalSGD; every keyword is one
+    ``run_diloco_fleet`` takes, and the tier is named by the phase runner,
+    never resolved."""
     import inspect
 
     from torchft_tpu_torch import train_diloco
 
     params = inspect.signature(train_diloco.run_diloco_fleet).parameters
     phases = dict(chip_smoke.DILOCO_PHASES)
-    assert list(phases) == ["diloco_cpp", "diloco_quantized_cpp", "localsgd_cpp"]
+    assert list(phases) == ["diloco_cpp", "diloco_stream_cpp", "diloco_quantized_cpp",
+                            "localsgd_cpp"]
     for fleet in phases.values():
         assert set(fleet) <= set(params) and "tier" not in fleet
-    for key in ("diloco_cpp", "diloco_quantized_cpp"):
+    for key in ("diloco_cpp", "diloco_stream_cpp"):
         fleet = phases[key]
         assert (fleet["sync_every"], fleet["num_fragments"], fleet["fragment_sync_delay"],
-                fleet["outer_steps"], fleet["kill_at"]) == (8, 2, 2, 3, (1, 5))
-        assert fleet["should_quantize"] == (key == "diloco_quantized_cpp")
+                fleet["outer_steps"], fleet["should_quantize"]) == (8, 2, 2, 3, False)
+    assert phases["diloco_cpp"]["kill_at"] == (1, 5)
+    assert phases["diloco_stream_cpp"]["kill_at"] == chip_smoke.STREAM_KILL_AT
+    quantized = phases["diloco_quantized_cpp"]
+    assert (quantized["sync_every"], quantized["num_fragments"], quantized["fragment_sync_delay"],
+            quantized["outer_steps"], quantized["kill_at"], quantized["should_quantize"]) == (
+                8, 2, 2, 1, None, True)
+    assert chip_smoke.DILOCO_ENV == {"diloco_stream_cpp": {"TORCHFT_STREAM_SYNC": "1"}}
     assert phases["localsgd_cpp"]["algo"] == "localsgd" and "kill_at" not in phases["localsgd_cpp"]
     assert 'tier="cpp", **fleet' in (REPO / "chip_smoke.py").read_text()
 
 
 def test_post_heal_sync_check_needs_every_fragment(chip_smoke) -> None:
     """The restarted replica's commits after its heal must cover every
-    fragment: at 3 outer steps it syncs fragments 1 and 0, at 2 only 1."""
+    fragment: at 3 outer steps it syncs fragments 1 and 0, at 2 only 1; a
+    decision that did not commit synced nothing."""
     from types import SimpleNamespace
 
-    healed = SimpleNamespace(final_step=3, outer_shard=[{}, {}])
+    healed = SimpleNamespace(sync_decisions=[(1, True), (2, True)])
     assert chip_smoke.check_post_heal_syncs(healed, 2) == [1, 0]
     with pytest.raises(AssertionError, match=r"synced fragments \[1\], not all 2"):
-        chip_smoke.check_post_heal_syncs(SimpleNamespace(final_step=2, outer_shard=[{}]), 2)
+        chip_smoke.check_post_heal_syncs(SimpleNamespace(sync_decisions=[(1, True)]), 2)
+    with pytest.raises(AssertionError, match=r"synced fragments \[1\], not all 2"):
+        chip_smoke.check_post_heal_syncs(
+            SimpleNamespace(sync_decisions=[(1, True), (2, False)]), 2)
+
+
+@pytest.mark.parametrize("killed, restarts, heal, fragment_heals, match", [
+    (True, [0, 1], 11_519_880_848, [1, 1], None),
+    (False, [0, 0], None, [0, 0], None),
+    (True, [0, 0], 11_519_880_848, [1, 1], "expected \\[0, 1\\]"),
+    (True, [0, 1], None, [0, 0], "no fragment state"),
+    (True, [0, 1], 11_519_880_848, [1, 0], "no fragment state"),
+    (False, [0, 1], None, [0, 0], "expected \\[0, 0\\]"),
+    (False, [0, 0], 4096, [1, 0], "without a kill"),
+])
+def test_restart_check_with_and_without_a_kill(chip_smoke, killed, restarts, heal,
+                                               fragment_heals, match) -> None:
+    """A DiLoCo fleet with a kill restarts replica 1 once and heals its
+    fragments; ``diloco_quantized_cpp``, without one, restarts and heals
+    nothing."""
+    from types import SimpleNamespace
+
+    healed = None if heal is None else SimpleNamespace(bytes_total=heal)
+    results = [SimpleNamespace(restarts=restarts[0], heal=None, fragment_heals=[0, 0]),
+               SimpleNamespace(restarts=restarts[1], heal=healed, fragment_heals=fragment_heals)]
+    if match is None:
+        assert chip_smoke.check_restarts(results, killed) is healed
+    else:
+        with pytest.raises(AssertionError, match=match):
+            chip_smoke.check_restarts(results, killed)
+
+
+@pytest.mark.parametrize("decisions, shas, match", [
+    ([(0, True), (1, True)], [("s0", "s1"), ("s0", "s1")], None),
+    ([(0, True)], [("s0", "i1"), ("s0", "i1")], None),
+    ([(0, True), (1, False)], [("s0", "i1"), ("s0", "i1")], None),
+    ([(0, True)], [("s0", "i1"), ("s0", "x1")], "backups differ"),
+    ([(0, True), (1, True)], [("s0", "i1"), ("s0", "i1")], "still the initial"),
+    ([(0, True)], [("s0", "s1"), ("s0", "s1")], "never synced"),
+])
+def test_backup_check_follows_the_synced_fragments(chip_smoke, decisions, shas, match) -> None:
+    """A fragment whose sync committed moved from the initial weights; one
+    never synced (``diloco_quantized_cpp`` ends after fragment 0's sync)
+    still holds them; backups are equal across replicas."""
+    from types import SimpleNamespace
+
+    results = [SimpleNamespace(sync_decisions=decisions, fragment_sha256=list(sha),
+                               initial_fragment_sha256=["i0", "i1"]) for sha in shas]
+    if match is None:
+        chip_smoke.check_backups(results, 2)
+    else:
+        with pytest.raises(AssertionError, match=match):
+            chip_smoke.check_backups(results, 2)
+
+
+@pytest.mark.parametrize("tier", ["cpp", "python"])
+def test_quantized_diloco_fleet_passes_its_checks_on_the_cpu(chip_smoke, tier) -> None:
+    """``diloco_quantized_cpp``'s fleet at ``llama_debug`` size: one
+    committed int8 sync of fragment 0 and no kill pass the card phase's
+    checks (no restart, no heal; fragment 0's backups moved and are equal,
+    fragment 1's still the initial weights; fragment 0's live parameters
+    equal).  The C++ tier skips only where the native library does not
+    build."""
+    import torch
+
+    from torchft_tpu_torch import native, train_ddp, train_diloco
+
+    if tier == "cpp" and not native.available():
+        pytest.skip(f"the port's native library does not build: {native._lib_error}")
+    fleet = dict(chip_smoke.DILOCO_PHASES)["diloco_quantized_cpp"]
+    results = train_diloco.run_diloco_fleet(
+        train_ddp.model_config("llama_debug"), torch.device("cpu"), replicas=2, batch=2,
+        seq=128, lr=1e-3, timeout=30.0, tier=tier, **fleet)
+    assert [r.final_step for r in results] == [1, 1]
+    assert results[0].sync_decisions == [(0, True)]
+    assert chip_smoke.check_restarts(results, killed=False) is None
+    chip_smoke.check_backups(results, fleet["num_fragments"])
+    assert results[0].fragment_sha256[1] == results[0].initial_fragment_sha256[1]
+    assert results[0].fragment_live_sha256[0] == results[1].fragment_live_sha256[0]
 
 
 def test_host_rss_sampler_reads_this_process(chip_smoke) -> None:
@@ -394,7 +487,7 @@ def test_ring_check_fails_a_ring_that_drops_the_earlier_blocks(chip_smoke, monke
 
 def test_heal_transport_of_each_phase(chip_smoke) -> None:
     """The float DDP phases and hsdp_cpp heal over the communicator, the
-    quantized phases over HTTP (one run holds both on the same state); the
+    quantized phase over HTTP (one run holds both on the same state); the
     entry points take the keyword."""
     import inspect
 
@@ -545,7 +638,7 @@ def test_kernels_line_carries_the_spare_paths_launches() -> None:
 
 def test_diloco_depth_cut_spares_diloco_cpp(chip_smoke) -> None:
     """The DiLoCo phases and ``spare_python`` run 1 layer deep to keep the
-    command under 900 s; ``diloco_cpp`` and ``spare_python`` share a depth,
+    command inside its 1200 s limit; ``diloco_cpp`` and ``spare_python`` share a depth,
     so the cold heal printed beside the promotion moves the state of the
     depth the spare phase promotes at.  The DDP and HSDP phases keep
     LAYERS, so their fixed hashes stand."""
@@ -950,3 +1043,184 @@ def test_job_loss_phase_reports_the_check_apart(chip_smoke, monkeypatch) -> None
     line = chip_smoke.jobloss_line("localsgd_cpp", t)
     assert "hashed for the check in [2.0, 3.0] s" in line
     assert "less the check's restore digest" in line
+
+
+def test_stream_kill_lands_between_a_submit_and_its_barrier(chip_smoke, monkeypatch) -> None:
+    """``diloco_stream_cpp``'s schedule: at a per-fragment cadence of 4 with
+    delay 2, ``TORCHFT_STREAM_SYNC=1`` stalls 1 inner step, so a fragment's
+    sync is submitted after inner steps 2, 6, 10 and resolved at its barrier
+    after inner steps 5, 9, 13; the kill before inner step 6 (6 steps done)
+    falls after fragment 1's submit and before its barrier."""
+    from torchft_tpu_torch.local_sgd import stream_stall_for
+
+    fleet = dict(chip_smoke.DILOCO_PHASES)["diloco_stream_cpp"]
+    per_frag = fleet["sync_every"] // fleet["num_fragments"]
+    for key, value in chip_smoke.STREAM_ENV.items():
+        monkeypatch.setenv(key, value)
+    stall = stream_stall_for(per_frag, fleet["fragment_sync_delay"])
+    assert stall == 1
+    submits = [k for k in range(1, 14) if k % per_frag == per_frag - fleet["fragment_sync_delay"]]
+    barriers = [k for k in range(1, 14) if k > per_frag and k % per_frag == stall]
+    assert submits == [2, 6, 10] and barriers == [5, 9, 13]
+    done = fleet["kill_at"][1]  # inner steps finished when the kill lands
+    submitted = max(k for k in submits if k <= done)
+    assert submitted == done and min(b for b in barriers if b > submitted) > done
+    # fragment 1 goes second: the kill is after the first committed sync
+    assert submitted // per_frag % fleet["num_fragments"] == 1
+
+
+def _stream_results(change=None):
+    """A passing diloco_stream_cpp fleet: replica 0 committed steps 1-3 and
+    voted down the sync in flight at the kill (step 1); replica 1, killed
+    with fragment 1's sync in flight at step 1, healed to step 1 and
+    committed steps 2 and 3."""
+    from types import SimpleNamespace
+
+    results = [
+        SimpleNamespace(streaming=[True], stream_barriers=[2, 2], kills=[], final_step=3,
+                        sync_decisions=[(0, True), (1, False), (1, True), (2, True)]),
+        SimpleNamespace(streaming=[True, True], stream_barriers=[1, 1], final_step=3,
+                        kills=[dict(inner_step=6, step=1, in_flight=[1])],
+                        sync_decisions=[(1, True), (2, True)]),
+    ]
+    for (i, name), value in (change or {}).items():
+        setattr(results[i], name, value)
+    return results
+
+
+@pytest.mark.parametrize("change, match", [
+    ({(1, "streaming"): [False, True]}, "not on every incarnation"),
+    ({(0, "streaming"): []}, "not on every incarnation"),
+    # a decision that did not come at a stream barrier (the blocking path)
+    ({(0, "stream_barriers"): [2, 1]}, "stream barriers"),
+    ({(1, "sync_decisions"): []}, "stream barriers"),
+    # committed decisions that do not account for the final step
+    ({(0, "final_step"): 4}, "do not account"),
+    ({(0, "kills"): [dict(inner_step=6, step=1, in_flight=[1])]}, "was killed"),
+    ({(1, "kills"): []}, "was killed"),
+    # the kill landed outside a submit and its barrier
+    ({(1, "kills"): [dict(inner_step=5, step=1, in_flight=[])]}, "in flight"),
+    # the survivor committed the sync in flight at the kill
+    ({(0, "sync_decisions"): [(0, True), (1, True), (2, True)],
+      (0, "stream_barriers"): [2, 1]}, "committed"),
+])
+def test_stream_checks_raise_on_failure(chip_smoke, change, match) -> None:
+    fleet = dict(chip_smoke.DILOCO_PHASES)["diloco_stream_cpp"]
+    got = chip_smoke.check_stream(_stream_results(), fleet)
+    assert got["kill"] == dict(inner_step=6, step=1, in_flight=[1])
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.check_stream(_stream_results(change), fleet)
+
+
+def test_chaos_deadlock_phase_takes_run_drills_keywords(chip_smoke, monkeypatch) -> None:
+    """``chaos_deadlock`` runs the drill's CLI with flags it parses into
+    CHAOS_DEADLOCK's ``run_drill`` arguments, on ``cnn_cpp``'s model on the
+    card; at its pace a lone survivor still trains past the rest of the
+    freeze and a restart of the victim (~33 s on the card), and the drill's
+    timing is the JAX example's.  It runs beside ``hsdp_cpp``."""
+    from torchft_tpu_torch import chaos_drill
+
+    seen = []
+    monkeypatch.setattr(chaos_drill, "run_drill", lambda *a: seen.append(a) or {
+        "params_sha": "0" * 16, "events": []})
+    cmd = chip_smoke.chaos_deadlock_cmd()
+    assert cmd[1:3] == ["-m", "torchft_tpu_torch.chaos_drill"]
+    assert chaos_drill.main(cmd[3:]) == 0
+    (replicas, failure, victim, steps, freeze, pace, work, worker), = seen
+    d = chip_smoke.CHAOS_DEADLOCK
+    assert (replicas, failure, victim, steps, pace, work) == (
+        d["replicas"], d["failure"], d["victim"], d["steps"], d["step_time"], d["step_work"])
+    assert worker[worker.index("--model") + 1] == "cnn"
+    assert worker[worker.index("--device") + 1] == "cuda"
+    assert worker[worker.index("--layers") + 1] == "0"  # the CNN keeps its preset
+    planned = chaos_drill.drill_timing(pace + work, steps, pace, freeze_s=freeze)
+    assert work == chaos_drill.STEP_DEFAULTS["cpu"][1]
+    assert (planned.comm_timeout_s, planned.freeze_s) == (5.0, 12.0)
+    remaining = steps - chaos_drill.WARMUP_STEPS - 1
+    assert planned.survivors_outlast_freeze(remaining)
+    # the freeze's last 7 s past the eviction, and 35 s for a restart
+    assert remaining * pace >= planned.freeze_s - chaos_drill.HEARTBEAT_S + 35.0
+    source = (REPO / "chip_smoke.py").read_text()
+    assert 'results["chaos_deadlock"] = c = chaos_deadlock_phase(chaos, card)' in source
+    hsdp = source.index('results["hsdp_cpp"] = t = hsdp_phase(')
+    assert (source.index("chaos = start_chaos_deadlock()  # beside hsdp_cpp") < hsdp
+            < source.index("chaos_deadlock_phase(chaos, card)"))
+    assert 'row["stream_launches"] = results["diloco_stream_cpp"]["launches"]' in source
+    assert 'for n in results["chaos_deadlock"]["launches"]]' in source
+
+
+def test_drill_output_is_read_back_with_int_groups(chip_smoke) -> None:
+    """The CLI's ``drill numbers`` line, as ``check_chaos_deadlock`` reads
+    it; a drill that did not pass raises."""
+    import json
+
+    numbers = {"params_sha": "ab", "events": [["deadlock", "rg1"]], "logs": {"1": "x"},
+               "finals": {"0": {"step": "9"}, "1": {"step": "9"}}, "timing": {}}
+    text = f"DRILL PASSED: ...\ndrill numbers: {json.dumps(numbers)}\n"
+    got = chip_smoke._drill_result(text)
+    assert got["events"] == [("deadlock", "rg1")] and set(got["finals"]) == {0, 1}
+    assert got["logs"] == {1: "x"}
+    with pytest.raises(AssertionError, match="did not pass"):
+        chip_smoke._drill_result("replicas diverged: {}\n")
+
+
+def test_stop_chaos_deadlock_takes_the_workers_down_too(chip_smoke) -> None:
+    """The drill runs in a session of its own; stopping it signals its
+    process group, so a worker it started goes with it."""
+    import subprocess
+    import sys
+    import time
+
+    script = ("import subprocess, sys, time; "
+              "p = subprocess.Popen([sys.executable, '-c', 'import time; time.sleep(60)']); "
+              "print(p.pid, flush=True); time.sleep(60)")
+    proc = subprocess.Popen([sys.executable, "-c", script], stdout=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    worker = int(proc.stdout.readline())
+    chip_smoke.stop_chaos_deadlock({"proc": proc})
+    assert proc.poll() is not None
+    deadline = time.monotonic() + 10
+    while chip_smoke.pid_alive(worker) and time.monotonic() < deadline:
+        time.sleep(0.05)
+    assert not chip_smoke.pid_alive(worker)
+    chip_smoke.stop_chaos_deadlock({"proc": proc})  # a no-op once it has ended
+
+
+def _drill_result(tmp_path, heal_line="max_step=9", **change):
+    log = tmp_path / "rg1.log"
+    log.write_text("healing required, fetching checkpoint metadata from h:1 max_step=0\n"
+                   f"healing required, fetching checkpoint metadata from h:1 {heal_line}\n")
+    final = dict(step="80", params_sha="ab" * 8, heal_s="0.01", heal_bytes="6543186",
+                 launches='{"fwd":0,"dq":0,"dkv":0}', pid="999999999")
+    result = dict(events=[("deadlock", "rg1")], timing=dict(freeze_s=12.0),
+                  inject_to_commit_s=14.5, logs={0: str(tmp_path / "rg0.log"), 1: str(log)},
+                  finals={0: dict(final), 1: dict(final)})
+    for key, value in change.items():
+        if key in ("final0", "final1"):
+            result["finals"][int(key[-1])].update(value)
+        else:
+            result[key] = value
+    return result
+
+
+@pytest.mark.parametrize("heal_line, change, match", [
+    ("max_step=9", dict(events=[("kill", "rg1")]), "not one deadlock"),
+    ("max_step=9", dict(events=[]), "not one deadlock"),
+    ("max_step=9", dict(inject_to_commit_s=11.0), "inside its"),
+    ("max_step=9", dict(final1=dict(step="79")), "not all at step 80"),
+    # a group that never printed its FINAL line (final_fields: an empty dict)
+    ("max_step=9", dict(final1={"step": None}), "not all at step 80"),
+    # only the step-0 sync's heal: the thawed member rejoined without one
+    ("max_step=0", {}, "without a heal"),
+    ("max_step=9", dict(final1=dict(heal_bytes="0")), "without a heal"),
+])
+def test_chaos_deadlock_checks_raise_on_failure(chip_smoke, tmp_path, heal_line, change,
+                                                match) -> None:
+    import os
+
+    chip_smoke.check_chaos_deadlock(_drill_result(tmp_path), 80, 1)
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.check_chaos_deadlock(_drill_result(tmp_path, heal_line, **change), 80, 1)
+    alive = _drill_result(tmp_path, final0=dict(pid=str(os.getpid())))
+    with pytest.raises(AssertionError, match="outlived the drill"):
+        chip_smoke.check_chaos_deadlock(alive, 80, 1)

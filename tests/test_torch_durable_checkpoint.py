@@ -9,6 +9,11 @@ job-loss path built on them (``train_diloco --algo localsgd --ckpt-dir``).
   port a step dir the JAX package wrote raises ``ForeignSnapshotError``
   instead of being skipped (ROADMAP §C22), and a filesystem short of space
   raises ``InsufficientSpaceError`` before anything is written.
+- A corrupt newest step dir falls back to the step before it in both
+  packages (ROADMAP §C25): byte 28 of ``step_2/state.tftc``, the first
+  character of a module name in the pickled skeleton, set to 0; and each
+  byte of each package's own step-2 file set to 0 in turn, where
+  ``load_latest`` never raises and returns step 1 or step 2.
 - ``train_diloco.main(--algo localsgd --ckpt-dir ...)`` run twice: the
   second run resumes at the saved step; ``--algo diloco`` refuses the flag.
 - Two ``run_diloco_fleet`` calls with one ``ckpt_dir`` are a job loss: the
@@ -20,6 +25,7 @@ import hashlib
 import logging
 import os
 import shutil
+import tempfile
 from collections import namedtuple
 
 import jax.numpy as jnp
@@ -131,6 +137,66 @@ def test_load_latest_refuses_a_jax_written_step_dir(tmp_path) -> None:
     with pytest.raises(ForeignSnapshotError):
         ckpt.load_checkpoint(base, 4)
     assert ckpt.load_checkpoint(base, 3)["torchft"]["step"] == 5
+
+
+def _step_file(mod, state) -> bytes:
+    """The bytes of ``step_2/state.tftc`` that ``mod`` writes for ``state``."""
+    with tempfile.TemporaryDirectory() as base:
+        mod.save_checkpoint(base, 2, state)
+        with open(os.path.join(base, "step_2", "state.tftc"), "rb") as f:
+            return f.read()
+
+
+# ROADMAP §C25's state: {"w": ones(2)} in each package, saved at steps 1 and 2
+C25_STATE = {"port": (ckpt, lambda: {"w": torch.ones(2)}),
+             "jax": (jax_ckpt, lambda: {"w": np.ones(2, np.float32)})}
+C25_FILES = {name: _step_file(mod, make()) for name, (mod, make) in C25_STATE.items()}
+
+
+def _damaged_ckpt_dir(tmp_path, name: str, offset: int) -> str:
+    """Steps 1 and 2 of §C25's state, byte ``offset`` of step 2's file set
+    to 0; returns the checkpoint dir."""
+    mod, make = C25_STATE[name]
+    base = str(tmp_path / name)
+    mod.save_checkpoint(base, 1, make())
+    mod.save_checkpoint(base, 2, make())
+    data = bytearray(C25_FILES[name])
+    data[offset] = 0
+    with open(os.path.join(base, "step_2", "state.tftc"), "wb") as f:
+        f.write(data)
+    return base
+
+
+def _ones(w) -> bool:
+    return np.array_equal(np.asarray(w), np.ones(2, np.float32))
+
+
+@pytest.mark.parametrize("name", sorted(C25_STATE))
+def test_load_latest_falls_back_past_a_corrupt_skeleton_c25(tmp_path, name) -> None:
+    """ROADMAP §C25: byte 28 of step 2's file is the first character of a
+    module name in the pickled skeleton; set to 0, the port's loader raised
+    ``ModuleNotFoundError`` out of ``load_latest`` instead of restoring
+    step 1, as the JAX package does."""
+    mod, _ = C25_STATE[name]
+    base = _damaged_ckpt_dir(tmp_path, name, 28)
+    with pytest.raises(Exception):
+        mod.load_checkpoint(base, 2)
+    step, state = mod.load_latest(base)
+    assert step == 1 and _ones(state["w"])
+
+
+@pytest.mark.parametrize("name, offset", [
+    (name, offset) for name in sorted(C25_FILES) for offset in range(len(C25_FILES[name]))])
+def test_load_latest_never_raises_on_a_zeroed_byte_c25(tmp_path, name, offset) -> None:
+    """Every byte of each package's own step-2 file, set to 0 in turn:
+    ``load_latest`` restores step 1 of the same state, or step 2 where the
+    change left it loadable (a zero byte changed to 0, or a payload byte,
+    which no format check covers)."""
+    mod, _ = C25_STATE[name]
+    step, state = mod.load_latest(_damaged_ckpt_dir(tmp_path, name, offset))
+    assert step in (1, 2)
+    if step == 1:
+        assert _ones(state["w"])
 
 
 def test_short_filesystem_raises_before_writing(tmp_path, monkeypatch) -> None:

@@ -475,8 +475,10 @@ class _Fragment:
         # lives in the Manager's stream-fence registry and perform_sync
         # reports the FRAG_COMMIT/FRAG_ABORT outcome when it resolves
         self._stream_inflight = False
-        # healing checkpoints this fragment's state was loaded from
+        # healing checkpoints this fragment's state was loaded from, and
+        # streamed syncs resolved at their bounded-staleness barrier
         self.heals = 0
+        self.stream_barriers = 0
 
         self.backup: List[torch.Tensor] = _host_copies(self._params)
         # (flat offset, size, shape, dtype) of each parameter over the
@@ -596,6 +598,7 @@ class _Fragment:
 
         committed = self._manager.should_commit()
         if streamed:
+            self.stream_barriers += 1
             self._manager.stream_resolved(self._index, committed)
 
         if committed and sharded and result is not None:

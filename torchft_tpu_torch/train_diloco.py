@@ -233,6 +233,17 @@ class DiLoCoReplicaResult:
     saves: List[Dict[str, Any]] = dataclasses.field(default_factory=list)
     # ``time.monotonic()`` of the last incarnation's first committed sync
     first_commit_ts: Optional[float] = None
+    # each commit decision of the last incarnation: (the Manager's step just
+    # before it, committed); a decision that did not commit leaves the step
+    sync_decisions: List[Tuple[int, bool]] = dataclasses.field(default_factory=list)
+    # streamed syncs each fragment of the last incarnation resolved at its
+    # bounded-staleness barrier (TORCHFT_STREAM_SYNC; 0 on the blocking path)
+    stream_barriers: List[int] = dataclasses.field(default_factory=list)
+    # per incarnation, whether its wrapper streamed the outer sync
+    streaming: List[bool] = dataclasses.field(default_factory=list)
+    # each injected kill of this replica: its inner step, the Manager's step
+    # then, and the fragments whose sync was submitted and not yet resolved
+    kills: List[Dict[str, Any]] = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass
@@ -244,6 +255,7 @@ class _Run:
     wrapper_s: List[float] = dataclasses.field(default_factory=list)
     outer_shard: List[Dict[str, float]] = dataclasses.field(default_factory=list)
     quorum_ids: List[int] = dataclasses.field(default_factory=list)
+    decisions: List[Tuple[int, bool]] = dataclasses.field(default_factory=list)
     steps: int = 0
     first_commit_ts: Optional[float] = None
     restored: Optional[Dict[str, Any]] = None
@@ -399,9 +411,11 @@ def run_diloco_fleet(
                 run.inner_s.append(t1 - t0)
                 run.losses.append(float(loss))
                 run.steps += 1
+                step_before = manager.current_step()
                 committed = wrapper.step()
                 run.wrapper_s.append(fence() - t1)
                 if committed is not None:
+                    run.decisions.append((step_before, bool(committed)))
                     run.outer_shard.append({
                         k: v for k, v in manager.last_quorum_timings.items()
                         if k.startswith("outer_shard_")
@@ -442,6 +456,8 @@ def run_diloco_fleet(
             restored=run.restored,
             saves=run.saves,
             first_commit_ts=run.first_commit_ts,
+            sync_decisions=run.decisions,
+            stream_barriers=[f.stream_barriers for f in frags],
             **extra,
         )
 
@@ -450,8 +466,11 @@ def run_diloco_fleet(
             if not event.wait(timeout):
                 raise TimeoutError("a spare never registered with the lighthouse")
         restarts = 0
+        streaming: List[bool] = []
+        kills: List[Dict[str, Any]] = []
         while True:
             model, inner, manager, wrapper, save, load = _make(idx, "active")
+            streaming.append(wrapper._stream_stall > 0)
             initial = [f.backup_sha256() for f in getattr(wrapper, "fragments", [])]
             run = _Run()
             _restore(manager, save, load, run)
@@ -479,19 +498,25 @@ def run_diloco_fleet(
             try:
                 _train(idx, model, inner, manager, wrapper, run, before_step, save)
             except InjectedKill:
-                # a dead process stops heartbeating at once: tear the
-                # manager down and (without a spare) start over with a
-                # fresh model
+                # a dead process stops heartbeating and its sockets close
+                # at once: abort the data plane (a streamed sync on the
+                # wire dies half-fed), tear the manager down and (without
+                # a spare) start over with a fresh model
+                kills.append(dict(inner_step=run.steps, step=manager.current_step(), in_flight=[
+                    i for i, f in enumerate(getattr(wrapper, "fragments", [])) if f._work is not None]))
+                manager._comm.abort(f"replica {idx} killed")
                 if spares:
                     kill_ts[0] = time.monotonic()
                     manager.shutdown()
-                    return _result(model, manager, wrapper, run, restarts, initial, killed=True)
+                    return _result(model, manager, wrapper, run, restarts, initial, killed=True,
+                                   streaming=streaming, kills=kills)
                 restarts += 1
                 manager.shutdown()
                 del manager, model, inner, wrapper, save, load
                 gc.collect()
                 continue
-            result = _result(model, manager, wrapper, run, restarts, initial)
+            result = _result(model, manager, wrapper, run, restarts, initial,
+                             streaming=streaming, kills=kills)
             manager.shutdown()
             return result
 

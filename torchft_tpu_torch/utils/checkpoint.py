@@ -35,7 +35,6 @@ from __future__ import annotations
 
 import hashlib
 import os
-import pickle
 import re
 import shutil
 import tempfile
@@ -200,14 +199,19 @@ def load_checkpoint(base_dir: str, step: int) -> Any:
 
 
 def load_latest(base_dir: str) -> Optional[tuple]:
-    """(step, state) of the newest *readable* checkpoint, falling back past
-    torn/corrupt step dirs; None when nothing restorable exists.  A step
-    dir the JAX package wrote raises :class:`ForeignSnapshotError`."""
+    """(step, state) of the newest *readable* checkpoint; None when nothing
+    restorable exists.  A step dir whose load raises any ``Exception`` is
+    torn or corrupt and skipped for the next older one, as the JAX
+    package's ``load_latest`` does: a truncated file, and a damaged
+    skeleton, which can fail as anything from ``UnpicklingError`` to
+    ``ModuleNotFoundError``.  One refusal passes through:
+    :class:`ForeignSnapshotError`, a step dir the JAX package wrote, which
+    is readable but not the port's to restore."""
     for step in sorted(_all_steps(base_dir), reverse=True):
         try:
             return step, load_checkpoint(base_dir, step)
         except ForeignSnapshotError:
             raise
-        except (OSError, EOFError, ValueError, pickle.UnpicklingError):
-            continue  # torn write; try the next older
+        except Exception:  # noqa: BLE001 — torn or corrupt; try the next older
+            continue
     return None
