@@ -35,7 +35,14 @@ built.  It then builds the port's CUDA kernels from
    CUDA graph of wrapper calls that rotate over copies of the inputs
    larger than the L2, replayed between CUDA events, so neither the
    wrapper's host cost nor a warm cache is in it; ``call_ms`` is the time
-   of one eager wrapper call, as the pipeline makes it;
+   of one eager wrapper call, as the pipeline makes it; then the avg kernel
+   (``avg_phase``, ``ops/avg.py``): the AVG divide of a summed bucket into
+   a ``.grad`` leaf, held exactly against its plain version at the float
+   path's whole gradient (bf16) and the int8 path's (its f32 sum into bf16),
+   an f32 case, and cases of NaN payloads, ±inf and subnormals also held
+   against the host's divide; timed beside one ``torch.div``; and divided
+   in place (the sum is the leaf), as the main path divides, at a leaf's
+   aligned length and a ragged one, bf16 and f32;
 3. ring phase (``ring_phase``) — sequence parallelism's ring attention
    at Llama-3-8B attention width (H=32, KV=8, D=128, bf16), B=1, S=8192
    split over sp=4 ranks held in one process (blocks of 2048): the ring's
@@ -61,18 +68,21 @@ built.  It then builds the port's CUDA kernels from
    killed before step 2, restarts and
    heals from replica 0 over the communicator (``CommTransport``).  The fleet runs once with every plane on the C++ tier
    (``tier="cpp"``, named, never resolved: a failed native build fails the
-   run) and once on the Python tier.  Every loss must be finite, both
+   run) and once on the Python tier.  Each bucket's ring returns its SUM
+   into the bucket's pinned host buffer; the card divides it into the
+   ``.grad`` leaves (the avg kernel).  Every loss must be finite, both
    replicas must end at the same step with equal parameter hashes, every
    replica must have run the named tier's lighthouse, sidecar and
-   communicator, and every flash kernel must have launched;
-6. quantized train phase — the same fleet on the C++ tier with
-   ``should_quantize=True`` (int8 wire): gradients quantized on the card,
-   the windowed quantized pipeline with its per-window reduce on the card;
-   it heals over HTTP, so one run holds both transports to the same
-   state.  The same checks, and the quantize and reduce kernels must have
-   launched.  (Its Python-tier twin went to keep the command inside its
-   1200 s limit: the Python planes run in ``train_python`` and
-   ``spare_python``.)  Every train phase's heal must move the replica's whole state:
+   communicator, and every flash kernel and the avg kernel must have
+   launched;
+6. quantized train phases — the same fleet with ``should_quantize=True``
+   (int8 wire), on the C++ tier and on the Python tier
+   (``train_quantized_python``, driven again): gradients quantized on the
+   card, the windowed quantized pipeline with its per-window reduce on the
+   card, the reduced stream dequantized and divided on the card; both heal
+   over HTTP, so one run holds both transports to the same state.  The
+   same checks, and the quantize, reduce, dequantize and avg kernels must
+   have launched.  Every train phase's heal must move the replica's whole state:
    over the communicator exactly its array payload bytes, over HTTP those
    and its stream's framing; and each sync's final hash must be
    :data:`EXPECTED_SHA256`'s (a heal is bit-exact, whatever carries it).
@@ -92,11 +102,12 @@ built.  It then builds the port's CUDA kernels from
    incarnation streamed, every commit decision came at a stream barrier,
    and the sync in flight at the kill committed nowhere (the survivor's
    vote on it failed, the victim died before its barrier); it prints its
-   numbers beside ``diloco_cpp``'s; ``diloco_quantized_cpp`` — the same
-   schedule over the int8 wire to 1 committed outer step (fragment 0's
-   sync) with no kill (its kill, its heal over HTTP and its later syncs
-   went for time: ``diloco_cpp`` heals the same state over the same
-   transport);
+   numbers beside ``diloco_cpp``'s; ``diloco_quantized_cpp`` —
+   ``diloco_cpp`` over the int8 wire, its 3 outer steps, its kill and its
+   heal over HTTP driven again, held to ``diloco_cpp``'s checks; its outer
+   sync quantizes its pseudo-gradient and each delta and dequantizes the
+   gathered deltas on the card, so the quantize and dequantize kernels
+   must have launched;
    ``localsgd_cpp`` — a job loss and its restore
    from a durable checkpoint (``jobloss_phase``): LocalSGD,
    ``sync_every=4``, runs to 1 committed sync, after which the participating
@@ -124,7 +135,11 @@ built.  It then builds the port's CUDA kernels from
    across replicas; (LocalSGD) equal parameter hashes; the C++ tier's
    planes ran; the flash kernels launched in each phase.  Each prints the
    median inner step, the seconds per outer sync from ``outer_shard_wall_s``
-   and its scatter / update / gather split, the heal's seconds and bytes,
+   and its scatter / update / gather split, the seconds per replica per
+   committed sync in each span of :data:`DILOCO_SPANS` (the copy of the
+   live parameters to the host, the pseudo-gradient, the pipeline, the
+   vote, the new global parameters, the writes back to the card), the
+   heal's seconds and bytes,
    the peak device memory, the peak host RSS over the phase and tokens/s
    per replica over the phase.  All run 1 layer deep
    (:data:`DILOCO_LAYERS`; the width stays), as does ``spare_python``, so
@@ -242,10 +257,12 @@ built.  It then builds the port's CUDA kernels from
    the victim healed past step 0; no worker left alive.  Prints the
    timing, the heal and the wall time.
 
-The float sync's C++-tier parameter hash must equal its Python tier's.  The
+Each sync's C++-tier parameter hash must equal its Python tier's.  The
 DDP train phases run with ``obs.spans`` on; each prints the ``commit`` split
 (seconds per steady step in ``manager::quorum_rpc``, ``comm::op``,
-``manager::fence`` and ``manager::should_commit``) and the heal's seconds
+``manager::fence`` and ``manager::should_commit``), the host tail of the
+gradient average (:data:`HOST_SPANS`) and the seconds of the step outside
+``compute`` that no span covers (``unspanned_s``), and the heal's seconds
 and bytes.  Any failure raises, so the exit code is non-zero.  The last line
 of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -281,20 +298,19 @@ ITERS = 10  # timed launches per kernel (plain versions: 2)
 # fleet phases joined: the command stays inside its limit with them)
 STEPS = 3
 # (results key, should_quantize, tier) of each train phase, in run order;
-# the kernels line takes its launches from the C++ tier's phases.  The
-# quantized sync runs on the C++ tier alone (its Python-tier twin went to
-# keep the command inside its limit: the Python planes run in train_python
-# and spare_python)
+# the kernels line takes its launches from the C++ tier's phases.  Each
+# sync runs on both tiers
 TRAIN_PHASES = (
     ("train_cpp", False, "cpp"),
     ("train_python", False, "python"),
     ("train_quantized_cpp", True, "cpp"),
+    ("train_quantized_python", True, "python"),
 )
 # heal transport of each train phase: the float phases heal over the
-# communicator (CommTransport), the quantized one over HTTP, so one run
+# communicator (CommTransport), the quantized ones over HTTP, so one run
 # compares both transports on the same state
 TRAIN_HEAL_TRANSPORT = {"train_cpp": "comm", "train_python": "comm",
-                        "train_quantized_cpp": "http"}
+                        "train_quantized_cpp": "http", "train_quantized_python": "http"}
 HSDP_HEAL_TRANSPORT = "comm"
 # the final parameter sha256 of each DDP sync and of hsdp_cpp, as every
 # earlier run of this script at STEPS gave them (PERF.md): a heal is
@@ -315,6 +331,32 @@ PLANES = {
 # the spans that split ``commit``: the quorum RPC, each collective on the
 # communicator's op thread, the vote's fence on the pending works, the vote
 SPLIT_SPANS = ("manager::quorum_rpc", "comm::op", "manager::fence", "manager::should_commit")
+# the spans that split the host tail of the gradient average: on the train
+# thread (the ``allreduce`` phase) the wait for the quorum started before
+# the forward (ddp::quorum_wait), staging each bucket (ddp::stage: the
+# concatenation, the pinned buffer, the device-to-host copy and its wait;
+# the int8 path: flatten, quantize and copy the payload) and submitting its
+# ring (ddp::submit); behind the vote's fence, the int8 pipeline
+# (quant::pipeline, its host dequantize quant::dequantize within), the AVG
+# divide (manager::avg), the gather of each bucket's average (ddp::gather)
+# and the copy back into the .grad tensors (ddp::copy_back)
+HOST_SPANS = ("ddp::quorum_wait", "ddp::stage", "ddp::submit", "quant::pipeline",
+              "quant::dequantize", "manager::avg", "ddp::gather", "ddp::copy_back")
+# which of them run on the train thread, and which make up the pipeline the
+# fence waits for, per sync (a ring's comm::op holds the float pipeline's
+# wire; the int8 pipeline's ops run inside quant::pipeline)
+TRAIN_THREAD_SPANS = ("ddp::quorum_wait", "ddp::stage", "ddp::submit")
+FENCED_SPANS = {False: ("comm::op", "manager::avg", "ddp::gather", "ddp::copy_back"),
+                True: ("quant::pipeline", "manager::avg", "ddp::gather", "ddp::copy_back")}
+# the spans of the DiLoCo outer sync (local_sgd.py, collectives.py), summed
+# per committed sync: the copy of the live parameters to the host, the
+# reshard, the pseudo-gradient, the submit and the wait of the pipeline (or
+# its streamed twins), the quorum, the vote, the new global parameters and
+# the writes back to the card
+DILOCO_SPANS = ("diloco::host_copy", "diloco::reshard", "diloco::pseudograd", "diloco::prepare",
+                "stream::submit", "outer_shard::pipeline", "diloco::perform", "stream::barrier",
+                "manager::quorum_rpc", "manager::fence", "manager::should_commit",
+                "diloco::apply", "diloco::write")
 # (results key, run_diloco_fleet keywords) of each DiLoCo / LocalSGD phase,
 # all on the C++ tier: bench.py's phase D schedule, the same streamed, and
 # LocalSGD (3 committed outer steps, and LocalSGD 1 sync, since the CNN and
@@ -332,12 +374,9 @@ DILOCO = dict(algo="diloco", sync_every=8, num_fragments=2, fragment_sync_delay=
 # later), as the stream drill's does
 STREAM_ENV = {"TORCHFT_STREAM_SYNC": "1"}
 STREAM_KILL_AT = (1, 6)
-# diloco_quantized_cpp: DILOCO over the int8 wire to 1 committed outer
-# step (fragment 0's sync) with no kill: its kill, its 11.5 GB heal over
-# HTTP and its later syncs went to keep the command inside its limit
-# (diloco_cpp heals the same state over the same transport; each sync is
-# one fragment's, through the same int8 path)
-DILOCO_QUANTIZED = dict(DILOCO, should_quantize=True, outer_steps=1, kill_at=None)
+# diloco_quantized_cpp: DILOCO over the int8 wire, its kill and its heal
+# over HTTP included
+DILOCO_QUANTIZED = dict(DILOCO, should_quantize=True)
 DILOCO_PHASES = (
     ("diloco_cpp", dict(DILOCO, should_quantize=False)),
     ("diloco_stream_cpp", dict(DILOCO, should_quantize=False, kill_at=STREAM_KILL_AT)),
@@ -439,6 +478,37 @@ KERNELS = {
     "quant_dequantize": ("torchft_tpu_torch/csrc/quant.cu",
                          "torchft_tpu/ops/pallas_quant.py:86"),
 }
+# the port's kernels that replace host code of the JAX package, not a
+# Pallas kernel: (CUDA source, the host function it replaces)
+PORT_KERNELS = {
+    "ddp_avg": ("torchft_tpu_torch/csrc/avg.cu", "torchft_tpu/manager.py:1831"),
+}
+# avg_phase cases: a bucket SUM of ``n`` elements divided by ``divisor``
+# into a leaf.  "main" is the float path's whole gradient (bf16 into bf16,
+# 2 replicas), "int8" the int8 path's (its f32 sum into bf16 leaves),
+# "f32" the f32 buckets' and "special" NaNs of both signs and with
+# payloads, ±inf, subnormals and ties at 3 replicas, also held against the
+# host's divide (``bf16.div``, numpy's f32 division)
+AVG_CASES = (
+    dict(name="main", n=1_486_901_248, src=torch.bfloat16, dst=torch.bfloat16, divisor=2),
+    dict(name="int8", n=1_486_901_248, src=torch.float32, dst=torch.bfloat16, divisor=2),
+    dict(name="f32", n=1 << 24, src=torch.float32, dst=torch.float32, divisor=3),
+    dict(name="special", n=(1 << 20) + 7, src=torch.bfloat16, dst=torch.bfloat16, divisor=3),
+    dict(name="special f32", n=(1 << 20) + 7, src=torch.float32, dst=torch.float32, divisor=3),
+)
+# The main path divides each leaf in place (src is dst): one leaf of the 8B
+# MLP (16-byte aligned throughout) and a ragged length with the special
+# values, bf16 and f32, held bit for bit against the plain version (the
+# special ones against the host's divide too)
+AVG_IN_PLACE_CASES = (
+    dict(name="leaf in place", n=4096 * 14336, src=torch.bfloat16, dst=torch.bfloat16, divisor=2),
+    dict(name="special in place", n=(1 << 20) + 7, src=torch.bfloat16, dst=torch.bfloat16,
+         divisor=3),
+    dict(name="leaf f32 in place", n=4096 * 14336, src=torch.float32, dst=torch.float32,
+         divisor=3),
+    dict(name="special f32 in place", n=(1 << 20) + 7, src=torch.float32, dst=torch.float32,
+         divisor=3),
+)
 QUANT_ITERS = 100  # timed launches per quant case below the main size
 # Quant cases: ``n`` gradients through quantize and the round trip, and one
 # reduce of ``w`` contributions of ``rows`` rows.  "main" is the train
@@ -1038,19 +1108,121 @@ def quant_phase(qk, iters: int) -> dict:
     return out
 
 
-def commit_split(spans, windows, replicas: int) -> list:
-    """Per iteration window ``(start, end)``: the seconds in each of
-    :data:`SPLIT_SPANS` that started inside it, summed over the fleet and
-    divided by ``replicas`` (the per-replica mean: the spans carry no
-    replica, and the replicas step in lockstep)."""
+def _avg_input(case) -> torch.Tensor:
+    """A bucket SUM on the card in the case's dtype: normal values over
+    many decades; the special cases add NaNs (both signs, a payload, a
+    signaling one), ±inf, the largest finite value and subnormals."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    n = case["n"]
+    x = torch.randn(n, generator=gen, device="cuda")
+    x *= torch.logspace(-38, 38, 4096, device="cuda").repeat(-(-n // 4096))[:n]
+    if case["name"].startswith("special"):
+        bits = x.view(torch.int32)
+        bits[:8] = torch.tensor([0x7FC00000, -0x400000, 0x7FA00001, -0x3EDCBB, 0x7F800000,
+                                 -0x800000, 0x7F7FFFFF, 0x00000001], device="cuda",
+                                dtype=torch.int32)
+        x[8:16] = torch.tensor([1e-39, -1e-40, 3.0, 1.0 + 2.0 ** -8, 0.0, -0.0, 5e-45, 1.5],
+                               device="cuda")
+    return x.to(case["src"]) if case["src"] == torch.float32 else (
+        (x.view(torch.int32) >> 16).to(torch.int16).view(torch.bfloat16))
+
+
+def _avg_host(case, src: torch.Tensor) -> torch.Tensor:
+    """The host's divide of ``src`` (bf16.div; numpy's f32 division), as
+    the bits the card must write."""
+    import numpy as np
+
+    from torchft_tpu_torch import bf16
+
+    host = src.cpu()
+    if case["src"] == torch.bfloat16:
+        out = bf16.div(bf16.from_tensor(host), case["divisor"])
+        return torch.from_numpy(out.view(np.int16).copy()).view(torch.bfloat16)
+    with np.errstate(invalid="ignore"):
+        return torch.from_numpy(host.numpy() / np.float32(case["divisor"]))
+
+
+def avg_phase(avg, iters: int) -> dict:
+    """Per case: the avg kernel held bit for bit against its plain version
+    on the card (and, for the special cases, the host's divide), with
+    kernel / plain / library ms (one ``torch.div`` by a tensor divisor,
+    which rounds a NaN to the card's own) and the bound: bytes (the sum
+    read once, the leaf written once) against one f32 division an element.
+    Then :data:`AVG_IN_PLACE_CASES`, divided in place as the main path
+    divides, held and not timed.  The launches made here are comparisons
+    and are reset before the train phases."""
+    out = {}
+    for case in AVG_CASES:
+        src = _avg_input(case)
+        dst = torch.empty(case["n"], dtype=case["dst"], device="cuda")
+        want = torch.empty_like(dst)
+        divisor = case["divisor"]
+        avg.average_into(src, divisor, dst)
+        avg.average_into_plain(src, divisor, want)
+        err = _exact(f"avg {case['name']}", dst, want)
+        if case["name"].startswith("special"):
+            err = max(err, _exact(f"avg {case['name']} against the host", dst.cpu(),
+                                  _avg_host(case, src)))
+        d_tensor = torch.full((), float(divisor), device="cuda")
+        ms = _time_ms(lambda: avg.average_into(src, divisor, dst), iters)
+        plain_ms = _time_ms(lambda: avg.average_into_plain(src, divisor, want), 2, 1)
+        library_ms = _time_ms(lambda: torch.div(src, d_tensor), iters)
+        nbytes = case["n"] * (src.element_size() + dst.element_size())
+        t_bytes, t_ops = nbytes / PEAK_BYTES, case["n"] / PEAK_F32_FLOPS
+        out[case["name"]] = row = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            bound_ms=max(t_bytes, t_ops) * 1e3,
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            n=case["n"], src=str(case["src"]), dst=str(case["dst"]), divisor=divisor,
+            pct_of_bound=100 * max(t_bytes, t_ops) * 1e3 / ms,
+        )
+        print(f"avg case {case['name']}: {json.dumps(row)}", flush=True)
+        del src, dst, want
+        torch.cuda.empty_cache()
+    for case in AVG_IN_PLACE_CASES:
+        src = _avg_input(case)
+        want = torch.empty_like(src)
+        avg.average_into_plain(src, case["divisor"], want)
+        host = _avg_host(case, src) if case["name"].startswith("special") else None
+        avg.average_into(src, case["divisor"], src)
+        err = _exact(f"avg {case['name']}", src, want)
+        if host is not None:
+            err = max(err, _exact(f"avg {case['name']} against the host", src.cpu(), host))
+        out[case["name"]] = row = dict(max_abs_err=err, n=case["n"], src=str(case["src"]),
+                                       divisor=case["divisor"])
+        print(f"avg case {case['name']}: {json.dumps(row)}", flush=True)
+        del src, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def commit_split(spans, windows, replicas: int, names=SPLIT_SPANS) -> list:
+    """Per iteration window ``(start, end)``: the seconds in each span of
+    ``names`` that started inside it, summed over the fleet and divided by
+    ``replicas`` (the per-replica mean: the spans carry no replica, and the
+    replicas step in lockstep)."""
     out = []
     for start, end in windows:
-        row = dict.fromkeys(SPLIT_SPANS, 0.0)
+        row = dict.fromkeys(names, 0.0)
         for rec in spans:
             if rec["name"] in row and start <= rec["t"] < end:
                 row[rec["name"]] += rec["dur"] / replicas
         out.append(row)
     return out
+
+
+def unspanned_s(phase: dict, row: dict, quantized: bool) -> float:
+    """Seconds of one iteration outside ``compute`` that no span covers:
+    the ``allreduce`` and ``commit`` phases less the train thread's spans
+    (:data:`TRAIN_THREAD_SPANS`, the fence, the vote), plus the part of the
+    fence that the pipeline it waits for (:data:`FENCED_SPANS`) does not
+    cover.  ``phase`` is the iteration's phases, ``row`` its spans (both per
+    replica)."""
+    outside = phase["allreduce"] + phase["commit"]
+    thread = (sum(row[name] for name in TRAIN_THREAD_SPANS) + row["manager::fence"]
+              + row["manager::should_commit"])
+    fenced = sum(row[name] for name in FENCED_SPANS[quantized])
+    return outside - thread + max(0.0, row["manager::fence"] - fenced)
 
 
 def check_cross_tier(results: dict) -> dict:
@@ -1123,7 +1295,7 @@ def check_expected_hashes(hashes: dict) -> None:
                                  f"{EXPECTED_SHA256[key]}")
 
 
-def train_phase(train_ddp, fa, qk, spans, card: str, should_quantize: bool, tier: str,
+def train_phase(train_ddp, fa, qk, avg, spans, card: str, should_quantize: bool, tier: str,
                 heal_transport: str, make_comm=None, planes: dict | None = None) -> dict:
     """The port's main path: 2 replica threads at Llama-3-8B width with a
     kill and heal over ``heal_transport``, averaging gradients in f32/bf16
@@ -1142,6 +1314,7 @@ def train_phase(train_ddp, fa, qk, spans, card: str, should_quantize: bool, tier
     spans.clear()
     fa.reset_launches()
     qk.reset_launches()
+    avg.reset_launches()
     t0 = time.perf_counter()
     results = train_ddp.run_fleet(
         cfg, device, replicas=2, steps=steps, batch=1, seq=2048, kill_at=(1, 2),
@@ -1149,8 +1322,9 @@ def train_phase(train_ddp, fa, qk, spans, card: str, should_quantize: bool, tier
         make_comm=make_comm,
     )
     wall_s = time.perf_counter() - t0
-    launches = {**fa.launches, **qk.launches}
-    split = commit_split(spans.snapshot(), results[0].step_windows, len(results))
+    launches = {**fa.launches, **qk.launches, **avg.launches}
+    split = commit_split(spans.snapshot(), results[0].step_windows, len(results),
+                         SPLIT_SPANS + HOST_SPANS)
     for i, r in enumerate(results):
         if not all(math.isfinite(x) for x in r.losses):
             raise AssertionError(f"replica {i}: non-finite loss in {r.losses}")
@@ -1167,8 +1341,10 @@ def train_phase(train_ddp, fa, qk, spans, card: str, should_quantize: bool, tier
     shas = {r.params_sha256 for r in results}
     if len(shas) != 1:
         raise AssertionError(f"replicas diverged: parameter sha256 {shas}")
-    # dequantize is public API only: the pipeline dequantizes on the host
-    required = ("fwd", "dq", "dkv") + (("quantize", "reduce") if should_quantize else ())
+    # the card divides every bucket (avg); the int8 path also quantizes,
+    # reduces each window and dequantizes the reduced stream on the card
+    required = ("fwd", "dq", "dkv", "avg") + (
+        ("quantize", "reduce", "dequantize") if should_quantize else ())
     for name in required:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the main path")
@@ -1181,6 +1357,7 @@ def train_phase(train_ddp, fa, qk, spans, card: str, should_quantize: bool, tier
         for name in ("compute", "allreduce", "commit")
     }
     steady_split = split[-3:]
+    unspanned = sorted(unspanned_s(p, row, should_quantize) for p, row in zip(last, steady_split))
     return dict(
         card=card,
         tier=tier,
@@ -1203,6 +1380,12 @@ def train_phase(train_ddp, fa, qk, spans, card: str, should_quantize: bool, tier
             name: sorted(row[name] for row in steady_split)[len(steady_split) // 2] * 1e3
             for name in SPLIT_SPANS
         },
+        host_split_ms_median_last3={
+            name: sorted(row[name] for row in steady_split)[len(steady_split) // 2] * 1e3
+            for name in HOST_SPANS
+        },
+        # per steady iteration, what no span covers outside compute
+        unspanned_ms_median_last3=unspanned[len(unspanned) // 2] * 1e3,
         heal=dict(seconds=heal.duration_s, bytes=heal.bytes_total, sources=heal.num_sources,
                   gb_per_s=heal.bytes_per_sec / 1e9, transport=heal_transport,
                   state_bytes=results[1].state_bytes),
@@ -1357,29 +1540,36 @@ def check_stream(results, fleet: dict) -> dict:
 
 def diloco_phase(train_diloco, train_ddp, fa, qk, card: str, fleet: dict,
                  layers: int = LAYERS, ckpt_dir: str | None = None,
-                 env: dict | None = None) -> dict:
+                 env: dict | None = None, spans=None) -> dict:
     """DiLoCo or LocalSGD at Llama-3-8B width and ``layers`` deep with 2
     replicas, every plane on the C++ tier, under the knobs ``env``; raises
     on any failed check.  The launch counts cover exactly this run.  With
     ``ckpt_dir`` (LocalSGD) the fleet restores from and saves durable
     checkpoints there, and the result carries each replica's restore,
     saves, first commit and whether it healed.  Under
-    :data:`STREAM_ENV` the fleet is held to :func:`check_stream` too."""
+    :data:`STREAM_ENV` the fleet is held to :func:`check_stream` too.  With
+    ``spans`` (``obs.spans``, on) the result carries the seconds per
+    replica per committed sync in each of :data:`DILOCO_SPANS`."""
     import resource
 
     cfg = train_ddp.model_config("llama3_8b", layers)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    from torchft_tpu_torch.ops import avg
+
     fa.reset_launches()
     qk.reset_launches()
+    avg.reset_launches()
+    if spans is not None:
+        spans.clear()
     t0 = time.perf_counter()
     with mock.patch.dict(os.environ, env or {}), HostRss() as rss:
         results = train_diloco.run_diloco_fleet(
             cfg, torch.device("cuda"), replicas=2, batch=1, seq=2048, ckpt_dir=ckpt_dir,
             tier="cpp", **fleet)
     wall_s = time.perf_counter() - t0
-    launches = {**fa.launches, **qk.launches}
+    launches = {**fa.launches, **qk.launches, **avg.launches}
     diloco = fleet["algo"] == "diloco"
     for i, r in enumerate(results):
         if not r.losses or not all(math.isfinite(x) for x in r.losses):
@@ -1407,7 +1597,16 @@ def diloco_phase(train_diloco, train_ddp, fa, qk, card: str, fleet: dict,
     for name in ("fwd", "dq", "dkv"):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched in the {fleet['algo']} phase")
+    # the int8 outer sync quantizes and dequantizes on the card
+    for name in ("quantize", "dequantize") if fleet.get("should_quantize") else ():
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched in the int8 outer sync")
     r0 = results[0]
+    sync_split = None
+    if spans is not None:
+        recorded = spans.snapshot()
+        sync_split = {name: sum(rec["dur"] for rec in recorded if rec["name"] == name)
+                      / len(results) / r0.final_step for name in DILOCO_SPANS}
     shard = [t for t in r0.outer_shard if "outer_shard_wall_s" in t]
     split = {k: _median(t[f"outer_shard_{k}_s"] for t in shard)
              for k in ("wall", "scatter", "update", "gather")} if shard else None
@@ -1439,6 +1638,8 @@ def diloco_phase(train_diloco, train_ddp, fa, qk, card: str, fleet: dict,
         sync_s_per_commit=sum(r0.wrapper_step_s) / r0.final_step,
         outer_shard_replica0=r0.outer_shard,
         outer_shard_s_median=split,
+        # seconds per replica per committed sync in each span
+        sync_split_s=sync_split,
         heal=None if heal is None else dict(
             seconds=heal.duration_s, bytes=heal.bytes_total, sources=heal.num_sources),
         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
@@ -1669,15 +1870,18 @@ def spare_phase(train_diloco, train_ddp, fa, qk, card: str, cold_heal: dict) -> 
     release_host_memory()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    from torchft_tpu_torch.ops import avg
+
     fa.reset_launches()
     qk.reset_launches()
+    avg.reset_launches()
     fleet = dict(SPARE_PHASE)
     t0 = time.perf_counter()
     with mock.patch.dict(os.environ, SPARE_ENV), HostRss() as rss:
         results = train_diloco.run_diloco_fleet(
             cfg, torch.device("cuda"), replicas=2, batch=1, seq=2048, tier="python", **fleet)
     wall_s = time.perf_counter() - t0
-    launches = {**fa.launches, **qk.launches}
+    launches = {**fa.launches, **qk.launches, **avg.launches}
     after = check_spare(results, fleet, launches)
     for r in results:
         if r.planes != PLANES["python"]:
@@ -2412,7 +2616,7 @@ def check_baby(stats: list, parent_pid: int, restart: dict) -> None:
         raise AssertionError(f"baby children left alive: {left or pids}")
 
 
-def baby_phase(train_ddp, baby, fa, qk, spans, card: str) -> dict:
+def baby_phase(train_ddp, baby, fa, qk, avg, spans, card: str) -> dict:
     """baby_cpp: train_cpp's fleet and schedule with every replica's data
     plane a ``BabyCommunicator(backend="cpp")``: all of train_phase's
     checks, the final hash :data:`EXPECTED_SHA256`'s (the child runs the
@@ -2433,7 +2637,7 @@ def baby_phase(train_ddp, baby, fa, qk, spans, card: str) -> dict:
             return comm
 
     shm = shutil.disk_usage("/dev/shm")
-    t = train_phase(train_ddp, fa, qk, spans, card, False, "cpp", "comm", make_comm=make_comm,
+    t = train_phase(train_ddp, fa, qk, avg, spans, card, False, "cpp", "comm", make_comm=make_comm,
                     planes=BABY_PLANES)
     check_expected_hashes({"float": t["params_sha256"]})
     stats = [b.stats() for b in babies]
@@ -2461,7 +2665,7 @@ def main() -> int:
     # the port itself; in a directory without it this import fails
     from torchft_tpu_torch import baby, drill, native, train_ddp, train_diloco, train_hsdp
     from torchft_tpu_torch.obs import spans
-    from torchft_tpu_torch.ops import cuda_build
+    from torchft_tpu_torch.ops import avg, cuda_build
     from torchft_tpu_torch.ops import flash_attention as fa
     from torchft_tpu_torch.ops import quant as qk
     from torchft_tpu_torch.parallel import ring_attention as ring
@@ -2487,7 +2691,7 @@ def main() -> int:
     native_thread = threading.Thread(target=_timed_build, args=(native, native_build))
     native_thread.start()
     t0 = time.perf_counter()
-    sources = [*fa.KERNEL_SOURCES, *qk.KERNEL_SOURCES]
+    sources = [*fa.KERNEL_SOURCES, *qk.KERNEL_SOURCES, *avg.KERNEL_SOURCES]
     cuda_build.build(sources)
     build_s = time.perf_counter() - t0
     print(f"built {', '.join(s + '.cu' for s in sources)} in {build_s:.1f} s", flush=True)
@@ -2498,6 +2702,7 @@ def main() -> int:
 
     kernels = kernel_phase(fa, ITERS)
     quant = quant_phase(qk, ITERS)
+    avg_t = avg_phase(avg, ITERS)
     ring_t = ring_phase(fa, ring, ITERS)
     print(f"ring_phase: {json.dumps(ring_t)}", flush=True)
     print(f"ring_phase (sp={RING_CASE['sp']} in one process, S={RING_CASE['S']}): launches "
@@ -2518,21 +2723,22 @@ def main() -> int:
           "pinned f32/bf16 tensors hand off as views, a tensor on the card is refused",
           flush=True)
     results = {"card": card, "build_s": build_s, "native": handoff, "kernels": kernels,
-               "quant": quant, "ring": ring_t, "card_gate": gate}
+               "quant": quant, "avg": avg_t, "ring": ring_t, "card_gate": gate}
     spans.configure(True, cap=SPAN_CAP)
     for key, quantized, tier in TRAIN_PHASES:
-        results[key] = train_phase(train_ddp, fa, qk, spans, card, quantized, tier,
+        results[key] = train_phase(train_ddp, fa, qk, avg, spans, card, quantized, tier,
                                    TRAIN_HEAL_TRANSPORT[key])
         print(f"{key}: {json.dumps(results[key])}", flush=True)
         t = results[key]
         h = t["heal"]
         print(f"{key} ({tier} tier, {t['sync']}): step {t['step_ms_median_last3']:.1f} ms, "
               f"phases {json.dumps(t['phase_ms_median_last3'])}, commit split (ms per replica) "
-              f"{json.dumps(t['commit_split_ms_median_last3'])}; heal over {h['transport']} "
+              f"{json.dumps(t['commit_split_ms_median_last3'])}, host tail (ms per replica) "
+              f"{json.dumps(t['host_split_ms_median_last3'])}, in no span "
+              f"{t['unspanned_ms_median_last3']:.1f} ms; heal over {h['transport']} "
               f"{h['seconds']:.3f} s for {h['bytes']} bytes ({h['gb_per_s']:.3f} GB/s; state "
               f"{h['state_bytes']} bytes); wall {t['wall_s']:.1f} s", flush=True)
-    results["baby_cpp"] = t = baby_phase(train_ddp, baby, fa, qk, spans, card)
-    spans.configure(False)
+    results["baby_cpp"] = t = baby_phase(train_ddp, baby, fa, qk, avg, spans, card)
     print(f"baby_cpp: {json.dumps(t)}", flush=True)
     ref = results["train_cpp"]
     print(f"baby_cpp (cpp tier, BabyCommunicator children): hash as expected; step "
@@ -2573,14 +2779,16 @@ def main() -> int:
             print(jobloss_line(key, t), flush=True)
             continue
         results[key] = t = diloco_phase(train_diloco, train_ddp, fa, qk, card, fleet,
-                                        DILOCO_LAYERS.get(key, LAYERS), env=DILOCO_ENV.get(key))
+                                        DILOCO_LAYERS.get(key, LAYERS), env=DILOCO_ENV.get(key),
+                                        spans=spans)
         print(f"{key}: {json.dumps(t)}", flush=True)
         heal = (f"heal {t['heal']['seconds']:.3f} s for {t['heal']['bytes']} bytes"
                 if t["heal"] else "no heal")
         print(f"{key} (cpp tier, {t['model']}): inner step {t['inner_step_ms_median']:.1f} ms (median), "
               f"train loop held {t['sync_s_per_commit']:.3f} s per committed sync, outer sync "
               "(s, median) "
-              f"{json.dumps(t['outer_shard_s_median'])}; {heal}; peak device "
+              f"{json.dumps(t['outer_shard_s_median'])}, split (s per replica per committed "
+              f"sync) {json.dumps(t['sync_split_s'])}; {heal}; peak device "
               f"{t['max_memory_allocated_gb']:.1f} GB, peak host RSS {t['peak_host_rss_gb']:.1f} GB "
               f"({t['start_host_rss_gb']:.1f} GB at its start); "
               f"{t['tokens_per_s_per_replica']:.1f} tokens/s per replica; wall {t['wall_s']:.1f} s",
@@ -2602,6 +2810,7 @@ def main() -> int:
                   f"{t['peak_host_rss_gb']:.1f} GB ({ref['peak_host_rss_gb']:.1f}), "
                   f"{t['tokens_per_s_per_replica']:.1f} tokens/s per replica "
                   f"({ref['tokens_per_s_per_replica']:.1f})", flush=True)
+    spans.configure(False)
     results["spare_python"] = t = spare_phase(train_diloco, train_ddp, fa, qk, card,
                                               results["diloco_cpp"]["heal"])
     print(f"spare_python: {json.dumps(t)}", flush=True)
@@ -2706,30 +2915,43 @@ def main() -> int:
         )
         for name in names
     ]}
+    # the port's own kernel: the float phase's launches (the int8 phase
+    # launches it as often), timed on the float path's whole gradient
+    line["kernels"].append(dict(
+        name="ddp_avg", route="cuda", source=PORT_KERNELS["ddp_avg"][0],
+        replaces=PORT_KERNELS["ddp_avg"][1], launches=float_t["launches"]["avg"],
+        **{k: avg_t["main"][k] for k in keys}))
     # the ring path's launches of each flash kernel, by mask, and the spare
-    # path's (spare_python, every replica; the quant kernels do not run there)
+    # path's (spare_python, every replica).  Each path's count of a kernel
+    # is what that run counted; null where the path does not count that
+    # kernel (the pipeline counts flash only, the rehearsal flash and quant)
     for row in line["kernels"][:3]:
         row["ring_launches"] = ring_t["ring_launches"][row["name"].removeprefix("flash_")]
     for row in line["kernels"]:
         name = row["name"].split("_", 1)[1]
-        row["spare_launches"] = results["spare_python"]["launches"][name]
-        # this slice's paths: the pipeline (one process), each MoE HSDP
-        # process, the rehearsal's launches at the baseline configs' shapes
-        row["pipeline_launches"] = results["pipeline"]["launches"].get(name, 0)
-        row["moe_hsdp_launches"] = [n.get(name, 0) for n in results["moe_hsdp_cpp"]["launches"]]
-        row["rehearsal_launches"] = results["rehearsal"]["launches"][name]
-        # this slice's: the baby data plane's fleet, and each supervised
-        # process that finished (group 0, the promoted standby)
+        row["spare_launches"] = results["spare_python"]["launches"].get(name)
+        # the pipeline (one process), each MoE HSDP process, the
+        # rehearsal's launches at the baseline configs' shapes
+        row["pipeline_launches"] = results["pipeline"]["launches"].get(name)
+        row["moe_hsdp_launches"] = [n.get(name) for n in results["moe_hsdp_cpp"]["launches"]]
+        row["rehearsal_launches"] = results["rehearsal"]["launches"].get(name)
+        # the baby data plane's fleet, and each supervised process that
+        # finished (group 0, the promoted standby)
         row["baby_launches"] = results["baby_cpp"]["launches"][name]
         row["supervised_launches"] = [
-            n.get(name, 0) for n in results["supervised_cpp"]["launches"].values()]
+            n.get(name) for n in results["supervised_cpp"]["launches"].values()]
         # the fleet restored from the durable checkpoint
-        row["jobloss_launches"] = results["localsgd_cpp"]["launches"].get(name, 0)
-        # this slice's: the streamed DiLoCo fleet, and each chaos drill
-        # worker's FINAL launches (the CNN runs no kernel of the table)
-        row["stream_launches"] = results["diloco_stream_cpp"]["launches"].get(name, 0)
+        row["jobloss_launches"] = results["localsgd_cpp"]["launches"].get(name)
+        # the streamed DiLoCo fleet, and each chaos drill worker's FINAL
+        # launches (the CNN's f32 gradients go through the avg kernel)
+        row["stream_launches"] = results["diloco_stream_cpp"]["launches"].get(name)
+        # the paths driven again: the int8 sync on the Python tier, and the
+        # int8 DiLoCo fleet (its outer sync quantizes and dequantizes on
+        # the card)
+        row["quantized_python_launches"] = results["train_quantized_python"]["launches"][name]
+        row["diloco_quantized_launches"] = results["diloco_quantized_cpp"]["launches"].get(name)
         row["chaos_deadlock_launches"] = [
-            n.get(name, 0) for n in results["chaos_deadlock"]["launches"]]
+            n.get(name) for n in results["chaos_deadlock"]["launches"]]
     print(json.dumps(line), flush=True)
     print(card, flush=True)  # nvidia-smi's own line: name, power limit
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

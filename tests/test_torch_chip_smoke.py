@@ -51,14 +51,28 @@ def _pallas_kernel_names(tree: ast.Module) -> set:
 KERNELS = _kernels()
 
 
+def _port_kernels() -> dict:
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+            isinstance(t, ast.Name) and t.id == "PORT_KERNELS" for t in node.targets
+        ):
+            return ast.literal_eval(node.value)
+    raise AssertionError("chip_smoke.py has no PORT_KERNELS table")
+
+
 def test_the_table_covers_every_source_and_all_six_kernels() -> None:
+    """The six TPU kernels, and beside them the port's own kernel (the AVG
+    divide on the card, which replaces host code): together every CUDA
+    source on disk."""
     assert sorted(KERNELS) == sorted([
         "flash_fwd", "flash_dq", "flash_dkv", "quant_quantize", "quant_reduce",
         "quant_dequantize",
     ])
     sources = {source for source, _ in KERNELS.values()}
+    port_sources = {source for source, _ in _port_kernels().values()}
     on_disk = {str(p.relative_to(REPO)) for p in (REPO / "torchft_tpu_torch" / "csrc").glob("*.cu")}
-    assert sources == on_disk
+    assert sources | port_sources == on_disk and not sources & port_sources
     # every flash kernel runs on its own Hopper source; the wmma one is gone
     assert KERNELS["flash_dkv"][0] == "torchft_tpu_torch/csrc/flash_dkv_sm90.cu"
     assert KERNELS["flash_dq"][0] == "torchft_tpu_torch/csrc/flash_dq_sm90.cu"
@@ -119,14 +133,13 @@ def test_source_exists_and_replaces_points_at_a_pallas_kernel_def(name) -> None:
 
 
 def test_four_train_phases_name_their_tier(chip_smoke) -> None:
-    """Float on the C++ tier and on the Python tier, quantized on the C++
-    tier (its Python-tier twin, the fourth phase, went to keep the command
-    inside its limit); every phase names its tier (never ``auto``, which
-    falls back quietly)."""
+    """Float and quantized, each on the C++ tier and on the Python tier
+    (``train_quantized_python`` runs again); every phase names its tier
+    (never ``auto``, which falls back quietly)."""
     phases = [(q, t) for _, q, t in chip_smoke.TRAIN_PHASES]
-    assert sorted(phases) == [(False, "cpp"), (False, "python"), (True, "cpp")]
-    assert len({key for key, _, _ in chip_smoke.TRAIN_PHASES}) == 3
-    assert "train_quantized_python" not in (REPO / "chip_smoke.py").read_text()
+    assert sorted(phases) == [(False, "cpp"), (False, "python"), (True, "cpp"), (True, "python")]
+    assert len({key for key, _, _ in chip_smoke.TRAIN_PHASES}) == 4
+    assert ("train_quantized_python", True, "python") in chip_smoke.TRAIN_PHASES
     assert chip_smoke.PLANES["cpp"] == dict(
         lighthouse="CppLighthouseServer", manager_server="CppManagerServer",
         communicator="CppCommunicator")
@@ -149,6 +162,49 @@ def test_split_reads_spans_that_the_port_records(chip_smoke, name) -> None:
     assert needle in "".join(p.read_text() for p in (REPO / "torchft_tpu").rglob("*.py"))
 
 
+@pytest.mark.parametrize("name", [
+    "ddp::quorum_wait", "ddp::stage", "ddp::submit", "quant::pipeline", "quant::dequantize",
+    "manager::avg", "ddp::gather", "ddp::copy_back"])
+def test_host_tail_spans_are_recorded_by_the_port(chip_smoke, name) -> None:
+    """Each span of the host tail's split is one the port records, and the
+    train phases print it per phase beside :data:`SPLIT_SPANS`."""
+    assert name in chip_smoke.HOST_SPANS
+    assert f'obs_span("{name}"' in "".join(
+        p.read_text() for p in (REPO / "torchft_tpu_torch").rglob("*.py"))
+    source = (REPO / "chip_smoke.py").read_text()
+    assert "SPLIT_SPANS + HOST_SPANS" in source
+    assert "host_split_ms_median_last3" in source and "unspanned_ms_median_last3" in source
+
+
+@pytest.mark.parametrize("name", [
+    "diloco::host_copy", "diloco::reshard", "diloco::pseudograd", "diloco::apply",
+    "diloco::write", "outer_shard::pipeline"])
+def test_diloco_split_spans_are_recorded_by_the_port(chip_smoke, name) -> None:
+    """The DiLoCo outer sync's split reads spans the port records; the
+    DiLoCo phases print it per committed sync."""
+    assert name in chip_smoke.DILOCO_SPANS
+    assert f'obs_span("{name}"' in "".join(
+        p.read_text() for p in (REPO / "torchft_tpu_torch").rglob("*.py"))
+    assert "spans=spans" in (REPO / "chip_smoke.py").read_text()
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_unspanned_time_is_what_no_span_covers(chip_smoke, quantized) -> None:
+    """Outside compute, an iteration's seconds less the train thread's
+    spans, plus the part of the fence its pipeline's spans leave bare;
+    a pipeline longer than the fence (spans on threads that overlap) adds
+    nothing."""
+    row = dict.fromkeys(chip_smoke.SPLIT_SPANS + chip_smoke.HOST_SPANS, 0.0)
+    row.update({"ddp::stage": 1.0, "ddp::submit": 0.25, "manager::fence": 4.0,
+                "manager::should_commit": 0.25, "manager::avg": 1.0, "ddp::copy_back": 0.5})
+    row["quant::pipeline" if quantized else "comm::op"] = 2.0
+    phase = {"compute": 0.3, "allreduce": 1.5, "commit": 4.5}
+    # 6.0 outside compute - 5.5 on the train thread + 0.5 of the fence bare
+    assert chip_smoke.unspanned_s(phase, row, quantized) == pytest.approx(1.0)
+    row["manager::avg"] = 3.0
+    assert chip_smoke.unspanned_s(phase, row, quantized) == pytest.approx(0.5)
+
+
 def test_commit_split_sums_each_window_per_replica(chip_smoke) -> None:
     spans = [
         {"name": "comm::op", "t": 1.0, "dur": 0.4},
@@ -165,22 +221,26 @@ def test_commit_split_sums_each_window_per_replica(chip_smoke) -> None:
 
 
 def test_cross_tier_hash_check(chip_smoke) -> None:
-    """The float pair stays held across the tiers; the quantized sync,
-    on the C++ tier alone, is held to its expected hash only."""
+    """Each sync's pair is held across the tiers: float and quantized."""
     results = {key: {"params_sha256": ("q" if quantized else "f")}
                for key, quantized, _ in chip_smoke.TRAIN_PHASES}
     assert chip_smoke.check_cross_tier(results) == {
-        "float": {"cpp": "f", "python": "f"}, "quantized": {"cpp": "q"}}
+        "float": {"cpp": "f", "python": "f"}, "quantized": {"cpp": "q", "python": "q"}}
     results["train_python"] = {"params_sha256": "other"}
     with pytest.raises(AssertionError, match="float sync"):
+        chip_smoke.check_cross_tier(results)
+    results["train_python"] = {"params_sha256": "f"}
+    results["train_quantized_python"] = {"params_sha256": "other"}
+    with pytest.raises(AssertionError, match="quantized sync"):
         chip_smoke.check_cross_tier(results)
 
 
 def test_diloco_phases_are_bench_phase_d_and_its_twins(chip_smoke) -> None:
     """The DiLoCo / LocalSGD phases: bench.py's phase D schedule (sync_every
     8, 2 fragments, delay 2) with a kill, the same streamed with its kill
-    between a submit and its barrier, the same over the int8 wire to 1
-    outer step with no kill, and LocalSGD; every keyword is one
+    between a submit and its barrier, the same over the int8 wire (its 3
+    outer steps, its kill and its heal over HTTP driven again), and
+    LocalSGD; every keyword is one
     ``run_diloco_fleet`` takes, and the tier is named by the phase runner,
     never resolved."""
     import inspect
@@ -202,7 +262,8 @@ def test_diloco_phases_are_bench_phase_d_and_its_twins(chip_smoke) -> None:
     quantized = phases["diloco_quantized_cpp"]
     assert (quantized["sync_every"], quantized["num_fragments"], quantized["fragment_sync_delay"],
             quantized["outer_steps"], quantized["kill_at"], quantized["should_quantize"]) == (
-                8, 2, 2, 1, None, True)
+                8, 2, 2, 3, (1, 5), True)
+    assert quantized == dict(phases["diloco_cpp"], should_quantize=True)
     assert chip_smoke.DILOCO_ENV == {"diloco_stream_cpp": {"TORCHFT_STREAM_SYNC": "1"}}
     assert phases["localsgd_cpp"]["algo"] == "localsgd" and "kill_at" not in phases["localsgd_cpp"]
     assert 'tier="cpp", **fleet' in (REPO / "chip_smoke.py").read_text()
@@ -274,12 +335,12 @@ def test_backup_check_follows_the_synced_fragments(chip_smoke, decisions, shas, 
 
 @pytest.mark.parametrize("tier", ["cpp", "python"])
 def test_quantized_diloco_fleet_passes_its_checks_on_the_cpu(chip_smoke, tier) -> None:
-    """``diloco_quantized_cpp``'s fleet at ``llama_debug`` size: one
-    committed int8 sync of fragment 0 and no kill pass the card phase's
-    checks (no restart, no heal; fragment 0's backups moved and are equal,
-    fragment 1's still the initial weights; fragment 0's live parameters
-    equal).  The C++ tier skips only where the native library does not
-    build."""
+    """``diloco_quantized_cpp``'s fleet at ``llama_debug`` size: 3
+    committed int8 outer steps with replica 1 killed and healed over HTTP
+    pass the card phase's checks (one restart, a heal carrying fragment
+    state, every fragment synced after it; backups moved and equal; the
+    fragment synced last equal live).  The C++ tier skips only where the
+    native library does not build."""
     import torch
 
     from torchft_tpu_torch import native, train_ddp, train_diloco
@@ -290,12 +351,12 @@ def test_quantized_diloco_fleet_passes_its_checks_on_the_cpu(chip_smoke, tier) -
     results = train_diloco.run_diloco_fleet(
         train_ddp.model_config("llama_debug"), torch.device("cpu"), replicas=2, batch=2,
         seq=128, lr=1e-3, timeout=30.0, tier=tier, **fleet)
-    assert [r.final_step for r in results] == [1, 1]
-    assert results[0].sync_decisions == [(0, True)]
-    assert chip_smoke.check_restarts(results, killed=False) is None
+    assert [r.final_step for r in results] == [3, 3]
+    assert chip_smoke.check_restarts(results, killed=True) is results[1].heal
+    assert chip_smoke.check_post_heal_syncs(results[1], fleet["num_fragments"]) == [1, 0]
     chip_smoke.check_backups(results, fleet["num_fragments"])
-    assert results[0].fragment_sha256[1] == results[0].initial_fragment_sha256[1]
-    assert results[0].fragment_live_sha256[0] == results[1].fragment_live_sha256[0]
+    last = (results[0].final_step - 1) % fleet["num_fragments"]
+    assert results[0].fragment_live_sha256[last] == results[1].fragment_live_sha256[last]
 
 
 def test_host_rss_sampler_reads_this_process(chip_smoke) -> None:
@@ -907,6 +968,26 @@ def test_kernels_line_carries_the_fleet_phases_launches() -> None:
     assert "check_expected_hashes({\"float\": t[\"params_sha256\"]})" in source
 
 
+def test_every_path_reports_its_own_launches_or_null() -> None:
+    """The train_ddp and train_hsdp workers report the launches of every
+    kernel of the table, the avg kernel's included (their gradients go
+    through it), and the kernels line prints a path's count of a kernel
+    only where that path counted it: null, never a made-up 0."""
+    from torchft_tpu_torch import train_ddp
+
+    assert set(train_ddp._launches()) == {"fwd", "dq", "dkv", "quantize", "reduce",
+                                          "dequantize", "avg"}
+    hsdp = (REPO / "torchft_tpu_torch" / "train_hsdp.py").read_text()
+    assert "launches={**fa.launches, **qk.launches, **avg_ops.launches}" in hsdp
+    source = (REPO / "chip_smoke.py").read_text()
+    line = source[source.index("line = {\"kernels\": ["):source.index("print(json.dumps(line)")]
+    assert ".get(name, 0)" not in line and ".get(name)" in line
+    for phase in ("def diloco_phase(", "def spare_phase("):
+        body = source[source.index(phase):]
+        body = body[:body.index("\ndef ")]
+        assert "avg.reset_launches()" in body and "**avg.launches}" in body
+
+
 def _job_loss(change=None):
     """A passing job loss: the first fleet saved step 1 from replica 0; the
     restored fleet loaded it on both replicas and saved step 2."""
@@ -1224,3 +1305,38 @@ def test_chaos_deadlock_checks_raise_on_failure(chip_smoke, tmp_path, heal_line,
     alive = _drill_result(tmp_path, final0=dict(pid=str(os.getpid())))
     with pytest.raises(AssertionError, match="outlived the drill"):
         chip_smoke.check_chaos_deadlock(alive, 80, 1)
+
+
+def test_the_avg_kernel_is_held_in_place(chip_smoke) -> None:
+    """``avg_phase`` also divides in place, as the main path divides each
+    leaf: bf16 and f32, at a leaf's 16-byte-aligned length and at a ragged
+    one with the special values."""
+    cases = chip_smoke.AVG_IN_PLACE_CASES
+    assert {(c["src"], c["dst"]) for c in cases} == {
+        (chip_smoke.torch.bfloat16,) * 2, (chip_smoke.torch.float32,) * 2}
+    sizes = {c["src"]: c["src"].itemsize for c in cases}
+    for c in cases:
+        aligned = c["n"] * sizes[c["src"]] % 16 == 0
+        assert aligned != c["name"].startswith("special")
+    source = (REPO / "chip_smoke.py").read_text()
+    assert 'avg.average_into(src, case["divisor"], src)' in source
+
+
+def test_the_avg_kernel_is_held_and_listed(chip_smoke) -> None:
+    """The port's AVG kernel replaces the JAX package's host divide
+    (``manager._div``), is timed at the float and int8 paths' whole
+    gradient and held on NaN payloads, and rides the kernels line with its
+    launches from the float phase."""
+    source, replaces = _port_kernels()["ddp_avg"]
+    assert (REPO / source).is_file()
+    path, line = replaces.rsplit(":", 1)
+    tree = ast.parse((REPO / path).read_text())
+    defs = [n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef) and n.lineno == int(line)]
+    assert [d.name for d in defs] == ["_div"]
+    cases = {c["name"]: c for c in chip_smoke.AVG_CASES}
+    assert cases["main"]["n"] == cases["int8"]["n"] == chip_smoke.MAIN_QUANT["n"]
+    assert {c["divisor"] for c in chip_smoke.AVG_CASES} == {2, 3}
+    text = (REPO / "chip_smoke.py").read_text()
+    assert 'name="ddp_avg"' in text and 'launches=float_t["launches"]["avg"]' in text
+    assert '("fwd", "dq", "dkv", "avg")' in text
+    assert '("quantize", "reduce", "dequantize") if should_quantize' in text

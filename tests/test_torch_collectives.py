@@ -200,3 +200,22 @@ def test_wire_kind_mismatch_is_detected(store) -> None:
         return True
 
     assert all(_run_ranks(store, [TCPCommunicator] * 2, fn, "kind"))
+
+
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+def test_outer_sync_quantize_on_the_kernels_matches_jax(monkeypatch, kind) -> None:
+    """The sharded outer sync quantizes its contribution and each delta,
+    and dequantizes the gathered deltas, through the quant kernels when
+    the device reduce is on (forced here: on the CPU their plain
+    versions): the JAX package's host wire bit for bit."""
+    monkeypatch.setenv("TORCHFT_QUANT_DEVICE_REDUCE", "1")
+    rng = np.random.default_rng(3)
+    x = (rng.standard_normal(5 * 1024) * np.logspace(-3, 3, 5 * 1024)).astype(np.float32)
+    q, s = tcoll._quantize_rows(x, 1024, kind)
+    jq_, js = jax_quantize(x, row_size=1024, kind=kind)
+    assert q.shape == jq_.shape and s.shape == js.shape
+    np.testing.assert_array_equal(q.view(np.uint8), np.asarray(jq_).view(np.uint8))
+    np.testing.assert_array_equal(s.view(np.uint32), np.asarray(js, np.float32).view(np.uint32))
+    back = tcoll._dequantize_rows(q, s, x.size - 100)
+    want = jq.dequantize_rowwise(jq_, js, x.size - 100, np.float32)
+    np.testing.assert_array_equal(back.view(np.uint32), want.view(np.uint32))

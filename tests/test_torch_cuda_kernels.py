@@ -367,3 +367,92 @@ def test_reduce_launches_the_sm90_kernel(cuda_device) -> None:
     from csrc/quant.cu."""
     assert hasattr(tq._lib(tq.REDUCE_SOURCE), "tft_reduce_quantized_sm90")
     assert not hasattr(tq._lib(tq.KERNEL_SOURCE), "tft_reduce_quantized")
+
+
+def _avg_sum(n: int, src: torch.dtype, device) -> torch.Tensor:
+    """A bucket SUM: normal values over many decades, then NaNs of both
+    signs, with a payload and signaling, ±inf, the largest finite value,
+    subnormals and rounding ties."""
+    gen = torch.Generator(device=device).manual_seed(5)
+    x = torch.randn(n, generator=gen, device=device)
+    x *= torch.logspace(-40, 38, n, device=device)
+    bits = x.view(torch.int32)
+    bits[:8] = torch.tensor([0x7FC00000, -0x400000, 0x7FA00001, -0x3EDCBB, 0x7F800000,
+                             -0x800000, 0x7F7FFFFF, 0x00000001], dtype=torch.int32, device=device)
+    x[8:14] = torch.tensor([1e-39, -1e-40, 3.0, 1.0 + 2.0 ** -8, 0.0, -0.0], device=device)
+    if src == torch.float32:
+        return x
+    return (bits >> 16).to(torch.int16).view(torch.bfloat16)
+
+
+def _avg_host_bits(host: torch.Tensor, dst: torch.dtype, divisor: int):
+    """The host's divide of the sum ``host`` (``bf16.div`` for bf16; numpy's
+    f32 division, that quotient rounded by ``bf16.from_f32`` into a bf16
+    leaf), as the bits the card must write."""
+    import numpy as np
+
+    from torchft_tpu_torch import bf16
+
+    if host.dtype == torch.bfloat16:
+        return bf16.div(bf16.from_tensor(host), divisor).view(np.uint16)
+    with np.errstate(invalid="ignore"):
+        quotient = host.numpy() / np.float32(divisor)
+    return quotient.view(np.uint32) if dst == torch.float32 else (
+        bf16.from_f32(quotient).view(np.uint16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4096 * 1024, (1 << 16) + 13], ids=["leaf", "ragged"])
+@pytest.mark.parametrize("divisor", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_avg_kernel_divides_in_place(cuda_device, dtype, divisor, n) -> None:
+    """The avg kernel with the sum and the leaf one buffer, as the main
+    path calls it: bit for bit against its plain version and the host's
+    divide, NaN payloads included, at a 16-byte-aligned length and a ragged
+    one."""
+    import numpy as np
+
+    from torchft_tpu_torch.ops import avg as tavg
+
+    x = _avg_sum(n, dtype, cuda_device)
+    plain = torch.empty_like(x)
+    tavg.average_into_plain(x, divisor, plain)
+    want = _avg_host_bits(x.cpu(), dtype, divisor)
+    tavg.reset_launches()
+    tavg.average_into(x, divisor, x)
+    assert tavg.launches["avg"] == 1
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(x.view(bits), plain.view(bits))
+    got = x.view(bits).cpu().numpy().view(want.dtype)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 3])
+@pytest.mark.parametrize("divisor", [2, 3])
+@pytest.mark.parametrize("src, dst", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+    (torch.float32, torch.bfloat16)])
+def test_avg_kernel_matches_the_host_divide(cuda_device, src, dst, divisor, offset) -> None:
+    """The avg kernel on the card, bit for bit against the host's divide
+    (``bf16.div`` for a bf16 sum, numpy's f32 division for an f32 one, that
+    quotient rounded by ``bf16.from_f32`` into bf16) and against its plain
+    version on the card, NaN payloads included; a ragged length, at an
+    aligned start (16-byte loads) and at an odd one (element by element)."""
+    import numpy as np
+
+    from torchft_tpu_torch.ops import avg as tavg
+
+    n = (1 << 16) + 13
+    x = _avg_sum(n + offset, src, cuda_device)[offset:]
+    out = torch.empty(n, dtype=dst, device=cuda_device)
+    tavg.reset_launches()
+    tavg.average_into(x, divisor, out)
+    assert tavg.launches["avg"] == 1
+    plain = torch.empty_like(out)
+    tavg.average_into_plain(x, divisor, plain)
+    want = _avg_host_bits(x.cpu(), dst, divisor)
+    bits = torch.int16 if dst == torch.bfloat16 else torch.int32
+    got = out.view(bits).cpu().numpy().view(want.dtype)
+    np.testing.assert_array_equal(got, want)
+    assert torch.equal(out.view(bits), plain.view(bits))

@@ -15,8 +15,11 @@
 - bf16 tensors serialize without an extension dtype.
 """
 
+import json
+import os
 import threading
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -338,3 +341,282 @@ def test_bf16_tensors_serialize_by_bit_pattern() -> None:
     np.testing.assert_array_equal(out["np"].numpy(), state["np"])
     assert out["meta"] == state["meta"]
 
+
+
+# --- the average on the card: the summed bucket divided into the leaves ---
+
+
+def _with_specials(grads, idx):
+    """NaNs of both signs and ±inf in two leaves of replica ``idx``'s
+    gradients (its other leaves untouched): every replica's NaN and inf
+    reach the sum, and a NaN's sign rides the ring's adds."""
+    out = [g.copy() for g in grads]
+    flat = out[1].reshape(-1)
+    flat[idx * 3 : idx * 3 + 3] = np.array([np.nan, np.inf, -np.inf], np.float32).astype(flat.dtype)
+    out[4].reshape(-1)[7 + idx] = -np.nan if idx % 2 else np.nan
+    return out
+
+
+def _port_bits_body(arrays):
+    """:func:`_port_body` with each gradient built from the array's own
+    bits (a cast through f32 would rewrite bf16 NaN payloads)."""
+
+    def body(manager):
+        grads = [torch.from_numpy(np.asarray(a).view(np.int16).copy()).view(torch.bfloat16)
+                 if a.dtype.itemsize == 2 else torch.from_numpy(a.copy()) for a in arrays]
+        params = [torch.nn.Parameter(torch.zeros_like(g)) for g in grads]
+        for p, g in zip(params, grads):
+            p.grad = g
+        tddp.allreduce_gradients(manager, params).wait()
+        return [p.grad.clone() for p in params]
+
+    return body
+
+
+@pytest.mark.parametrize("replicas", [2, 3])
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_card_average_is_bit_identical_to_jax_with_nan_and_inf(dtype, replicas) -> None:
+    """The gradient path divides each summed bucket with ``ops.avg`` (its
+    plain version on CPU tensors) and writes it into the ``.grad`` leaves:
+    bit for bit the JAX package's ring sum and host divide, NaN payloads
+    and ±inf included, at 2 and 3 replicas and with many buckets."""
+    import ml_dtypes
+
+    np_dtype, torch_dtype = ((ml_dtypes.bfloat16, torch.bfloat16) if dtype == "bf16"
+                             else (np.float32, torch.float32))
+    server = LighthouseServer(
+        bind="127.0.0.1:0", min_replicas=replicas, join_timeout_ms=100,
+        quorum_tick_ms=20, heartbeat_timeout_ms=2000,
+    )
+    try:
+        grads = [_with_specials(_grads(i, SHAPES, np_dtype), i) for i in range(replicas)]
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("TORCHFT_BUCKET_CAP_MB", "0.004")
+            port = _run_pair(server.local_address(),
+                             [(tmanager, TCPCommunicator, _port_bits_body(a)) for a in grads])
+            ref = _jax_average(server.local_address(), grads)
+    finally:
+        server.shutdown()
+    for replica in range(replicas):
+        for got, want in zip(port[replica], ref[replica]):
+            assert got.dtype == torch_dtype
+            bits = (torch.int16, np.int16) if dtype == "bf16" else (torch.int32, np.int32)
+            np.testing.assert_array_equal(got.view(bits[0]).numpy(),
+                                          np.asarray(want).view(bits[1]))
+    assert torch.isnan(port[0][1]).any() and torch.isinf(port[0][1]).any()
+
+
+def _gated(manager, gate):
+    """``manager.allreduce`` whose Works complete only once ``gate`` is set
+    (the ring itself runs at once): a composite that stays busy."""
+    from torchft_tpu_torch.work import Work
+
+    original = manager.allreduce
+
+    def allreduce(*args, **kwargs):
+        inner = original(*args, **kwargs)
+        out = Future()
+
+        def _release():
+            gate.wait(timeout=30)
+            try:
+                out.set_result(inner.wait())
+            except BaseException as e:  # noqa: BLE001
+                out.set_exception(e)
+
+        threading.Thread(target=_release, daemon=True).start()
+        return Work(out)
+
+    manager.allreduce = allreduce
+
+
+@pytest.mark.parametrize("busy", [False, True], ids=["fenced", "still-reading"])
+def test_second_step_does_not_overwrite_the_first_steps_buckets(lighthouse, busy) -> None:
+    """Two gradient averages in a row on one Manager, the second staged
+    after the first was fenced, or while the first composite still reads
+    its buckets (its Works held open): the second step's host buckets
+    share no memory with the first's while those are read, and both
+    averages are exact."""
+    grads = [[_grads(i, SHAPES, np.float32), _grads(i + 5, SHAPES, np.float32)]
+             for i in range(2)]
+    submit = tddp._submit_buckets
+
+    def body(steps):
+        def run(manager):
+            params = [torch.nn.Parameter(torch.zeros(a.shape)) for a in steps[0]]
+            outs = []
+            gate = threading.Event()
+            if busy:
+                _gated(manager, gate)
+            works = []
+            for arrays in steps:
+                for p, a in zip(params, arrays):
+                    p.grad = torch.from_numpy(a.copy())
+                works.append(tddp.allreduce_gradients(manager, params))
+                if not busy:
+                    works[-1].wait()
+                    outs.append([p.grad.clone() for p in params])
+                    if len(outs) == 1:
+                        assert manager.should_commit()
+                        manager.start_quorum()
+            if busy:
+                gate.set()
+                outs = [[g.clone() for g in w.wait()] for w in works]
+            return outs
+
+        return run
+
+    seen: dict = {}  # manager -> per step, the (start, end) of each host bucket
+
+    def recording(manager, *args, **kwargs):
+        out = submit(manager, *args, **kwargs)
+        seen.setdefault(id(manager), []).append(
+            [(h.data_ptr(), h.data_ptr() + h.numel() * h.element_size()) for h in out[2]])
+        return out
+
+    with mock.patch.object(tddp, "_submit_buckets", recording):
+        results = _run_pair(lighthouse.local_address(),
+                            [(tmanager, TCPCommunicator, body(g)) for g in grads])
+    assert sorted(len(steps) for steps in seen.values()) == [2, 2]
+    if busy:
+        for first, second in seen.values():
+            assert not any(a0 < b1 and b0 < a1 for a0, a1 in first for b0, b1 in second)
+    for outs in results:
+        for step, got in enumerate(outs):
+            for leaf, g in enumerate(got):
+                want = (grads[0][step][leaf] + grads[1][step][leaf]) / np.float32(2)
+                np.testing.assert_array_equal(g.numpy(), want)
+
+
+def _avg_operands():
+    """bf16 sums over many decades with the edges: ±0, ±inf, the largest
+    finite, NaNs of both signs, a NaN with a payload, subnormals."""
+    rng = np.random.default_rng(11)
+    x = (rng.standard_normal(4096) * np.logspace(-40, 38, 4096)).astype(np.float32)
+    edges = np.array([0.0, -0.0, np.inf, -np.inf, 3.3895e38, -3.3895e38, np.nan, -np.nan,
+                      1e-39, -1e-40, 3.0, 1.0 + 2.0 ** -8], dtype=np.float32)
+    x[: edges.size] = edges
+    bits = x.view(np.uint32)
+    bits[20] = 0x7FA00001  # a signaling NaN with a payload
+    bits[21] = 0xFFC12345  # a quiet negative NaN with a payload
+    return x
+
+
+@pytest.mark.parametrize("divisor", [1, 2, 3, 7])
+@pytest.mark.parametrize("src, dst", [("bf16", "bf16"), ("f32", "f32"), ("f32", "bf16")])
+def test_average_into_plain_matches_the_host_divide(src, dst, divisor) -> None:
+    """``ops.avg``'s plain version (the kernel's arithmetic) against the
+    host's divide: ``bf16.div`` for bf16 sums (ml_dtypes' divide, NaN
+    signs included), numpy's f32 division for f32 (its NaN made quiet,
+    sign and payload kept), and that f32 quotient rounded as ml_dtypes
+    rounds it for the int8 path's bf16 leaves."""
+    import ml_dtypes
+    from torchft_tpu_torch import bf16
+    from torchft_tpu_torch.ops import avg
+
+    x = _avg_operands()
+    if src == "bf16":
+        with np.errstate(invalid="ignore"):
+            x = x.astype(ml_dtypes.bfloat16)
+        src_t = torch.from_numpy(np.asarray(x).view(np.int16).copy()).view(torch.bfloat16)
+        want = bf16.div(np.asarray(x).view(np.uint16).view(bf16.BF16), divisor).view(np.uint16)
+    else:
+        src_t = torch.from_numpy(x.copy())
+        with np.errstate(invalid="ignore"):
+            quotient = x / np.float32(divisor)
+        want = (quotient if dst == "f32" else quotient.astype(ml_dtypes.bfloat16))
+        want = np.asarray(want).view(np.uint32 if dst == "f32" else np.uint16)
+    out = torch.empty(x.size, dtype=torch.bfloat16 if dst == "bf16" else torch.float32)
+    avg.average_into(src_t, divisor, out)
+    got = out.view(torch.int16 if dst == "bf16" else torch.int32).numpy()
+    np.testing.assert_array_equal(got.view(want.dtype), want)
+    assert avg.launches["avg"] == 0  # CPU tensors take the plain version
+
+
+@pytest.mark.parametrize("piece", [None, 1000], ids=["one-piece", "pieces-of-1000"])
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+def test_int8_average_matches_the_host_wire_bit_for_bit(lighthouse, monkeypatch, kind,
+                                                        piece) -> None:
+    """The quantized gradient path dequantizes the reduced stream and
+    divides it on the card (the plain versions here), piece by piece (rows
+    from a multiple of 4, pieces that split leaves and rows): bit for bit
+    the JAX package's host wire (``quantize_rowwise`` / ``reduce_quantized``
+    / ``dequantize_rowwise`` on its numpy path, which the golden fixture
+    pins) followed by its f32 divide and a round to each leaf's dtype."""
+    import ml_dtypes
+
+    import torchft_tpu.quantization as jq
+
+    monkeypatch.setattr(jq, "_NATIVE", None)
+    if piece is not None:
+        monkeypatch.setattr(tddp, "_DEQUANT_PIECE", piece)
+    monkeypatch.setenv("TORCHFT_QUANT_KIND", kind)
+    with open(os.path.join(os.path.dirname(__file__), "fixtures", "quant_wire_golden.json")) as f:
+        golden = json.load(f)
+    rng = np.random.default_rng(42)
+    fixture_input = (rng.normal(size=512) * np.logspace(-2, 2, 512)).astype(np.float32)
+    q, s = jq.quantize_rowwise(fixture_input, row_size=128, kind=kind)
+    assert np.asarray(q).view(np.uint8).reshape(-1).tolist() == golden[kind]["payload"]
+    assert s.astype(float).tolist() == golden[kind]["scales"]
+
+    dtypes = [torch.bfloat16, torch.float32, torch.bfloat16, torch.float32, torch.bfloat16]
+    grads = [_grads(i, SHAPES, np.float32) for i in range(2)]
+    grads[0][4][:512] = fixture_input
+
+    def body(arrays):
+        def run(manager):
+            params = [torch.nn.Parameter(torch.zeros(a.shape, dtype=d))
+                      for a, d in zip(arrays, dtypes)]
+            for p, a, d in zip(params, arrays, dtypes):
+                p.grad = torch.from_numpy(a.copy()).to(d)
+            tddp.allreduce_gradients(manager, params, should_quantize=True).wait()
+            return [p.grad.clone() for p in params]
+
+        return run
+
+    outs = _run_pair(lighthouse.local_address(),
+                     [(tmanager, TCPCommunicator, body(g)) for g in grads])
+    wire = []
+    for arrays in grads:
+        flat = np.concatenate([torch.from_numpy(a).to(d).float().numpy().reshape(-1)
+                               for a, d in zip(arrays, dtypes)])
+        wire.append(jq.quantize_rowwise(flat, row_size=1024, kind=kind))
+    n = sum(a.size for a in grads[0])
+    rq, rs = jq.reduce_quantized(np.stack([w[0] for w in wire]), np.stack([w[1] for w in wire]),
+                                 kind)
+    average = jq.dequantize_rowwise(rq, rs, n, np.float32) / np.float32(2)
+    off = 0
+    for leaf, (a, d) in enumerate(zip(grads[0], dtypes)):
+        want = average[off : off + a.size].reshape(a.shape)
+        off += a.size
+        for replica in range(2):
+            got = outs[replica][leaf]
+            if d == torch.bfloat16:
+                np.testing.assert_array_equal(
+                    got.view(torch.int16).numpy(),
+                    np.asarray(want.astype(ml_dtypes.bfloat16)).view(np.int16))
+            else:
+                np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_float64_gradients_are_divided_on_the_host(lighthouse) -> None:
+    """A dtype the avg kernel does not take (f64) rides the Manager's host
+    divide and a copy back: bit for bit the JAX package's f64 average."""
+    grads = [_grads(i, SHAPES, np.float64) for i in range(2)]
+
+    def body(arrays):
+        def run(manager):
+            params = [torch.nn.Parameter(torch.zeros(a.shape, dtype=torch.float64)) for a in arrays]
+            for p, a in zip(params, arrays):
+                p.grad = torch.from_numpy(a.copy())
+            tddp.allreduce_gradients(manager, params).wait()
+            return [p.grad.clone() for p in params]
+
+        return run
+
+    port = _run_pair(lighthouse.local_address(),
+                     [(tmanager, TCPCommunicator, body(a)) for a in grads])
+    ref = _jax_average(lighthouse.local_address(), grads)
+    for got, want in zip(port[0], ref[0]):
+        assert got.dtype == torch.float64
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))

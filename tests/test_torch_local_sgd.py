@@ -302,6 +302,26 @@ class TestDiLoCo:
         assert results[1] is True and results[0] is None
         assert [f.names for f in diloco.fragments] == [["a"], ["b"]]
 
+    def test_sharded_sync_keeps_each_backup_apart_from_its_scratch(self) -> None:
+        """Two fragments share one pseudo-gradient scratch, reused sync
+        after sync; no fragment's backup is a view of it (the next sync of
+        the other fragment overwrites it), and each adopts its own value."""
+        model = Params({"a": np.full(4, 10.0, np.float32), "b": np.full(4, 20.0, np.float32)})
+        diloco = DiLoCo(solo_manager(4), model, OuterSGD(1.0), sync_every=4, num_fragments=2)
+        scratch = []
+        for _ in range(8):
+            self._inner(model, 1.0)
+            if diloco.step() is not None:
+                scratch.append(diloco.fragments[0]._scratch._buf.ctypes.data)
+        assert len(scratch) == 4 and len(set(scratch)) == 1
+        buf = diloco.fragments[0]._scratch._buf
+        for frag in diloco.fragments:
+            for b in frag.backup:
+                assert not np.shares_memory(b.numpy(), buf)
+        # an outer SGD at lr 1 adopts each fragment's local value
+        np.testing.assert_array_equal(model.values()["a"], np.full(4, 2.0))
+        np.testing.assert_array_equal(model.values()["b"], np.full(4, 12.0))
+
     def test_fragment_sync_delay_overlaps(self) -> None:
         model = Params({"w": np.full(2, 10.0, np.float32)})
         diloco = DiLoCo(solo_manager(1), model, OuterSGD(0.5), sync_every=3,

@@ -96,6 +96,41 @@ def _use_device_reduce(shard_bytes: int) -> bool:
     return torch.cuda.is_available() and shard_bytes >= _DEVICE_REDUCE_MIN_BYTES
 
 
+def _quantize_rows(x: np.ndarray, row_size: int, kind: str) -> Tuple[np.ndarray, np.ndarray]:
+    """:func:`quantize_rowwise` of an f32 ``x`` of whole rows, by the
+    quantize kernel (``ops.quant``) where the device reduce is on (the same
+    gate: the card when there is one): the host wire's bytes, computed on
+    the card instead of in host numpy passes."""
+    if row_size != DEFAULT_ROW_SIZE or not _use_device_reduce(x.nbytes):
+        return quantize_rowwise(x, row_size, kind)
+    from torchft_tpu_torch.ops.quant import quantize_rowwise_device
+
+    rows = -(-x.size // row_size)
+    q, s = quantize_rowwise_device(torch.from_numpy(x).to(_reduce_device()), row_size, kind)
+    if kind == FP8:
+        q = q.view(torch.uint8)  # the host holds e4m3 as its bit pattern
+    return q[:rows].cpu().numpy(), s.reshape(-1)[:rows].cpu().numpy()
+
+
+def _dequantize_rows(q: np.ndarray, scales: np.ndarray, n: int) -> np.ndarray:
+    """:func:`dequantize_rowwise` to f32, by the dequantize kernel where
+    the device reduce is on (as :func:`_quantize_rows`)."""
+    if q.shape[-1] != DEFAULT_ROW_SIZE or not _use_device_reduce(q.nbytes):
+        return dequantize_rowwise(q, scales, n, np.float32)
+    from torchft_tpu_torch.ops.quant import dequantize_rowwise_device
+
+    device = _reduce_device()
+    q_t = torch.from_numpy(np.ascontiguousarray(q)).to(device)
+    if _kind_of(q) == FP8:
+        q_t = q_t.view(torch.float8_e4m3fn)
+    s_t = torch.from_numpy(np.ascontiguousarray(scales, dtype=np.float32)).to(device)
+    return dequantize_rowwise_device(q_t, s_t, n).cpu().numpy()
+
+
+def _reduce_device() -> torch.device:
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
 def _as_f32(a: np.ndarray) -> np.ndarray:
     """A contribution widened to f32 (bf16 exactly, from its bit pattern)."""
     return bf16.to_f32(a) if bf16.is_bf16(a) else np.asarray(a, dtype=np.float32)
@@ -171,7 +206,7 @@ def _reduce_shards(
     if _use_device_reduce(qs[0].nbytes):
         from torchft_tpu_torch.ops.quant import reduce_quantized_device
 
-        device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+        device = _reduce_device()
         q_t = torch.from_numpy(np.ascontiguousarray(qs)).to(device)
         if kind == FP8:
             q_t = q_t.view(torch.float8_e4m3fn)
@@ -244,7 +279,8 @@ def _allreduce_pipelined_sync(
     scales: np.ndarray,
     n: int,
     tag_base: int,
-) -> np.ndarray:
+    dequantize: bool = True,
+) -> Optional[np.ndarray]:
     """SUM-allreduce of quantized rows with window-level overlap.
 
     Deterministic per-rank schedule (identical everywhere, so the single op
@@ -259,6 +295,10 @@ def _allreduce_pipelined_sync(
     window (and the rest of the schedule, if the communicator died) to zero
     shards so peers never wedge, then the first error re-raises at the end —
     same containment contract as the single-window path.
+
+    With ``dequantize=False`` the reduced rows and scales are written over
+    ``q`` and ``scales`` (every a2a has packed them by then) and None is
+    returned.
     """
     kind = _kind_of(q)
     ws = comm.size()
@@ -293,7 +333,7 @@ def _allreduce_pipelined_sync(
             span,
         )
     err: Optional[BaseException] = None
-    out = np.empty(rows * row_size, dtype=np.float32)
+    out = np.empty(rows * row_size, dtype=np.float32) if dequantize else None
 
     # one padded staging scratch (q rows + their scales), sized for the
     # largest window and reused across windows — the previous per-window
@@ -378,16 +418,24 @@ def _allreduce_pipelined_sync(
             )
             q_full = np.concatenate(qs_full)[: stop - start]
             s_full = np.concatenate(ss_full)[: stop - start]
-            out[start * row_size : stop * row_size] = dequantize_rowwise(
-                q_full, s_full, (stop - start) * row_size, np.float32
-            )
+            if not dequantize:
+                q[start:stop] = q_full
+                scales[start:stop] = s_full
+                continue
+            with obs_span("quant::dequantize"):
+                out[start * row_size : stop * row_size] = dequantize_rowwise(
+                    q_full, s_full, (stop - start) * row_size, np.float32
+                )
         except BaseException as e:  # noqa: BLE001
             err = err or e
-            out[start * row_size : stop * row_size] = 0.0
+            if dequantize:
+                out[start * row_size : stop * row_size] = 0.0
+            else:
+                scales[start:stop] = 0.0
 
     if err is not None:
         raise err
-    return out[:n]
+    return out[:n] if dequantize else None
 
 
 
@@ -628,7 +676,7 @@ def _outer_sharded_pipeline(
     if should_quantize:
         # quantize the whole contribution ONCE; every a2a slice below is a
         # row-aligned view of this single pass
-        q_full, s_full = quantize_rowwise(buf, row_size, kind)
+        q_full, s_full = _quantize_rows(buf, row_size, kind)
 
     if gsize == 1 or getattr(group, "is_passthrough", False):
         # degenerate single-owner group: no wire, but keep the per-chunk
@@ -638,9 +686,7 @@ def _outer_sharded_pipeline(
             if should_quantize:
                 assert q_full is not None and s_full is not None
                 rows = slice(c0 // row_size, c1 // row_size)
-                avg = dequantize_rowwise(
-                    q_full[rows], s_full[rows], c1 - c0, np.float32
-                )
+                avg = _dequantize_rows(q_full[rows], s_full[rows], c1 - c0)
                 avg *= inv
             else:
                 avg = buf[c0:c1] * inv
@@ -648,8 +694,8 @@ def _outer_sharded_pipeline(
             delta = np.asarray(update_cb(c0, c1, avg), dtype=np.float32)
             tm["update_s"] += time.perf_counter() - t0
             if should_quantize:
-                dq, ds = quantize_rowwise(delta, row_size, kind)
-                delta = dequantize_rowwise(dq, ds, c1 - c0, np.float32)
+                dq, ds = _quantize_rows(delta, row_size, kind)
+                delta = _dequantize_rows(dq, ds, c1 - c0)
             delta_full[c0:c1] = delta
         return delta_full
 
@@ -711,7 +757,7 @@ def _outer_sharded_pipeline(
         if delta is None:
             delta = np.zeros(c1 - c0, dtype=np.float32)
         if should_quantize:
-            dq, ds = quantize_rowwise(delta, row_size, kind)
+            dq, ds = _quantize_rows(delta, row_size, kind)
             ag_works.append(
                 group.allgather(_pack(dq, ds), tag=tag_base + 2 * ci + 1)
             )
@@ -739,7 +785,7 @@ def _outer_sharded_pipeline(
                 # delta, so params stay bit-identical across replicas
                 try:
                     dq, ds = _unpack(all_deltas[p], rows, row_size, kind)
-                    dst[:] = dequantize_rowwise(dq, ds, c1 - c0, np.float32)
+                    dst[:] = _dequantize_rows(dq, ds, c1 - c0)
                 except BaseException as e:  # noqa: BLE001
                     err = err or e
                     dst[:] = 0.0
@@ -846,14 +892,20 @@ def allreduce_prequantized(
     q: np.ndarray,
     scales: np.ndarray,
     n: int,
-) -> np.ndarray:
+    dequantize: bool = True,
+) -> Union[np.ndarray, Tuple[np.ndarray, np.ndarray]]:
     """SUM-allreduce of an already-quantized stream (1-byte rows + f32
     rowwise scales, e.g. produced on the card by ``ops.quant``);
     returns the dequantized float32 sum of length ``n``.  Synchronous —
-    callers layer Work/threading on top (``Manager.allreduce_prequantized``)."""
+    callers layer Work/threading on top (``Manager.allreduce_prequantized``).
+
+    ``dequantize=False`` returns the reduced stream instead, ``(q,
+    scales)`` written over the arrays given (whose rows the pipeline has
+    sent by then), for the caller to dequantize; a hierarchical topology
+    still returns the float32 sum."""
     scales = np.asarray(scales).reshape(-1)
     if comm.size() == 1 or getattr(comm, "is_passthrough", False):
-        return dequantize_rowwise(q, scales, n, np.float32)
+        return dequantize_rowwise(q, scales, n, np.float32) if dequantize else (q, scales)
     topo = _hier_topology(comm)
     if topo is not None:
         # prequantized input on a hierarchical topology: dequantize locally
@@ -864,9 +916,10 @@ def allreduce_prequantized(
             comm, topo, flat, q.shape[1], _kind_of(q),
             tag_base=DEVICE_QUANT_PIPELINE_TAG_BASE,
         )
-    return _allreduce_pipelined_sync(
-        comm, q, scales, n, tag_base=DEVICE_QUANT_PIPELINE_TAG_BASE
+    out = _allreduce_pipelined_sync(
+        comm, q, scales, n, tag_base=DEVICE_QUANT_PIPELINE_TAG_BASE, dequantize=dequantize
     )
+    return out if dequantize else (q, scales)
 
 
 def allreduce_quantized(

@@ -137,7 +137,7 @@ _k("TORCHFT_QUANT_KIND", "str", "int8",
 _k("TORCHFT_QUANT_WINDOW_MB", "float", "4",
    "Pipelined quantized-collective window size (MiB)")
 _k("TORCHFT_QUANT_DEVICE_REDUCE", "str", "auto",
-   "Force on/off the on-device dequant+reduce kernel path")
+   "Force on/off the quant kernels in the host pipelines (windowed reduce, outer-sync quantize/dequantize)")
 # --- net emulation / fault injection ----------------------------------------
 _k("TORCHFT_NET_EMU", "str", "off",
    "Named link-emulation profile for the data plane: wan_1g | dcn_10g")

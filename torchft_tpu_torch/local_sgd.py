@@ -182,14 +182,19 @@ class _OuterShard:
                     np.array([len(blob)], dtype=np.int64), tag=_RESHARD_LEN_TAG
                 ).wait()
                 maxlen = max(int(np.asarray(l).reshape(-1)[0]) for l in lens)
-                padded_blob = np.zeros(max(1, maxlen), dtype=np.uint8)
+                padded_blob = np.empty(max(1, maxlen), dtype=np.uint8)
                 padded_blob[: len(blob)] = np.frombuffer(blob, dtype=np.uint8)
+                padded_blob[len(blob) :] = 0
+                del blob
                 blobs = comm.allgather(padded_blob, tag=_RESHARD_BLOB_TAG).wait()
                 contribs = []
                 for l, b in zip(lens, blobs):
                     size = int(np.asarray(l).reshape(-1)[0])
                     try:
-                        contribs.extend(pickle.loads(bytes(bytearray(b[:size]))))
+                        # straight from the gathered buffer: a blob holds
+                        # the outer state (GBs at 8B width), and each copy
+                        # of it costs fresh host pages
+                        contribs.extend(pickle.loads(np.ascontiguousarray(b[:size], np.uint8)))
                     except Exception:  # noqa: BLE001 — skip a bad peer blob
                         logger.warning("outer-shard reshard: bad peer blob")
             except Exception as e:  # noqa: BLE001 — the sync right after
@@ -539,12 +544,13 @@ class _Fragment:
         caller applies the delta at its bounded-staleness barrier via
         :meth:`perform_sync`."""
         assert self._work is None, "fragment already has an allreduce in flight"
-        local = _host_copies(self._params)
         self._stream_inflight = stream
         with obs_span("stream::submit" if stream else "diloco::prepare", frag=self._index):
             if self._sharded():
-                self._prepare_sync_sharded(local, stream)
+                self._prepare_sync_sharded(stream)
                 return
+            with obs_span("diloco::host_copy", frag=self._index):
+                local = _host_copies(self._params)
             # in_place: pseudograds are freshly computed for this call and
             # only the returned average is read afterwards
             self._work = self._manager.allreduce(
@@ -554,21 +560,28 @@ class _Fragment:
                 stream=self._index if stream else None,
             )
 
-    def _prepare_sync_sharded(self, local: List[torch.Tensor], stream: bool) -> None:
+    def _prepare_sync_sharded(self, stream: bool) -> None:
         """Sharded outer sync: assemble the flat f32 pseudo-gradient,
         (re)build this owner's shard for the current quorum, and hand the
         per-chunk outer update to the pipelined reduce_scatter→update→
         allgather."""
-        self._shard.maybe_reshard(self._manager)
+        with obs_span("diloco::reshard", frag=self._index):
+            self._shard.maybe_reshard(self._manager)
         meta = self._shard.meta
         gsize = meta["gsize"] if meta is not None else 1
         padded, _per, _unit = outer_shard_layout(self._n, max(1, gsize), self._should_quantize)
         psg = self._scratch.take(padded)
         psg_t = torch.from_numpy(psg)
-        for (off, size, _shape, _dtype), b, l in zip(self._leaf_meta, self.backup, local):
-            seg = psg_t[off : off + size]
-            seg.copy_(b.reshape(-1))  # widened exactly to f32
-            seg.sub_(l.reshape(-1))  # in f32
+        for (off, size, _shape, _dtype), b, p in zip(self._leaf_meta, self.backup, self._params):
+            seg, live = psg_t[off : off + size], p.detach().reshape(-1)
+            with obs_span("diloco::host_copy", frag=self._index):
+                # the live value widened exactly to f32 where it lives, piece
+                # by piece, and copied straight into the scratch (no host
+                # copy of its own)
+                for lo in range(0, size, _WIDEN_PIECE):
+                    seg[lo : lo + _WIDEN_PIECE].copy_(live[lo : lo + _WIDEN_PIECE].float())
+            with obs_span("diloco::pseudograd", frag=self._index):
+                torch.sub(b.reshape(-1), seg, out=seg)  # backup - live, in f32
         psg[self._n :] = 0.0
 
         update_cb = (
@@ -606,12 +619,12 @@ class _Fragment:
             # on every replica: global = backup + delta, summed in f32 in the
             # delta's own buffer (this sync's, read by nothing else)
             delta = torch.from_numpy(result)
-            self._apply_global(
-                [
+            with obs_span("diloco::apply", frag=self._index):
+                global_params = [
                     delta[off : off + size].add_(b.reshape(-1)).to(dtype).reshape(shape)
                     for (off, size, shape, dtype), b in zip(self._leaf_meta, self.backup)
                 ]
-            )
+            self._apply_global(global_params)
             self._shard.commit_stage()
             # hot spares: the committed delta (identical bytes on every
             # replica) feeds parked spares' shadows
@@ -628,7 +641,8 @@ class _Fragment:
             # never overtrain on unsynced data
             if sharded:
                 self._shard.abort_stage()
-            _write_params(self._params, self.backup)
+            with obs_span("diloco::write", frag=self._index):
+                _write_params(self._params, self.backup)
         return committed
 
     def _apply_global(self, global_params: List[torch.Tensor]) -> None:
@@ -643,8 +657,14 @@ class _Fragment:
                 (g.float() * (1.0 - self._alpha) + l.float() * self._alpha).to(l.dtype)
                 for g, l in zip(global_params, local)
             ]
-        _write_params(self._params, mixed)
+        with obs_span("diloco::write", frag=self._index):
+            _write_params(self._params, mixed)
         self.backup = global_params
+
+
+# elements of a live parameter widened to f32 at a time for the
+# pseudo-gradient: the card holds one piece (256 MiB), not a leaf in f32
+_WIDEN_PIECE = 1 << 26
 
 
 class _FlatScratch:

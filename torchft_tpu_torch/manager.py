@@ -21,7 +21,8 @@ replica dimension runs host-side over TCP, and the gradient divisor
 fenced by the ddp composite work, so the reference's stream/event
 choreography collapses to thread joins (the ``_quorum_future``) and a plain
 recovery event.  bf16 buckets arrive as their bit pattern (``bf16.py``)
-and are divided as the JAX package divides ml_dtypes bf16.  The sharded
+and are divided as the JAX package divides ml_dtypes bf16, here or, for
+the gradient path, on the card (``allreduce(normalize=False)``).  The sharded
 outer sync of DiLoCo runs through ``outer_shard_allreduce``.  A heal
 streams over ``HTTPTransport`` unless the caller passes another
 ``checkpoint_transport`` (``CommTransport`` heals over the communicator).
@@ -49,7 +50,7 @@ from torchft_tpu_torch.observability import QuorumTracer, traced
 from torchft_tpu_torch.checkpointing.transport import CheckpointTransport
 from torchft_tpu_torch.communicator import Communicator, ReduceOp
 from torchft_tpu_torch.manager_server import _WARM_RANGE_MAX_BYTES, ManagerClient, ManagerServer
-from torchft_tpu_torch.quantization import dequantize_int8_rowwise, quant_kind
+from torchft_tpu_torch.quantization import quant_kind
 from torchft_tpu_torch.store import StoreClient, StoreServer
 from torchft_tpu_torch.work import DummyWork, Event, Work
 
@@ -1276,6 +1277,7 @@ class Manager:
         in_place: bool = False,
         stream: Optional[int] = None,
         register_pending: bool = True,
+        normalize: bool = True,
     ) -> Work:
         """Fault-tolerant AVG allreduce of gradients across the participating
         replicas (``manager.py:410-493``).
@@ -1301,6 +1303,11 @@ class Manager:
         constituent works whose owner fences a composite covering them
         (``ddp.allreduce_pytree``'s streamed bucket rings — the composite
         is what rides the stream-fence registry).
+
+        ``normalize=False`` leaves the divide to the caller: the value is
+        the SUM, to be divided by ``num_participants()`` (``ddp.py``
+        divides each gradient bucket on the card).  On an error the value
+        is still the input unchanged.
         """
 
         def _failed_fast(w: Work) -> Work:
@@ -1354,11 +1361,12 @@ class Manager:
             # AVG = SUM / runtime participant count — replica count is never
             # baked into compiled programs (SURVEY.md §7 hard part 1)
             def _normalize(value: object) -> object:
-                if isinstance(value, np.ndarray):
-                    return _div(value, num_participants)
-                return [_div(a, num_participants) for a in cast(list, value)]
+                with obs_span("manager::avg", step=self._step):
+                    if isinstance(value, np.ndarray):
+                        return _div(value, num_participants)
+                    return [_div(a, num_participants) for a in cast(list, value)]
 
-            wrapped = self.wrap_work(work.then(_normalize), data)
+            wrapped = self.wrap_work(work.then(_normalize) if normalize else work, data)
             if stream is not None:
                 self.stream_submitted(stream, wrapped)
             elif register_pending:
@@ -1374,30 +1382,28 @@ class Manager:
     ) -> Work:
         """Fault-tolerant SUM-allreduce of an already-quantized stream (int8
         or fp8 rows + rowwise f32 scales, e.g. quantized on the card by
-        ``ops.quant``), normalized by ``num_participants()``.
+        ``ops.quant``), to be divided by ``num_participants()`` by the
+        caller.
 
         Same orchestration contract as :meth:`allreduce`: waits the quorum,
         zeroes the contribution of non-participants, swallows errors into a
         failed vote, and returns a pending Work (the wire pipeline runs
-        off-thread) whose value is the averaged float32 array of length
-        ``n``.  On error the value is this replica's own dequantized
-        contribution, mirroring the unquantized input-passthrough."""
+        off-thread) whose value is the reduced stream ``(q, scales)``,
+        written into the arrays given when this replica contributes them,
+        whose dequantize is the f32 SUM of length ``n`` (on a hierarchical
+        topology, the f32 SUM itself).  ``ddp.py`` dequantizes and divides
+        it on the card.  On error the value is the input, mirroring the
+        unquantized input-passthrough."""
         from torchft_tpu_torch.collectives import allreduce_prequantized
 
-        def _own_value() -> np.ndarray:
-            return dequantize_int8_rowwise(
-                q, np.asarray(scales).reshape(-1), n, np.float32
-            )
-
         if self.errored():
-            return DummyWork(_own_value())
+            return DummyWork((q, scales))
 
         try:
             self.wait_quorum()
         except Exception as e:  # noqa: BLE001 — funnel, never raise
             self.report_error(e)
-            return DummyWork(_own_value())
-        num_participants = self.num_participants()
+            return DummyWork((q, scales))
         q_in, s_in = q, scales
         if not self.is_participating():
             q_in = np.zeros_like(q)
@@ -1412,12 +1418,12 @@ class Manager:
 
         def _run() -> None:
             try:
-                summed = allreduce_prequantized(self._comm, q_in, s_in, n)
-                # in place: the pipeline's output is ours (n f32 on the host)
-                fut.set_result(np.divide(summed, num_participants, out=summed))
+                with obs_span("quant::pipeline", step=self._step):
+                    reduced = allreduce_prequantized(self._comm, q_in, s_in, n, dequantize=False)
+                fut.set_result(reduced)
             except Exception as e:  # noqa: BLE001 — funnel, never raise
                 self.report_error(e)
-                fut.set_result(_own_value())
+                fut.set_result((q, scales))
 
         threading.Thread(
             target=_run, name="tpuft_prequantized_allreduce", daemon=True

@@ -72,7 +72,9 @@ from torchft_tpu_torch.models.llama import Llama, LlamaConfig, llama3_8b, llama3
 from torchft_tpu_torch.models.llama_moe import LlamaMoE, LlamaMoEConfig
 from torchft_tpu_torch.obs.spans import device_fence
 from torchft_tpu_torch.observability import HealMetrics
+from torchft_tpu_torch.ops import avg as avg_ops
 from torchft_tpu_torch.ops import flash_attention as fa
+from torchft_tpu_torch.ops import quant as qk
 from torchft_tpu_torch.optim import OptimizerWrapper
 from torchft_tpu_torch.tier import (
     default_tier,
@@ -440,12 +442,18 @@ def park_standby(model: torch.nn.Module, batch: Batch, gate: str) -> float:
     if tokens.is_cuda:
         torch.cuda.empty_cache()
     print(f"STANDBY pid={os.getpid()} t={time.time():.3f} "
-          f"launches={_compact(fa.launches)} peak_device_gb={_peak_device_gb(tokens.device)}",
+          f"launches={_compact(_launches())} peak_device_gb={_peak_device_gb(tokens.device)}",
           flush=True)
     t0 = time.monotonic()
     while not os.path.exists(gate):
         time.sleep(0.05)
     return time.monotonic() - t0
+
+
+def _launches() -> Dict[str, int]:
+    """This process's launches of each kernel: flash attention, the quant
+    kernels and the gradient average."""
+    return {**fa.launches, **qk.launches, **avg_ops.launches}
 
 
 def _compact(obj: Any) -> str:
@@ -525,7 +533,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         if "first_commit_t" not in final:
             final["first_commit_t"] = f"{time.time():.3f}"
             print(f"FIRST_COMMIT pid={os.getpid()} step={step} t={final['first_commit_t']} "
-                  f"launches={_compact(fa.launches)}", flush=True)
+                  f"launches={_compact(_launches())}", flush=True)
 
     def _pace(step: int) -> None:
         time.sleep(args.step_time)
@@ -539,7 +547,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         final["heal_s"] = f"{heal.duration_s:.3f}"
         final["heal_bytes"] = str(heal.bytes_total)
     final["state_bytes"] = str(sum(plan_pytree(save()).leaf_nbytes))
-    final["launches"] = _compact(fa.launches)
+    final["launches"] = _compact(_launches())
     final["peak_device_gb"] = _peak_device_gb(device)
     final["pid"] = str(os.getpid())
     print(f"FINAL step={manager.current_step()} params_sha={params_sha256(model)[:16]} "

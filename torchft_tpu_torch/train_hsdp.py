@@ -158,6 +158,7 @@ def _rank_main(spec: RankSpec) -> None:
 
     from torchft_tpu_torch.checkpointing.serialization import plan_pytree
     from torchft_tpu_torch.manager import Manager
+    from torchft_tpu_torch.ops import avg as avg_ops
     from torchft_tpu_torch.ops import flash_attention as fa
     from torchft_tpu_torch.ops import quant as qk
     from torchft_tpu_torch.parallel.degraded import plan_surviving, startup_surviving_devices
@@ -318,7 +319,7 @@ def _rank_main(spec: RankSpec) -> None:
             if manager._manager_server is not None else None,
             communicator=type(manager._comm).__name__,
         ),
-        launches={**fa.launches, **qk.launches},
+        launches={**fa.launches, **qk.launches, **avg_ops.launches},
         moe_params=len(moe_params),
         missing_moe_grads=missing_moe_grads,
         moe_dropped=moe_dropped,
