@@ -42,7 +42,23 @@ built.  It then builds the port's CUDA kernels from
    an f32 case, and cases of NaN payloads, ±inf and subnormals also held
    against the host's divide; timed beside one ``torch.div``; and divided
    in place (the sum is the leaf), as the main path divides, at a leaf's
-   aligned length and a ragged one, bf16 and f32;
+   aligned length and a ragged one, bf16 and f32; then the outer kernel
+   (``outer_phase``, ``ops/outer.py``): DiLoCo's sharded outer update — the
+   chunk's contributions summed from +0, scaled by 1/P, the Nesterov trace
+   and the delta — held bit for bit against its plain version on the card
+   at one owner's shard of the 1-layer fragment (2 owners) with -0, ±inf,
+   NaN payloads and subnormals, the trace updated in place, and against the
+   host's numpy on the front of each case (NaN bits aside); timed at the
+   shard's first pipeline chunk, the main path's launch, beside its plain
+   version and the eager torch sequence; a ragged w=3 case with plain
+   momentum and a no-momentum case; what this host's numpy does where the
+   kernel follows it (a sum of -0s, the int8 chunk sum's einsum); the
+   pseudo-gradient's copy to its host buffer, pageable against pinned, in
+   turns; and one fragment of the 1-layer model through two whole sharded
+   syncs on a one-replica quorum (``outer_sync_check``; the second steps
+   the trace the first committed on the card), on the card path and on the
+   host path from the same inner steps: backups, live parameters and
+   traces bit for bit;
 3. ring phase (``ring_phase``) — sequence parallelism's ring attention
    at Llama-3-8B attention width (H=32, KV=8, D=128, bf16), B=1, S=8192
    split over sp=4 ranks held in one process (blocks of 2048): the ring's
@@ -136,12 +152,19 @@ built.  It then builds the port's CUDA kernels from
    planes ran; the flash kernels launched in each phase.  Each prints the
    median inner step, the seconds per outer sync from ``outer_shard_wall_s``
    and its scatter / update / gather split, the seconds per replica per
-   committed sync in each span of :data:`DILOCO_SPANS` (the copy of the
-   live parameters to the host, the pseudo-gradient, the pipeline, the
-   vote, the new global parameters, the writes back to the card), the
-   heal's seconds and bytes,
+   committed sync in each span of :data:`DILOCO_SPANS` (the
+   pseudo-gradient on the card and its copy into the wire's host buffer,
+   the pipeline and its chunk spans, the vote, the new global parameters,
+   the writes of the live ones), the
+   heal's seconds and bytes, the seconds per replica in each span of
+   :data:`HEAL_SPANS` (the heal's send and receive, the fragments' state
+   crossing card -> host and back, the reshard's export, exchange and
+   rebuild),
    the peak device memory, the peak host RSS over the phase and tokens/s
-   per replica over the phase.  All run 1 layer deep
+   per replica over the phase.  The DiLoCo fleets sync on the card path:
+   the backups, the owners' outer state and the delta stay in device
+   memory, the outer kernel steps each chunk, and it must have launched.
+   All run 1 layer deep
    (:data:`DILOCO_LAYERS`; the width stays), as does ``spare_python``, so
    the command stays inside its limit with phases 10–14.
 
@@ -349,14 +372,32 @@ TRAIN_THREAD_SPANS = ("ddp::quorum_wait", "ddp::stage", "ddp::submit")
 FENCED_SPANS = {False: ("comm::op", "manager::avg", "ddp::gather", "ddp::copy_back"),
                 True: ("quant::pipeline", "manager::avg", "ddp::gather", "ddp::copy_back")}
 # the spans of the DiLoCo outer sync (local_sgd.py, collectives.py), summed
-# per committed sync: the copy of the live parameters to the host, the
-# reshard, the pseudo-gradient, the submit and the wait of the pipeline (or
-# its streamed twins), the quorum, the vote, the new global parameters and
-# the writes back to the card
+# per committed sync: the copy of the pseudo-gradient into the wire's host
+# buffer, the reshard, the pseudo-gradient (backup - live, on the card), the
+# submit and the wait of the pipeline (or its streamed twins), the quorum,
+# the vote, the new global parameters and the writes of the live ones.
+# Inside the pipeline (on its own thread): the int8 contribution's
+# quantize, the waits for each chunk's alltoall, the gathered contributions
+# to the card (on int8 dequantized there), the host's sum (host path), the
+# update (on the card the kernel's launch), the delta to the wire (on the
+# card its copy back, which waits for the kernel; on int8 its quantize), the
+# waits for each allgather and the allgathered deltas into the delta
 DILOCO_SPANS = ("diloco::host_copy", "diloco::reshard", "diloco::pseudograd", "diloco::prepare",
                 "stream::submit", "outer_shard::pipeline", "diloco::perform", "stream::barrier",
                 "manager::quorum_rpc", "manager::fence", "manager::should_commit",
-                "diloco::apply", "diloco::write")
+                "diloco::apply", "diloco::write", "outer_shard::contribution",
+                "outer_shard::scatter_wait", "outer_shard::to_card", "outer_shard::sum",
+                "outer_shard::chunk_update", "outer_shard::to_wire", "outer_shard::gather_wait",
+                "outer_shard::from_wire")
+# the spans of a heal and the reshard after it, summed per replica over the
+# phase: the checkpoint's send (which holds the fragments' save_state: the
+# owner's shard card -> host) and receive, the fragments' load_state (the
+# backups host -> card), and the reshard's export of the shard (card ->
+# host), its exchange (the wait for the healed peer and the allgathers)
+# and its rebuild (the shard host -> card)
+HEAL_SPANS = ("manager::heal_send", "manager::heal_recv", "diloco::save_state",
+              "diloco::load_state", "outer_shard::export", "outer_shard::exchange",
+              "outer_shard::rebuild")
 # (results key, run_diloco_fleet keywords) of each DiLoCo / LocalSGD phase,
 # all on the C++ tier: bench.py's phase D schedule, the same streamed, and
 # LocalSGD (3 committed outer steps, and LocalSGD 1 sync, since the CNN and
@@ -482,6 +523,10 @@ KERNELS = {
 # Pallas kernel: (CUDA source, the host function it replaces)
 PORT_KERNELS = {
     "ddp_avg": ("torchft_tpu_torch/csrc/avg.cu", "torchft_tpu/manager.py:1831"),
+    # DiLoCo's outer update: the host chunk sum and scale of the sharded
+    # sync (torchft_tpu/collectives.py) and the optax step of its owner's
+    # shard, the update callback _cb
+    "diloco_outer": ("torchft_tpu_torch/csrc/outer.cu", "torchft_tpu/local_sgd.py:295"),
 }
 # avg_phase cases: a bucket SUM of ``n`` elements divided by ``divisor``
 # into a leaf.  "main" is the float path's whole gradient (bf16 into bf16,
@@ -1196,6 +1241,320 @@ def avg_phase(avg, iters: int) -> dict:
     return out
 
 
+# outer_phase: the outer kernel (``ops/outer.py``) at one owner's shard of
+# the 1-layer DiLoCo fragment (2 owners, float wire) with the special values
+# (held, in place, bit for bit) and at the shard's first pipeline chunk, the
+# main path's launch (held and timed); a ragged w = 3 case with plain
+# momentum and a no-momentum case (held).  The update is the phases' own:
+# OuterSGD(0.7, momentum=0.9, nesterov=True)
+OUTER_RULE = dict(lr=0.7, momentum=0.9, nesterov=True)
+OUTER_CASES = (
+    dict(name="shard", w=2, n="shard", special=True, in_place=True, **OUTER_RULE),
+    dict(name="chunk", w=2, n="chunk", special=False, in_place=True, **OUTER_RULE),
+    dict(name="ragged w3 momentum", w=3, n=(1 << 20) + 7, special=True, in_place=False,
+         lr=0.7, momentum=0.9, nesterov=False),
+    dict(name="sgd", w=2, n=1 << 20, special=True, in_place=False, lr=0.7, momentum=0.0,
+         nesterov=False),
+)
+# the pseudo-gradient's copy into its host buffer: pageable against pinned,
+# in turns, at one fragment's size, a piece at a time as the sync copies it
+COPY_AB_ORDER = ("pageable", "pinned", "pinned", "pageable")
+
+
+def diloco_fragments(train_ddp, layers: int) -> list:
+    """The DiLoCo phases' fragments of Llama-3-8B width at ``layers``: per
+    fragment its (name, shape, dtype) in order, from a model on the meta
+    device (nothing is allocated)."""
+    from torchft_tpu_torch.local_sgd import partition_parameters
+    from torchft_tpu_torch.models.llama import Llama
+
+    model = Llama(train_ddp.model_config("llama3_8b", layers), device="meta")
+    named = dict(model.named_parameters())
+    return [[(name, tuple(named[name].shape), named[name].dtype) for name in group]
+            for group in partition_parameters(model, DILOCO["num_fragments"])]
+
+
+def outer_shapes(fragment: list) -> dict:
+    """The fragment's elements, one owner's shard at 2 owners on the float
+    wire, and that shard's first pipeline chunk (the main path's launch)."""
+    from torchft_tpu_torch import wire
+    from torchft_tpu_torch.collectives import _outer_chunk_ranges, outer_shard_layout
+
+    n = sum(math.prod(shape) for _, shape, _ in fragment)
+    _padded, per, unit = outer_shard_layout(n, 2, False)
+    c0, c1 = _outer_chunk_ranges(per, unit, 2, max_chunks=wire.OUTER_SHARD_TAG_SPAN // 2)[0]
+    return dict(fragment=n, shard=per, chunk=c1 - c0)
+
+
+def _outer_inputs(case, n: int, seed: int) -> tuple:
+    """w contributions and a trace on the card: normal values over many
+    decades; the special cases add -0.0 everywhere, ±inf, inf - inf, NaN
+    payloads and subnormals at the front."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    w = case["w"]
+    c = torch.randn(w, n, generator=gen, device="cuda")
+    t = torch.randn(n, generator=gen, device="cuda")
+    decades = torch.logspace(-30, 30, 4096, device="cuda").repeat(-(-n // 4096))[:n]
+    c *= decades
+    t *= decades.flip(0)
+    if case["special"]:
+        c[:, 0], t[0] = -0.0, -0.0
+        c[0, 1], c[w - 1, 2] = float("inf"), float("-inf")
+        c[0, 3] = float("inf")
+        c.view(torch.int32)[w - 1, 4] = 0x7FC00123
+        t.view(torch.int32)[5] = 0x7FA00007
+        c.view(torch.int32)[:, 6:10] = torch.tensor([1, -0x7FFFFFFD, 0x007FFFFF, 0x10],
+                                                    dtype=torch.int32, device="cuda")
+        t.view(torch.int32)[6:10] = torch.tensor([5, 0x00200000, -0x80000000, 1],
+                                                 dtype=torch.int32, device="cuda")
+    return c, t
+
+
+def _outer_library(contribs, scale: float, trace, lr: float, momentum: float):
+    """The same function as a PyTorch user writes it in eager torch: the
+    reduction, then in-place products and sums (``add`` with ``alpha``)."""
+    g = contribs.sum(0).mul_(scale)
+    if not momentum:
+        return g.mul_(-lr)
+    t = trace.mul(momentum).add_(g)
+    return g.add(t, alpha=momentum).mul_(-lr)
+
+
+def outer_numpy_checks() -> dict:
+    """What this host's numpy does where the outer kernel must follow it:
+    whether a sum over axis 0 of -0s is -0 (it starts from +0 in numpy
+    2.0.2), and the int8 chunk sum's einsum against separately rounded
+    products and sums, and against a fused second term, on 65,536 elements."""
+    import numpy as np
+
+    zeros = np.sum(np.full((2, 64), -0.0, np.float32), axis=0)
+    rng = np.random.default_rng(0)
+    q = rng.integers(-127, 128, (2, 64, 1024)).astype(np.float32)
+    s = (rng.random((2, 64)) * 0.01).astype(np.float32)
+    e = np.einsum("wrc,wr->rc", q, s)
+    p = q * s[:, :, None]
+    separate = (np.float32(0) + p[0]) + p[1]
+    fused = (p[0].astype(np.float64) + q[1].astype(np.float64) * s[1][:, None]).astype(np.float32)
+    return dict(numpy=np.__version__, sum_of_negative_zeros_negative=bool(np.signbit(zeros).any()),
+                einsum_differs_from_mul_then_add=int((e != separate).sum()),
+                einsum_differs_from_fused_second_term=int((e != fused).sum()), elements=e.size)
+
+
+def copy_ab(n: int) -> dict:
+    """GB/s of the pseudo-gradient's device-to-host copy of ``n`` f32, a
+    ``_WIDEN_PIECE`` at a time as the sync copies it, into a pageable numpy
+    buffer and into a pinned one, in turns (:data:`COPY_AB_ORDER`), both
+    touched once first."""
+    import numpy as np
+
+    from torchft_tpu_torch.local_sgd import _WIDEN_PIECE
+
+    src = torch.randn(n, device="cuda")
+    hosts = {"pageable": torch.from_numpy(np.zeros(n, np.float32)),
+             "pinned": torch.zeros(n, dtype=torch.float32, pin_memory=True)}
+    out: dict = {k: [] for k in hosts}
+    for kind in ("pageable", "pinned") + COPY_AB_ORDER:
+        dst = hosts[kind]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for lo in range(0, n, _WIDEN_PIECE):
+            dst[lo : lo + _WIDEN_PIECE].copy_(src[lo : lo + _WIDEN_PIECE])
+        out[kind].append(n * 4 / (time.perf_counter() - t0) / 1e9)
+    if not torch.equal(hosts["pinned"], hosts["pageable"]):
+        raise AssertionError("copy_ab: the two host copies differ")
+    del src, hosts
+    torch.cuda.empty_cache()
+    # the first of each is the warm-up
+    return {f"{k}_gb_per_s": v[1:] for k, v in out.items()}
+
+
+def outer_phase(outer, train_ddp, iters: int) -> dict:
+    """Per case of :data:`OUTER_CASES`: the outer kernel held bit for bit
+    against its plain version on the card (in place where the case says:
+    the new trace written over the trace), and against the host's numpy
+    (``OuterSGD.update`` after the chunk sum) on a slice, NaN bits aside;
+    the main path's chunk timed with kernel / plain / library ms and the
+    bound: bytes (the contributions and the trace read once, the trace and
+    the delta written once) against its f32 operations.  Then the numpy
+    checks and the copy A/B.  The launches made here are comparisons and
+    are reset before the train phases."""
+    import numpy as np
+
+    from torchft_tpu_torch.optim import OuterSGD
+
+    shapes = outer_shapes(diloco_fragments(train_ddp, DILOCO_LAYERS["diloco_cpp"])[0])
+    out = {"shapes": shapes}
+    for seed, case in enumerate(OUTER_CASES):
+        n = shapes[case["n"]] if isinstance(case["n"], str) else case["n"]
+        w, lr, m, nesterov = case["w"], case["lr"], case["momentum"], case["nesterov"]
+        scale = 1.0 / w
+        c, t = _outer_inputs(case, n, seed)
+        results = {}
+        for name, fn in (("kernel", outer.outer_update), ("plain", outer.outer_update_plain)):
+            delta = torch.empty(n, device="cuda")
+            trace = t.clone()
+            new_trace = trace if case["in_place"] else torch.empty(n, device="cuda")
+            fn(c, scale, delta, lr, m, nesterov, trace if m else None, new_trace if m else None)
+            results[name] = (delta, new_trace if m else None)
+            del trace
+        torch.cuda.synchronize()
+        err = _exact(f"outer {case['name']} delta", results["kernel"][0], results["plain"][0])
+        if m:
+            err = max(err, _exact(f"outer {case['name']} trace", results["kernel"][1],
+                                  results["plain"][1]))
+        # the host's arithmetic on the front of the case (specials included)
+        k = min(n, 1 << 16)
+        cs, ts = c[:, :k].cpu().numpy(), t[:k].cpu().numpy()
+        with np.errstate(all="ignore"):
+            acc = np.sum(np.stack(list(cs)), axis=0) if w > 1 else cs[0].copy()
+            acc *= scale
+            want, _state = OuterSGD(lr, m, nesterov).update(acc, [ts] if m else [])
+        got = results["kernel"][0][:k].cpu().numpy()
+        keep = ~np.isnan(want)
+        if not (np.isnan(got[~keep]).all() and
+                (got[keep].view(np.uint32) == want[keep].view(np.uint32)).all()):
+            raise AssertionError(f"outer {case['name']}: the kernel differs from the host's numpy")
+        row = dict(max_abs_err=err, n=n, w=w, momentum=m, nesterov=nesterov,
+                   in_place=case["in_place"], host_slice=k)
+        if case["n"] == "chunk":
+            delta, trace = torch.empty(n, device="cuda"), t.clone()
+            new_trace = torch.empty(n, device="cuda")
+            row["ms"] = _time_ms(lambda: outer.outer_update(c, scale, delta, lr, m, nesterov,
+                                                            trace, new_trace), iters)
+            row["plain_ms"] = _time_ms(lambda: outer.outer_update_plain(
+                c, scale, delta, lr, m, nesterov, trace, new_trace), 2, 1)
+            row["library_ms"] = _time_ms(lambda: _outer_library(c, scale, trace, lr, m), iters)
+            row["library"] = "eager torch: sum, mul_, mul, add_, add(alpha=), mul_"
+            nbytes = (w + 3) * 4 * n
+            ops = (w + 6) * n
+            t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F32_FLOPS
+            row.update(bound_ms=max(t_bytes, t_ops) * 1e3,
+                       bound_by="operations" if t_ops >= t_bytes else "bytes",
+                       pct_of_bound=100 * max(t_bytes, t_ops) * 1e3 / row["ms"])
+        elif case["n"] == "shard":
+            delta, trace = results["kernel"][0], results["kernel"][1]
+            row["shard_ms"] = _time_ms(lambda: outer.outer_update(c, scale, delta, lr, m, nesterov,
+                                                                  trace, trace), 3, 1)
+            row["shard_bound_ms"] = (w + 3) * 4 * n / PEAK_BYTES * 1e3
+        out[case["name"]] = row
+        print(f"outer case {case['name']}: {json.dumps(row)}", flush=True)
+        del c, t, results
+        torch.cuda.empty_cache()
+    out["numpy"] = outer_numpy_checks()
+    print(f"outer numpy on this host: {json.dumps(out['numpy'])}", flush=True)
+    out["copy_ab"] = copy_ab(shapes["fragment"])
+    print(f"outer copy A/B (GB/s): {json.dumps(out['copy_ab'])}", flush=True)
+    return out
+
+
+class _SoloClient:
+    """A one-replica quorum for :func:`outer_sync_check`'s Managers: every
+    quorum is rank 0 of 1, every vote is the replica's own."""
+
+    def __init__(self) -> None:
+        from torchft_tpu_torch.wire import ManagerQuorumResult
+
+        self._result = ManagerQuorumResult(
+            quorum_id=1, replica_rank=0, replica_world_size=1, store_address="127.0.0.1:0",
+            max_step=0, max_replica_rank=0, max_world_size=1, replica_ids=["rep_0"])
+
+    def _quorum(self, **kwargs):
+        return self._result
+
+    def should_commit(self, group_rank, step, should_commit, timeout) -> bool:
+        return should_commit
+
+    def _checkpoint_metadata(self, rank, timeout) -> str:
+        return "solo"
+
+    def close(self) -> None:
+        pass
+
+
+def _solo_manager():
+    from torchft_tpu_torch.checkpointing.transport import CheckpointTransport
+    from torchft_tpu_torch.communicator import DummyCommunicator
+    from torchft_tpu_torch.manager import Manager
+
+    class _NoHeal(CheckpointTransport):
+        def metadata(self) -> str:
+            return "solo://"
+
+        def send_checkpoint(self, dst_ranks, step, state_dict, timeout) -> None:
+            pass
+
+        def recv_checkpoint(self, src_rank, metadata, step, timeout):
+            raise AssertionError("a one-replica quorum never heals")
+
+    return Manager(comm=DummyCommunicator(), load_state_dict=None, state_dict=None,
+                   min_replica_size=1, use_async_quorum=False, checkpoint_transport=_NoHeal(),
+                   _manager_client=_SoloClient(), rank=0, world_size=1)
+
+
+# two syncs: the second steps the trace the first staged and committed on
+# the card, which the sync's own stream writes
+OUTER_SYNC_STEPS = 2
+
+
+def outer_sync_check(train_ddp, outer) -> dict:
+    """One fragment of the 1-layer DiLoCo phases (its parameters at their
+    shapes and dtypes, random from a seed) through :data:`OUTER_SYNC_STEPS`
+    whole sharded syncs on a one-replica quorum — the pseudo-gradient, the
+    outer update and the apply — on the card (the card path: the backup,
+    the shard's trace and the delta in device memory, the outer kernel) and
+    on the host (the same module on the CPU: host numpy), each inner step
+    the same on both: the backups, the live parameters and the traces must
+    be equal bit for bit.  Raises if not, or if the card path launched no
+    outer kernel."""
+    from torch import nn
+
+    from torchft_tpu_torch.local_sgd import DiLoCo, _host_leaves
+    from torchft_tpu_torch.optim import OuterSGD
+    from torchft_tpu_torch.train_diloco import OUTER_LR, OUTER_MOMENTUM
+
+    fragment = diloco_fragments(train_ddp, DILOCO_LAYERS["diloco_cpp"])[0]
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    card, host = nn.Module(), nn.Module()
+    for i, (_name, shape, dtype) in enumerate(fragment):
+        value = (torch.randn(shape, generator=gen, device="cuda") * 0.02).to(dtype)
+        card.register_parameter(f"p{i}", nn.Parameter(value))
+        host.register_parameter(f"p{i}", nn.Parameter(value.cpu()))
+    wrappers = [DiLoCo(_solo_manager(), m, OuterSGD(OUTER_LR, OUTER_MOMENTUM, nesterov=True),
+                       sync_every=1) for m in (card, host)]
+    outer.reset_launches()
+    seconds = {"card": 0.0, "host": 0.0}
+    for step in range(OUTER_SYNC_STEPS):
+        with torch.no_grad():
+            for p, q in zip(card.parameters(), host.parameters()):
+                p.sub_((torch.randn(p.shape, generator=gen, device="cuda") * 1e-3).to(p.dtype))
+                q.copy_(p)
+        for key, wrapper in zip(("card", "host"), wrappers):
+            t0 = time.perf_counter()
+            if wrapper.step() is not True:
+                raise AssertionError(f"outer sync check: the {key} sync {step} did not commit")
+            torch.cuda.synchronize()
+            seconds[key] += time.perf_counter() - t0
+    launches = outer.launches["outer"]
+    if launches <= 0:
+        raise AssertionError("outer sync check: the card path launched no outer kernel")
+    cf, hf = wrappers[0].fragments[0], wrappers[1].fragments[0]
+    pairs = [("backup", a, b) for a, b in zip(cf.backup, hf.backup)]
+    pairs += [("live", a.detach(), b.detach()) for a, b in zip(card.parameters(), host.parameters())]
+    pairs += [("trace", torch.from_numpy(a), torch.from_numpy(b)) for a, b in
+              zip(_host_leaves(cf._shard._state_leaves), _host_leaves(hf._shard._state_leaves))]
+    for what, a, b in pairs:
+        if not torch.equal(a.cpu().contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)):
+            raise AssertionError(f"outer sync check: the card's {what} differs from the host's")
+    elements = sum(p.numel() for p in card.parameters())
+    for wrapper in wrappers:
+        wrapper._manager.shutdown()
+    del wrappers, card, host, cf, hf, pairs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(elements=elements, syncs=OUTER_SYNC_STEPS, launches=launches,
+                card_s=seconds["card"], host_s=seconds["host"])
+
+
 def commit_split(spans, windows, replicas: int, names=SPLIT_SPANS) -> list:
     """Per iteration window ``(start, end)``: the seconds in each span of
     ``names`` that started inside it, summed over the fleet and divided by
@@ -1556,11 +1915,12 @@ def diloco_phase(train_diloco, train_ddp, fa, qk, card: str, fleet: dict,
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    from torchft_tpu_torch.ops import avg
+    from torchft_tpu_torch.ops import avg, outer
 
     fa.reset_launches()
     qk.reset_launches()
     avg.reset_launches()
+    outer.reset_launches()
     if spans is not None:
         spans.clear()
     t0 = time.perf_counter()
@@ -1569,7 +1929,7 @@ def diloco_phase(train_diloco, train_ddp, fa, qk, card: str, fleet: dict,
             cfg, torch.device("cuda"), replicas=2, batch=1, seq=2048, ckpt_dir=ckpt_dir,
             tier="cpp", **fleet)
     wall_s = time.perf_counter() - t0
-    launches = {**fa.launches, **qk.launches, **avg.launches}
+    launches = {**fa.launches, **qk.launches, **outer.launches, **avg.launches}
     diloco = fleet["algo"] == "diloco"
     for i, r in enumerate(results):
         if not r.losses or not all(math.isfinite(x) for x in r.losses):
@@ -1594,7 +1954,7 @@ def diloco_phase(train_diloco, train_ddp, fa, qk, card: str, fleet: dict,
             raise AssertionError(f"fragment {last}, synced last: live parameters differ {live}")
     elif len({r.params_sha256 for r in results}) != 1:
         raise AssertionError(f"LocalSGD replicas diverged: {[r.params_sha256 for r in results]}")
-    for name in ("fwd", "dq", "dkv"):
+    for name in ("fwd", "dq", "dkv") + (("outer",) if diloco else ()):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched in the {fleet['algo']} phase")
     # the int8 outer sync quantizes and dequantizes on the card
@@ -1602,11 +1962,13 @@ def diloco_phase(train_diloco, train_ddp, fa, qk, card: str, fleet: dict,
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched in the int8 outer sync")
     r0 = results[0]
-    sync_split = None
+    sync_split = heal_split = None
     if spans is not None:
         recorded = spans.snapshot()
-        sync_split = {name: sum(rec["dur"] for rec in recorded if rec["name"] == name)
-                      / len(results) / r0.final_step for name in DILOCO_SPANS}
+        totals = {name: sum(rec["dur"] for rec in recorded if rec["name"] == name) / len(results)
+                  for name in DILOCO_SPANS + HEAL_SPANS}
+        sync_split = {name: totals[name] / r0.final_step for name in DILOCO_SPANS}
+        heal_split = {name: totals[name] for name in HEAL_SPANS}
     shard = [t for t in r0.outer_shard if "outer_shard_wall_s" in t]
     split = {k: _median(t[f"outer_shard_{k}_s"] for t in shard)
              for k in ("wall", "scatter", "update", "gather")} if shard else None
@@ -1640,6 +2002,8 @@ def diloco_phase(train_diloco, train_ddp, fa, qk, card: str, fleet: dict,
         outer_shard_s_median=split,
         # seconds per replica per committed sync in each span
         sync_split_s=sync_split,
+        # seconds per replica over the phase in each heal span
+        heal_split_s=heal_split,
         heal=None if heal is None else dict(
             seconds=heal.duration_s, bytes=heal.bytes_total, sources=heal.num_sources),
         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
@@ -1870,19 +2234,22 @@ def spare_phase(train_diloco, train_ddp, fa, qk, card: str, cold_heal: dict) -> 
     release_host_memory()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    from torchft_tpu_torch.ops import avg
+    from torchft_tpu_torch.ops import avg, outer
 
     fa.reset_launches()
     qk.reset_launches()
     avg.reset_launches()
+    outer.reset_launches()
     fleet = dict(SPARE_PHASE)
     t0 = time.perf_counter()
     with mock.patch.dict(os.environ, SPARE_ENV), HostRss() as rss:
         results = train_diloco.run_diloco_fleet(
             cfg, torch.device("cuda"), replicas=2, batch=1, seq=2048, tier="python", **fleet)
     wall_s = time.perf_counter() - t0
-    launches = {**fa.launches, **qk.launches, **avg.launches}
+    launches = {**fa.launches, **qk.launches, **outer.launches, **avg.launches}
     after = check_spare(results, fleet, launches)
+    if launches["outer"] <= 0:
+        raise AssertionError("the outer kernel never launched in the spare's fleet")
     for r in results:
         if r.planes != PLANES["python"]:
             raise AssertionError(f"a replica ran {r.planes}, not the python tier")
@@ -2665,7 +3032,7 @@ def main() -> int:
     # the port itself; in a directory without it this import fails
     from torchft_tpu_torch import baby, drill, native, train_ddp, train_diloco, train_hsdp
     from torchft_tpu_torch.obs import spans
-    from torchft_tpu_torch.ops import avg, cuda_build
+    from torchft_tpu_torch.ops import avg, cuda_build, outer
     from torchft_tpu_torch.ops import flash_attention as fa
     from torchft_tpu_torch.ops import quant as qk
     from torchft_tpu_torch.parallel import ring_attention as ring
@@ -2691,7 +3058,7 @@ def main() -> int:
     native_thread = threading.Thread(target=_timed_build, args=(native, native_build))
     native_thread.start()
     t0 = time.perf_counter()
-    sources = [*fa.KERNEL_SOURCES, *qk.KERNEL_SOURCES, *avg.KERNEL_SOURCES]
+    sources = [*fa.KERNEL_SOURCES, *qk.KERNEL_SOURCES, *avg.KERNEL_SOURCES, *outer.KERNEL_SOURCES]
     cuda_build.build(sources)
     build_s = time.perf_counter() - t0
     print(f"built {', '.join(s + '.cu' for s in sources)} in {build_s:.1f} s", flush=True)
@@ -2703,6 +3070,11 @@ def main() -> int:
     kernels = kernel_phase(fa, ITERS)
     quant = quant_phase(qk, ITERS)
     avg_t = avg_phase(avg, ITERS)
+    outer_t = outer_phase(outer, train_ddp, ITERS)
+    outer_t["sync_check"] = t = outer_sync_check(train_ddp, outer)
+    print(f"outer sync check: {t['syncs']} whole sharded sync(s) of a {t['elements']}-element "
+          f"fragment on the card bit for bit the host's ({t['launches']} outer launches; card "
+          f"{t['card_s']:.2f} s, host {t['host_s']:.2f} s)", flush=True)
     ring_t = ring_phase(fa, ring, ITERS)
     print(f"ring_phase: {json.dumps(ring_t)}", flush=True)
     print(f"ring_phase (sp={RING_CASE['sp']} in one process, S={RING_CASE['S']}): launches "
@@ -2723,7 +3095,7 @@ def main() -> int:
           "pinned f32/bf16 tensors hand off as views, a tensor on the card is refused",
           flush=True)
     results = {"card": card, "build_s": build_s, "native": handoff, "kernels": kernels,
-               "quant": quant, "avg": avg_t, "ring": ring_t, "card_gate": gate}
+               "quant": quant, "avg": avg_t, "outer": outer_t, "ring": ring_t, "card_gate": gate}
     spans.configure(True, cap=SPAN_CAP)
     for key, quantized, tier in TRAIN_PHASES:
         results[key] = train_phase(train_ddp, fa, qk, avg, spans, card, quantized, tier,
@@ -2788,7 +3160,8 @@ def main() -> int:
               f"train loop held {t['sync_s_per_commit']:.3f} s per committed sync, outer sync "
               "(s, median) "
               f"{json.dumps(t['outer_shard_s_median'])}, split (s per replica per committed "
-              f"sync) {json.dumps(t['sync_split_s'])}; {heal}; peak device "
+              f"sync) {json.dumps(t['sync_split_s'])}; {heal}, split (s per replica) "
+              f"{json.dumps(t['heal_split_s'])}; peak device "
               f"{t['max_memory_allocated_gb']:.1f} GB, peak host RSS {t['peak_host_rss_gb']:.1f} GB "
               f"({t['start_host_rss_gb']:.1f} GB at its start); "
               f"{t['tokens_per_s_per_replica']:.1f} tokens/s per replica; wall {t['wall_s']:.1f} s",
@@ -2952,6 +3325,25 @@ def main() -> int:
         row["diloco_quantized_launches"] = results["diloco_quantized_cpp"]["launches"].get(name)
         row["chaos_deadlock_launches"] = [
             n.get(name) for n in results["chaos_deadlock"]["launches"]]
+    # DiLoCo's outer kernel: diloco_cpp's launches, timed at its first
+    # pipeline chunk; each other path's count where it counts the kernel
+    # (the DiLoCo fleets, the spare's, the job loss's LocalSGD), else null
+    row = dict(name="diloco_outer", route="cuda", source=PORT_KERNELS["diloco_outer"][0],
+               replaces=PORT_KERNELS["diloco_outer"][1],
+               launches=results["diloco_cpp"]["launches"]["outer"],
+               **{k: outer_t["chunk"][k] for k in keys})
+    for field, path in (("spare_launches", "spare_python"), ("pipeline_launches", "pipeline"),
+                        ("rehearsal_launches", "rehearsal"), ("baby_launches", "baby_cpp"),
+                        ("jobloss_launches", "localsgd_cpp"),
+                        ("stream_launches", "diloco_stream_cpp"),
+                        ("quantized_python_launches", "train_quantized_python"),
+                        ("diloco_quantized_launches", "diloco_quantized_cpp")):
+        row[field] = results[path]["launches"].get("outer")
+    row["moe_hsdp_launches"] = [n.get("outer") for n in results["moe_hsdp_cpp"]["launches"]]
+    row["supervised_launches"] = [
+        n.get("outer") for n in results["supervised_cpp"]["launches"].values()]
+    row["chaos_deadlock_launches"] = [n.get("outer") for n in results["chaos_deadlock"]["launches"]]
+    line["kernels"].append(row)
     print(json.dumps(line), flush=True)
     print(card, flush=True)  # nvidia-smi's own line: name, power limit
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1340,3 +1340,81 @@ def test_the_avg_kernel_is_held_and_listed(chip_smoke) -> None:
     assert 'name="ddp_avg"' in text and 'launches=float_t["launches"]["avg"]' in text
     assert '("fwd", "dq", "dkv", "avg")' in text
     assert '("quantize", "reduce", "dequantize") if should_quantize' in text
+
+
+def test_the_outer_kernel_is_held_and_listed(chip_smoke) -> None:
+    """DiLoCo's outer kernel replaces the JAX package's host outer update
+    (its sharded owner's update callback), is held at one owner's shard of
+    the 1-layer fragment and timed at that shard's first chunk, rides the
+    kernels line with diloco_cpp's launches, and every DiLoCo fleet must
+    launch it."""
+    source, replaces = _port_kernels()["diloco_outer"]
+    assert (REPO / source).is_file()
+    path, line = replaces.rsplit(":", 1)
+    tree = ast.parse((REPO / path).read_text())
+    defs = [n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef) and n.lineno == int(line)]
+    assert [d.name for d in defs] == ["_cb"]
+    assert {c["n"] for c in chip_smoke.OUTER_CASES} >= {"shard", "chunk"}
+    assert all(c["lr"] == 0.7 for c in chip_smoke.OUTER_CASES)
+    text = (REPO / "chip_smoke.py").read_text()
+    assert 'name="diloco_outer"' in text
+    assert 'launches=results["diloco_cpp"]["launches"]["outer"]' in text
+    assert '(("outer",) if diloco else ())' in text
+    assert 'if launches["outer"] <= 0:' in text  # the spare's fleet
+
+
+def test_outer_phase_runs_at_the_fragments_shapes(chip_smoke) -> None:
+    """The 1-layer Llama-3-8B-width DiLoCo fleet's fragment 0, one owner's
+    shard of it at 2 owners, and that shard's first pipeline chunk, from a
+    model on the meta device."""
+    import torch
+
+    from torchft_tpu_torch import train_ddp
+
+    fragments = chip_smoke.diloco_fragments(train_ddp, chip_smoke.DILOCO_LAYERS["diloco_cpp"])
+    assert len(fragments) == chip_smoke.DILOCO["num_fragments"]
+    assert fragments[0][0] == ("embed", (128256, 4096), torch.bfloat16)
+    shapes = chip_smoke.outer_shapes(fragments[0])
+    assert shapes == {"fragment": 684_732_416, "shard": 342_366_208, "chunk": 5_349_472}
+    assert sum(chip_smoke.outer_shapes(f)["fragment"] for f in fragments) == 1_268_789_248
+
+
+def test_outer_numpy_checks_read_this_hosts_numpy(chip_smoke) -> None:
+    """numpy's sum over axis 0 starts from +0 (a sum of -0s is +0), and the
+    int8 chunk sum's einsum rounds its products and sums apart, as the
+    outer kernel does."""
+    got = chip_smoke.outer_numpy_checks()
+    assert got["sum_of_negative_zeros_negative"] is False
+    assert got["einsum_differs_from_mul_then_add"] == 0
+    assert got["einsum_differs_from_fused_second_term"] > 0
+
+
+@pytest.mark.parametrize("name", [
+    "outer_shard::scatter_wait", "outer_shard::to_card", "outer_shard::chunk_update",
+    "outer_shard::to_wire", "outer_shard::gather_wait", "outer_shard::from_wire",
+    "outer_shard::contribution", "outer_shard::sum"])
+def test_outer_pipeline_spans_are_recorded_by_the_port(chip_smoke, name) -> None:
+    """The outer pipeline's chunk spans are ones the port records, and the
+    DiLoCo phases print them per committed sync."""
+    assert name in chip_smoke.DILOCO_SPANS
+    assert f'obs_span("{name}"' in "".join(
+        p.read_text() for p in (REPO / "torchft_tpu_torch").rglob("*.py"))
+
+
+@pytest.mark.parametrize("name", [
+    "manager::heal_send", "manager::heal_recv", "diloco::save_state", "diloco::load_state",
+    "outer_shard::export", "outer_shard::exchange", "outer_shard::rebuild"])
+def test_heal_spans_are_recorded_by_the_port(chip_smoke, name) -> None:
+    """The heal's split (the send and receive, the fragments' state across
+    card and host, the reshard's export, exchange and rebuild) reads spans
+    the port records, and the DiLoCo phases print it."""
+    assert name in chip_smoke.HEAL_SPANS
+    assert f'obs_span("{name}"' in "".join(
+        p.read_text() for p in (REPO / "torchft_tpu_torch").rglob("*.py"))
+    assert "heal_split_s" in (REPO / "chip_smoke.py").read_text()
+
+
+def test_outer_sync_check_steps_a_committed_trace(chip_smoke) -> None:
+    """The whole on-card sync check runs at least two syncs, so the second
+    steps the trace the first staged and committed on the card."""
+    assert chip_smoke.OUTER_SYNC_STEPS >= 2

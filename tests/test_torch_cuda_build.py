@@ -58,7 +58,7 @@ def test_every_repo_source_builds_under_its_own_key() -> None:
     """The port's sources hash to distinct names in the build directory."""
     names = sorted(p.stem for p in cuda_build.CSRC_DIR.glob("*.cu"))
     assert set(names) == {"flash_fwd_sm90", "flash_dkv_sm90", "flash_dq_sm90", "quant",
-                          "quant_reduce_sm90", "avg"}
+                          "quant_reduce_sm90", "avg", "outer"}
     artifacts = {cuda_build._artifact(n) for n in names}
     assert len(artifacts) == len(names)
     assert all(a.parent == cuda_build.BUILD_DIR for a in artifacts)

@@ -1,8 +1,10 @@
 """Quantized collectives: int8/fp8 allreduce over the replica dimension.
 
 The port of ``torchft_tpu/collectives.py``: the quantized allreduce, and
-DiLoCo's sharded outer sync (:func:`outer_sharded_sync`, host numpy as in
-the JAX package).  The quantized pipeline: quantize →
+DiLoCo's sharded outer sync (:func:`outer_sharded_sync`: host numpy as in
+the JAX package, or, for a fragment on the card, its card path, where each
+chunk's sum and outer step run in one kernel and the delta stays in device
+memory).  The quantized pipeline: quantize →
 ``alltoall`` row shards → dequant-sum-requant of this rank's shard →
 allgather → dequantize.  Per-rank bytes drop from ~2·n·4 (f32 ring) to
 ~2·n·1 + scales.
@@ -27,6 +29,7 @@ wire bytes are the JAX package's, so mixed quorums interoperate.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import threading
@@ -509,7 +512,8 @@ def outer_sharded_sync(
     weight: Optional[float] = None,
     tag_base: int = _OUTER_TAG_BASE,
     tag_span: int = wire.OUTER_SHARD_TAG_SPAN,
-) -> np.ndarray:
+    device: Optional[torch.device] = None,
+) -> Union[np.ndarray, torch.Tensor]:
     """ZeRO-1-style sharded outer sync: chunk-pipelined
     ``reduce_scatter → sharded outer update → allgather(update)``.
 
@@ -528,11 +532,26 @@ def outer_sharded_sync(
     replica applies the identical wire-format delta (its own included), so
     params stay bit-identical across replicas.
 
+    ``device``, when given, runs the chunk arithmetic there (the card path):
+    each chunk's gathered contributions go to the device once (on the int8
+    wire dequantized there, ``ops.quant``), ``update_cb.on_card(lo, hi,
+    contribs, scale, out)`` sums them, scales by ``1/participants`` and
+    steps the owner's shard in one pass (``ops.outer``) into the device
+    delta, whose chunk comes back to the host once for the allgather (on
+    the int8 wire quantized there first), and the allgathered deltas are
+    written (dequantized) into that device delta.  On a CUDA device the
+    work runs on a stream of its own, which first waits for the work the
+    caller queued on its current stream (the staged copy of the owner's
+    state that ``update_cb`` writes) and is synchronized before the delta is
+    returned; the host crosses only where the wire needs bytes.  The result
+    is the host path's bit for bit (NaN bits aside).
+
     Hierarchical topologies compose: the host reduces once over shared
     memory, HOST LEADERS run the chunk pipeline (shards owned per host via
-    ``leader_comm``), and the allgathered delta shm-broadcasts back out —
-    non-leaders move zero socket bytes and own no shard (``update_cb`` is
-    never invoked on them).
+    ``leader_comm``; with ``device``, its card path), and the allgathered
+    delta shm-broadcasts back out as one host array, which every rank of
+    the host returns — non-leaders move zero socket bytes and own no shard
+    (``update_cb`` is never invoked on them).
 
     When quantized, the pseudo-gradient is rowwise-quantized ONCE for the
     whole buffer (each byte quantized exactly once — shard and chunk
@@ -542,15 +561,16 @@ def outer_sharded_sync(
     first error re-raises after the schedule completes.
 
     Returns the f32 delta of length ``len(flat)`` (apply as
-    ``params = backup + delta``).  Fills ``timings`` (if given) with
-    ``scatter_s`` / ``update_s`` / ``gather_s`` / ``wall_s`` /
-    ``overlap_ratio``.
+    ``params = backup + delta``): a tensor on ``device`` on the flat card
+    path, else a host array.  Fills ``timings`` (if given) with ``scatter_s`` /
+    ``update_s`` / ``gather_s`` / ``wall_s`` / ``overlap_ratio``.
 
-    ``tap``, if given, observes the assembled delta (identical bytes on
-    every replica by construction — the allgather fans out ONE wire-format
-    update) right before it is returned: the hot-spare delta feed rides
-    this hook so parked observers can keep a shadow bit-exact without
-    participating in the collective.  A tap failure never fails the sync.
+    ``tap``, if given, observes the assembled delta as host f32 (identical
+    bytes on every replica by construction — the allgather fans out ONE
+    wire-format update) right before it is returned: the hot-spare delta
+    feed rides this hook so parked observers can keep a shadow bit-exact
+    without participating in the collective.  A tap failure never fails
+    the sync.
 
     ``tag_base`` / ``tag_span`` frame the chunk collectives: the default is
     the legacy OUTER_SHARD window (byte-identical to the pre-stream path);
@@ -576,7 +596,7 @@ def outer_sharded_sync(
     tm = {"scatter_s": 0.0, "update_s": 0.0, "gather_s": 0.0}
     topo = _hier_topology(comm)
     err: Optional[BaseException] = None
-    delta_full: Optional[np.ndarray] = None
+    delta_full: Union[np.ndarray, torch.Tensor, None] = None
 
     if topo is None:
         gsize = max(1, comm.size())
@@ -597,52 +617,148 @@ def outer_sharded_sync(
         group = comm.leader_comm() if owns else comm  # type: ignore[attr-defined]
 
     padded, per, unit = outer_shard_layout(n, gsize, should_quantize, row_size)
+    with _device_stream(device):
+        if owns:
+            try:
+                if contrib is None:
+                    raise err or CommunicatorError("intra-host reduce failed")
+                with obs_span("outer_shard::pipeline"):
+                    delta_full = _outer_sharded_pipeline(
+                        group,
+                        contrib,
+                        padded,
+                        per,
+                        unit,
+                        update_cb,
+                        num_participants,
+                        should_quantize,
+                        kind,
+                        row_size,
+                        tm,
+                        tag_base=tag_base,
+                        tag_span=tag_span,
+                        device=device,
+                    )
+            except BaseException as e:  # noqa: BLE001
+                err = err or e
+                delta_full = (np.zeros(padded, dtype=np.float32) if device is None
+                              else torch.zeros(padded, dtype=torch.float32, device=device))
 
-    if owns:
-        try:
-            if contrib is None:
-                raise err or CommunicatorError("intra-host reduce failed")
-            with obs_span("outer_shard::pipeline"):
-                delta_full = _outer_sharded_pipeline(
-                    group,
-                    contrib,
-                    padded,
-                    per,
-                    unit,
-                    update_cb,
-                    num_participants,
-                    should_quantize,
-                    kind,
-                    row_size,
-                    tm,
-                    tag_base=tag_base,
-                    tag_span=tag_span,
-                )
-        except BaseException as e:  # noqa: BLE001
-            err = err or e
-            delta_full = np.zeros(padded, dtype=np.float32)
-
-    if topo is not None:
-        # members receive the delta; leaders always broadcast (zeros after a
-        # failure) so host peers are never wedged — same containment
-        # contract as the hierarchical quantized allreduce
-        delta_full = comm.intra_broadcast(  # type: ignore[attr-defined]
-            delta_full, padded, np.float32
-        ).wait()
-    if err is not None:
-        raise err
-    assert delta_full is not None
-    tm["wall_s"] = time.perf_counter() - t_wall
-    busy = tm["scatter_s"] + tm["update_s"] + tm["gather_s"]
-    tm["overlap_ratio"] = round(busy / tm["wall_s"], 4) if tm["wall_s"] > 0 else 0.0
-    if timings is not None:
-        timings.update({k: round(v, 6) for k, v in tm.items()})
-    if tap is not None:
-        try:
-            tap(delta_full[:n])
-        except Exception:  # noqa: BLE001 — observers must not fail the sync
-            pass
+        if topo is not None:
+            # members receive the delta; leaders always broadcast (zeros after a
+            # failure) so host peers are never wedged — same containment
+            # contract as the hierarchical quantized allreduce.  The shm hop
+            # moves host arrays: a leader's card delta crosses back once
+            delta_full = comm.intra_broadcast(  # type: ignore[attr-defined]
+                None if delta_full is None else _host_f32(delta_full), padded, np.float32
+            ).wait()
+        if err is not None:
+            raise err
+        assert delta_full is not None
+        tm["wall_s"] = time.perf_counter() - t_wall
+        busy = tm["scatter_s"] + tm["update_s"] + tm["gather_s"]
+        tm["overlap_ratio"] = round(busy / tm["wall_s"], 4) if tm["wall_s"] > 0 else 0.0
+        if timings is not None:
+            timings.update({k: round(v, 6) for k, v in tm.items()})
+        if tap is not None:
+            try:
+                tap(_host_f32(delta_full[:n]))
+            except Exception:  # noqa: BLE001 — observers must not fail the sync
+                pass
     return delta_full[:n]
+
+
+@contextlib.contextmanager
+def _device_stream(device: Optional[torch.device]):
+    """On a CUDA device, a stream of the card path's own, current while the
+    block runs.  It starts after the work queued on the caller's current
+    stream (the staged copy of the owner's shard that the kernel writes, the
+    state loaded onto the card at a reshard) and is synchronized (it alone,
+    not the device) when it ends, so the delta is whole once the sync
+    returns while the other work on the card (another replica's inner
+    steps) runs on; elsewhere nothing."""
+    if device is None or device.type != "cuda":
+        yield
+        return
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    try:
+        with torch.cuda.stream(stream):
+            yield
+    finally:
+        stream.synchronize()
+
+
+def _host_f32(x: Union[np.ndarray, torch.Tensor]) -> np.ndarray:
+    """``x`` as a host f32 array (a tensor on a device copied back once)."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+
+
+def _wire_bytes(x: Union[np.ndarray, torch.Tensor]) -> np.ndarray:
+    """The host array the allgather sends for a delta chunk.  A chunk on the
+    card is copied back once into page-locked memory from PyTorch's caching
+    host allocator (later chunks and syncs reuse its blocks), which the card
+    fills at DMA rate where pageable memory takes ~7x longer (the copy A/B
+    of ``chip_smoke.outer_phase``); the array keeps its block alive until
+    the wire is done with it."""
+    if not isinstance(x, torch.Tensor) or not x.is_cuda:
+        return _host_f32(x)
+    out = torch.empty(x.numel(), dtype=x.dtype, pin_memory=True)
+    out.copy_(x)
+    return out.numpy()
+
+
+def _padded_copy(contrib: np.ndarray, padded: int) -> np.ndarray:
+    buf = np.zeros(padded, dtype=np.float32)
+    buf[: contrib.size] = contrib
+    return buf
+
+
+def _part(contrib: np.ndarray, lo: int, hi: int) -> np.ndarray:
+    """This replica's contribution over ``[lo, hi)`` of the padded element
+    space: a view where it lies inside ``contrib``, a zero-filled copy
+    where it runs past the end (only the last shard's last chunk)."""
+    if hi <= contrib.size:
+        return contrib[lo:hi]
+    out = np.zeros(hi - lo, dtype=np.float32)
+    if lo < contrib.size:
+        out[: contrib.size - lo] = contrib[lo:]
+    return out
+
+
+def _quantize_on_card(x: torch.Tensor, row_size: int, kind: str) -> Tuple[np.ndarray, np.ndarray]:
+    """The wire bytes (payload rows, f32 scales) of ``x``, whole rows,
+    quantized on ``x``'s device (B1) and copied back once."""
+    from torchft_tpu_torch.ops.quant import quantize_rowwise_device
+
+    rows = x.numel() // row_size
+    q, s = quantize_rowwise_device(x, row_size, kind)
+    if kind == FP8:
+        q = q.view(torch.uint8)  # the host holds e4m3 as its bit pattern
+    return q[:rows].cpu().numpy(), s.reshape(-1)[:rows].cpu().numpy()
+
+
+def _dequantize_on_card(q: np.ndarray, scales: np.ndarray, out: torch.Tensor) -> None:
+    """Wire rows (host) dequantized into ``out`` on its device (B3)."""
+    from torchft_tpu_torch.ops.quant import dequantize_rowwise_device
+
+    q_t = torch.from_numpy(np.ascontiguousarray(q)).to(out.device)
+    if _kind_of(q) == FP8:
+        q_t = q_t.view(torch.float8_e4m3fn)
+    s_t = torch.from_numpy(np.ascontiguousarray(scales, dtype=np.float32)).to(out.device)
+    dequantize_rowwise_device(q_t, s_t, out.numel(), out=out)
+
+
+def _contribs_on_card(parts: list, length: int, device: torch.device) -> torch.Tensor:
+    """One chunk's contributions, f32 host arrays or wire ``(q, scales)``
+    rows, as a [w, length] f32 tensor on ``device``: each crosses once."""
+    out = torch.empty((len(parts), length), dtype=torch.float32, device=device)
+    for k, part in enumerate(parts):
+        if isinstance(part, tuple):
+            _dequantize_on_card(part[0], part[1], out[k])
+        else:
+            out[k].copy_(torch.from_numpy(np.ascontiguousarray(part, dtype=np.float32)))
+    return out
 
 
 def _outer_sharded_pipeline(
@@ -659,16 +775,20 @@ def _outer_sharded_pipeline(
     tm: dict,
     tag_base: int = _OUTER_TAG_BASE,
     tag_span: int = wire.OUTER_SHARD_TAG_SPAN,
-) -> np.ndarray:
+    device: Optional[torch.device] = None,
+) -> Union[np.ndarray, torch.Tensor]:
     """Shard-owner body of :func:`outer_sharded_sync` over ``group`` (the
-    flat communicator, or the leader view on hierarchical topologies)."""
+    flat communicator, or the leader view on hierarchical topologies); with
+    ``device``, the card path (see there)."""
     gsize = max(1, group.size())
     gidx = group.rank() if gsize > 1 else 0
-    buf = np.zeros(padded, dtype=np.float32)
-    buf[: contrib.size] = contrib
     chunks = _outer_chunk_ranges(per, unit, gsize, max_chunks=tag_span // 2)
     inv = 1.0 / max(1, num_participants)
-    delta_full = np.empty(padded, dtype=np.float32)
+    card = device is not None
+    delta_full: Union[np.ndarray, torch.Tensor] = (
+        torch.empty(padded, dtype=torch.float32, device=device) if card
+        else np.empty(padded, dtype=np.float32)
+    )
     err: Optional[BaseException] = None
 
     q_full: Optional[np.ndarray] = None
@@ -676,23 +796,65 @@ def _outer_sharded_pipeline(
     if should_quantize:
         # quantize the whole contribution ONCE; every a2a slice below is a
         # row-aligned view of this single pass
-        q_full, s_full = _quantize_rows(buf, row_size, kind)
+        with obs_span("outer_shard::contribution"):
+            if card:
+                x = torch.zeros(padded, dtype=torch.float32, device=device)
+                x[: contrib.size].copy_(torch.from_numpy(contrib))
+                q_full, s_full = _quantize_on_card(x, row_size, kind)
+                del x
+            else:
+                q_full, s_full = _quantize_rows(_padded_copy(contrib, padded), row_size, kind)
+
+    def rows_of(lo: int, hi: int) -> Tuple[np.ndarray, np.ndarray]:
+        assert q_full is not None and s_full is not None
+        return q_full[lo // row_size : hi // row_size], s_full[lo // row_size : hi // row_size]
+
+    def update(lo: int, hi: int, parts: list, out: Optional[torch.Tensor]):
+        """The owner's update of ``[lo, hi)`` from one chunk's gathered
+        contributions (f32 arrays or wire rows): on the card into ``out``;
+        on the host the delta array it returns."""
+        length = hi - lo
+        if card:
+            with obs_span("outer_shard::to_card"):
+                contribs = _contribs_on_card(parts, length, device)
+            t0 = time.perf_counter()
+            with obs_span("outer_shard::chunk_update"):
+                update_cb.on_card(lo, hi, contribs, inv, out)  # type: ignore[attr-defined]
+            tm["update_s"] += time.perf_counter() - t0
+            return out
+        with obs_span("outer_shard::sum"):
+            if should_quantize and len(parts) == 1:
+                acc = _dequantize_rows(parts[0][0], parts[0][1], length)
+            elif should_quantize:
+                qs, scs = zip(*parts)
+                acc = np.einsum("wrc,wr->rc", _to_f32(np.stack(qs)), np.stack(scs)).reshape(-1)
+            elif len(parts) == 1:
+                acc = np.array(parts[0], dtype=np.float32)
+            else:
+                acc = np.sum(np.stack(parts), axis=0)
+            acc *= inv
+        t0 = time.perf_counter()
+        with obs_span("outer_shard::chunk_update"):
+            delta = np.asarray(update_cb(lo, hi, acc), dtype=np.float32)
+        tm["update_s"] += time.perf_counter() - t0
+        return delta
 
     if gsize == 1 or getattr(group, "is_passthrough", False):
         # degenerate single-owner group: no wire, but keep the per-chunk
         # schedule (and, when quantized, the wire-format round trip) so the
         # numerics match the multi-owner path's contract
         for c0, c1 in chunks:
-            if should_quantize:
-                assert q_full is not None and s_full is not None
-                rows = slice(c0 // row_size, c1 // row_size)
-                avg = _dequantize_rows(q_full[rows], s_full[rows], c1 - c0)
-                avg *= inv
-            else:
-                avg = buf[c0:c1] * inv
-            t0 = time.perf_counter()
-            delta = np.asarray(update_cb(c0, c1, avg), dtype=np.float32)
-            tm["update_s"] += time.perf_counter() - t0
+            part = rows_of(c0, c1) if should_quantize else _part(contrib, c0, c1)
+            if card:
+                dst = delta_full[c0:c1]
+                if not should_quantize:
+                    update(c0, c1, [part], dst)
+                    continue
+                own = torch.empty(c1 - c0, dtype=torch.float32, device=device)
+                update(c0, c1, [part], own)
+                _dequantize_on_card(*_quantize_on_card(own, row_size, kind), dst)
+                continue
+            delta = update(c0, c1, [part], None)
             if should_quantize:
                 dq, ds = _quantize_rows(delta, row_size, kind)
                 delta = _dequantize_rows(dq, ds, c1 - c0)
@@ -704,93 +866,85 @@ def _outer_sharded_pipeline(
     def _submit_a2a(ci: int) -> Work:
         c0, c1 = chunks[ci]
         if should_quantize:
-            assert q_full is not None and s_full is not None
-            parts = [
-                _pack(
-                    q_full[(p * per + c0) // row_size : (p * per + c1) // row_size],
-                    s_full[(p * per + c0) // row_size : (p * per + c1) // row_size],
-                )
-                for p in range(gsize)
-            ]
+            parts = [_pack(*rows_of(p * per + c0, p * per + c1)) for p in range(gsize)]
         else:
-            parts = [buf[p * per + c0 : p * per + c1] for p in range(gsize)]
+            parts = [_part(contrib, p * per + c0, p * per + c1) for p in range(gsize)]
         return group.alltoall(parts, tag=tag_base + 2 * ci)
 
     a2a_work = _submit_a2a(0)
     ag_works: List[Work] = []
     for ci, (c0, c1) in enumerate(chunks):
         rows = (c1 - c0) // row_size
+        lo, hi = my_base + c0, my_base + c1
         t0 = time.perf_counter()
         try:
-            gathered = a2a_work.wait()
+            with obs_span("outer_shard::scatter_wait", chunk=ci):
+                gathered = a2a_work.wait()
         except BaseException as e:  # noqa: BLE001 — degrade, keep schedule
             err = err or e
             gathered = None
         tm["scatter_s"] += time.perf_counter() - t0
         if ci + 1 < len(chunks):
             a2a_work = _submit_a2a(ci + 1)
-        delta: Optional[np.ndarray] = None
+        # on the float card path the owner's delta lands in its own range of
+        # the device delta; on int8 every replica applies the wire delta
+        own = (None if not card else delta_full[lo:hi] if not should_quantize
+               else torch.empty(c1 - c0, dtype=torch.float32, device=device))
+        delta = None
         if gathered is not None:
             try:
-                if should_quantize:
-                    qs, scs = zip(
-                        *(_unpack(g, rows, row_size, kind) for g in gathered)
-                    )
-                    acc = np.einsum(
-                        "wrc,wr->rc",
-                        _to_f32(np.stack(qs)),
-                        np.stack(scs),
-                    ).reshape(-1)
-                else:
-                    acc = np.sum(np.stack(gathered), axis=0)
-                acc *= inv
-                t0 = time.perf_counter()
-                with obs_span("outer_shard::chunk_update", chunk=ci):
-                    delta = np.asarray(
-                        update_cb(my_base + c0, my_base + c1, acc),
-                        dtype=np.float32,
-                    )
-                tm["update_s"] += time.perf_counter() - t0
+                parts = ([_unpack(g, rows, row_size, kind) for g in gathered]
+                         if should_quantize else list(gathered))
+                delta = update(lo, hi, parts, own)
             except BaseException as e:  # noqa: BLE001
                 err = err or e
                 delta = None
-        if delta is None:
-            delta = np.zeros(c1 - c0, dtype=np.float32)
-        if should_quantize:
-            dq, ds = _quantize_rows(delta, row_size, kind)
-            ag_works.append(
-                group.allgather(_pack(dq, ds), tag=tag_base + 2 * ci + 1)
-            )
-        else:
-            ag_works.append(
-                group.allgather(delta, tag=tag_base + 2 * ci + 1)
-            )
+        with obs_span("outer_shard::to_wire", chunk=ci):
+            if delta is None and own is not None:
+                delta = own.zero_()
+            elif delta is None:
+                delta = np.zeros(c1 - c0, dtype=np.float32)
+            if should_quantize:
+                dq, ds = (_quantize_on_card(delta, row_size, kind) if card
+                          else _quantize_rows(delta, row_size, kind))
+                payload = _pack(dq, ds)
+            else:
+                payload = _wire_bytes(delta)
+        ag_works.append(group.allgather(payload, tag=tag_base + 2 * ci + 1))
 
     for ci, work in enumerate(ag_works):
         c0, c1 = chunks[ci]
         rows = (c1 - c0) // row_size
         t0 = time.perf_counter()
         try:
-            all_deltas = work.wait()
+            with obs_span("outer_shard::gather_wait", chunk=ci):
+                all_deltas = work.wait()
         except BaseException as e:  # noqa: BLE001
             err = err or e
             all_deltas = None
         tm["gather_s"] += time.perf_counter() - t0
-        for p in range(gsize):
-            dst = delta_full[p * per + c0 : p * per + c1]
-            if all_deltas is None:
-                dst[:] = 0.0
-            elif should_quantize:
-                # every replica (the owner included) applies the WIRE
-                # delta, so params stay bit-identical across replicas
-                try:
-                    dq, ds = _unpack(all_deltas[p], rows, row_size, kind)
-                    dst[:] = _dequantize_rows(dq, ds, c1 - c0)
-                except BaseException as e:  # noqa: BLE001
-                    err = err or e
+        with obs_span("outer_shard::from_wire", chunk=ci):
+            for p in range(gsize):
+                dst = delta_full[p * per + c0 : p * per + c1]
+                if all_deltas is None:
                     dst[:] = 0.0
-            else:
-                dst[:] = all_deltas[p]
+                elif should_quantize:
+                    # every replica (the owner included) applies the WIRE
+                    # delta, so params stay bit-identical across replicas
+                    try:
+                        dq, ds = _unpack(all_deltas[p], rows, row_size, kind)
+                        if card:
+                            _dequantize_on_card(dq, ds, dst)
+                        else:
+                            dst[:] = _dequantize_rows(dq, ds, c1 - c0)
+                    except BaseException as e:  # noqa: BLE001
+                        err = err or e
+                        dst[:] = 0.0
+                elif card:
+                    if p != gidx:  # the owner's own delta is already there
+                        dst.copy_(torch.from_numpy(np.asarray(all_deltas[p], np.float32)))
+                else:
+                    dst[:] = all_deltas[p]
 
     if err is not None:
         raise err

@@ -20,10 +20,17 @@ PyTorch idiom, where the JAX package uses pytrees and optax:
 - where the JAX package puts a new leaf into the holder, the port writes the
   live parameter **in place** (``copy_`` under ``no_grad``), so the inner
   optimizer's state stays bound to the same ``Parameter``;
-- backups are host tensors in the parameter's dtype; the pseudogradient,
-  the outer step (:class:`~torchft_tpu_torch.optim.OuterSGD`) and the mix
-  run on the host, as in the JAX package — host numpy over flat f32 arrays
-  on the sharded path, which is ``collectives.outer_sharded_sync``.
+- backups live beside the parameters, on their device, in their dtype.  On
+  the card the sharded sync keeps every full-size array there: the
+  pseudo-gradient is computed on the card a piece at a time and crosses to
+  the host only as the bytes the wire sends, the owner's outer state
+  (:class:`_OuterShard`) is a device tensor stepped by the outer kernel
+  (``ops/outer.py``) chunk by chunk, and the delta comes back into device
+  memory, where ``backup + delta`` is applied.  On the CPU the same sync
+  runs host numpy (``collectives.outer_sharded_sync``, the JAX package's
+  arithmetic), and the replicated path steps
+  :class:`~torchft_tpu_torch.optim.OuterSGD` per leaf wherever the leaves
+  live.
 
 Degraded fleets: when the quorum carries wounded replicas the outer reduce
 becomes capacity-weighted inside the Manager; nothing here changes.
@@ -32,6 +39,7 @@ becomes capacity-weighted inside the Manager; nothing here changes.
 from __future__ import annotations
 
 import contextlib
+import functools
 import hashlib
 import logging
 import pickle
@@ -135,11 +143,14 @@ class _OuterShard:
 
     The flat f32 element space of the fragment is split into deterministic
     equal shards (``collectives.outer_shard_layout``); this object holds the
-    :class:`OuterSGD` state of ONE shard as f32 numpy leaves (so a reshard
-    blob pickled by a JAX rank loads here and the other way round), serves
+    :class:`OuterSGD` state of ONE shard — f32 numpy leaves on the host, f32
+    tensors on ``device`` when one is given (the card path) — serves
     per-chunk slices to the pipelined sync (``update_cb``), stages the
     updated state until the commit vote, and re-partitions on membership
-    change.
+    change.  The reshard blob and :meth:`save_state` always carry f32 numpy
+    leaves (so a blob pickled by a JAX rank loads here and the other way
+    round): device leaves are exported from the card, one copy each, and
+    rebuilt state is loaded back onto it.
 
     Resharding: whenever the quorum id moved since the layout was built,
     every replica contributes its (meta, state-shard) over two allgathers
@@ -148,20 +159,30 @@ class _OuterShard:
     replica that died are re-initialized fresh; a healed replica contributes
     the shard it received in the checkpoint."""
 
-    def __init__(self, outer: OuterSGD, n: int, should_quantize: bool) -> None:
+    def __init__(
+        self, outer: OuterSGD, n: int, should_quantize: bool,
+        device: Optional[torch.device] = None,
+    ) -> None:
         self._outer = outer
         self._n = n
         self._quant = should_quantize
+        self._device = device
         # (quorum_id, gsize, gidx, per, owns) of the current layout
         self.meta: Optional[Dict[str, Any]] = None
-        self._state_leaves: Optional[List[np.ndarray]] = None
-        self._staged: Optional[List[np.ndarray]] = None
+        self._state_leaves: Optional[List[_Leaf]] = None
+        self._staged: Optional[List[_Leaf]] = None
         # (meta, leaves) recovered from a healing checkpoint, contributed at
         # the next reshard (our own rank may differ from the source's)
         self._loaded: List[Tuple[Dict[str, Any], List[np.ndarray]]] = []
 
-    def _fresh_leaves(self, per: int) -> List[np.ndarray]:
-        return [np.array(l, dtype=np.float32) for l in self._outer.init(np.zeros(per, np.float32))]
+    def _fresh_leaves(self, per: int) -> List[_Leaf]:
+        """Fresh (zero) state leaves of ``per`` elements where the state
+        lives: host numpy, or tensors made on the device."""
+        if self._device is None:
+            return [np.array(l, dtype=np.float32)
+                    for l in self._outer.init(np.zeros(per, np.float32))]
+        return [torch.zeros(per, dtype=torch.float32, device=self._device)
+                for _ in self._outer.init(np.zeros(0, np.float32))]
 
     def maybe_reshard(self, manager: Manager) -> None:
         """(Re)build this owner's shard for the current quorum.  Gated on
@@ -173,41 +194,44 @@ class _OuterShard:
         gsize, gidx, owns = manager.outer_shard_group()
         _padded, per, _unit = outer_shard_layout(self._n, gsize, self._quant)
         meta = {"q": qid, "gsize": gsize, "gidx": gidx, "per": per, "n": self._n, "owns": owns}
-        contribs = self._export_contribs()
+        with obs_span("outer_shard::export"):
+            contribs = self._export_contribs()
         comm = manager._comm
         if comm.size() > 1 and not getattr(comm, "is_passthrough", False):
-            blob = pickle.dumps(contribs)
-            try:
-                lens = comm.allgather(
-                    np.array([len(blob)], dtype=np.int64), tag=_RESHARD_LEN_TAG
-                ).wait()
-                maxlen = max(int(np.asarray(l).reshape(-1)[0]) for l in lens)
-                padded_blob = np.empty(max(1, maxlen), dtype=np.uint8)
-                padded_blob[: len(blob)] = np.frombuffer(blob, dtype=np.uint8)
-                padded_blob[len(blob) :] = 0
-                del blob
-                blobs = comm.allgather(padded_blob, tag=_RESHARD_BLOB_TAG).wait()
-                contribs = []
-                for l, b in zip(lens, blobs):
-                    size = int(np.asarray(l).reshape(-1)[0])
-                    try:
-                        # straight from the gathered buffer: a blob holds
-                        # the outer state (GBs at 8B width), and each copy
-                        # of it costs fresh host pages
-                        contribs.extend(pickle.loads(np.ascontiguousarray(b[:size], np.uint8)))
-                    except Exception:  # noqa: BLE001 — skip a bad peer blob
-                        logger.warning("outer-shard reshard: bad peer blob")
-            except Exception as e:  # noqa: BLE001 — the sync right after
-                # this surfaces comm errors; the reshard falls back to the
-                # locally-held contributions (peers' shards re-init fresh)
-                logger.warning("outer-shard reshard exchange failed: %s", e)
-                contribs = self._export_contribs()
-        self._rebuild(contribs, meta)
+            with obs_span("outer_shard::exchange"):
+                blob = pickle.dumps(contribs)
+                try:
+                    lens = comm.allgather(
+                        np.array([len(blob)], dtype=np.int64), tag=_RESHARD_LEN_TAG
+                    ).wait()
+                    maxlen = max(int(np.asarray(l).reshape(-1)[0]) for l in lens)
+                    padded_blob = np.empty(max(1, maxlen), dtype=np.uint8)
+                    padded_blob[: len(blob)] = np.frombuffer(blob, dtype=np.uint8)
+                    padded_blob[len(blob) :] = 0
+                    del blob
+                    blobs = comm.allgather(padded_blob, tag=_RESHARD_BLOB_TAG).wait()
+                    contribs = []
+                    for l, b in zip(lens, blobs):
+                        size = int(np.asarray(l).reshape(-1)[0])
+                        try:
+                            # straight from the gathered buffer: a blob holds
+                            # the outer state (GBs at 8B width), and each copy
+                            # of it costs fresh host pages
+                            contribs.extend(pickle.loads(np.ascontiguousarray(b[:size], np.uint8)))
+                        except Exception:  # noqa: BLE001 — skip a bad peer blob
+                            logger.warning("outer-shard reshard: bad peer blob")
+                except Exception as e:  # noqa: BLE001 — the sync right after
+                    # this surfaces comm errors; the reshard falls back to the
+                    # locally-held contributions (peers' shards re-init fresh)
+                    logger.warning("outer-shard reshard exchange failed: %s", e)
+                    contribs = self._export_contribs()
+        with obs_span("outer_shard::rebuild"):
+            self._rebuild(contribs, meta)
 
     def _export_contribs(self) -> List[Tuple[Dict[str, Any], List[np.ndarray]]]:
         out = list(self._loaded)
         if self.meta is not None and self._state_leaves is not None:
-            out.append((dict(self.meta), self._state_leaves))
+            out.append((dict(self.meta), _host_leaves(self._state_leaves)))
         return out
 
     def _rebuild(
@@ -234,31 +258,24 @@ class _OuterShard:
                 continue
             for mine, theirs in zip(leaves, cleaves):
                 theirs = np.asarray(theirs)
-                if theirs.shape == (cper,):
-                    mine[lo - my_lo : hi - my_lo] = theirs[lo - c_lo : hi - c_lo]
+                if theirs.shape != (cper,):
+                    continue
+                part = theirs[lo - c_lo : hi - c_lo]
+                if torch.is_tensor(mine):
+                    # each contribution's range crosses to the card once
+                    mine[lo - my_lo : hi - my_lo].copy_(torch.from_numpy(part))
+                else:
+                    mine[lo - my_lo : hi - my_lo] = part
         self._state_leaves = leaves
 
-    def make_update_cb(self):
-        """Per-chunk outer update for the pipelined sync: slices this
-        shard's state, steps the outer optimizer on the chunk, stages the
-        new state (adopted only on commit), returns the delta."""
+    def make_update_cb(self) -> "_ShardUpdate":
+        """Per-chunk outer update for the pipelined sync over a copy of this
+        shard's state, which is staged (adopted only on commit)."""
         assert self.meta is not None and self.meta["owns"]
         assert self._state_leaves is not None
-        per = self.meta["per"]
-        base = self.meta["gidx"] * per
         old = self._state_leaves
-        staged = self._staged = [l.copy() for l in old]
-        outer = self._outer
-
-        def _cb(lo: int, hi: int, avg: np.ndarray) -> np.ndarray:
-            s, e = lo - base, hi - base
-            # chunks slice the ORIGINAL state
-            updates, new_state = outer.update(avg, [l[s:e] for l in old])
-            for j, leaf in enumerate(new_state):
-                staged[j][s:e] = leaf
-            return np.asarray(updates, dtype=np.float32)
-
-        return _cb
+        self._staged = [l.clone() if torch.is_tensor(l) else l.copy() for l in old]
+        return _ShardUpdate(self._outer, old, self._staged, self.meta["gidx"] * self.meta["per"])
 
     def commit_stage(self) -> None:
         if self._staged is not None:
@@ -271,7 +288,8 @@ class _OuterShard:
     def save_state(self) -> Optional[Dict[str, Any]]:
         if self.meta is None:
             return None
-        return {"meta": dict(self.meta), "leaves": self._state_leaves}
+        leaves = self._state_leaves
+        return {"meta": dict(self.meta), "leaves": None if leaves is None else _host_leaves(leaves)}
 
     def load_state(self, state: Optional[Dict[str, Any]]) -> None:
         """A healed checkpoint carries the SOURCE's shard; hold it as a
@@ -284,6 +302,52 @@ class _OuterShard:
         leaves = [np.asarray(l, dtype=np.float32) for l in state["leaves"]]
         self._loaded.append((dict(state["meta"]), leaves))
         self.meta = None  # force reshard at the next sync
+
+
+# a leaf of the outer state: f32 numpy on the host, an f32 tensor on the card
+_Leaf = Union[np.ndarray, torch.Tensor]
+
+
+def _host_leaves(leaves: Sequence[_Leaf]) -> List[np.ndarray]:
+    """Outer-state leaves as f32 numpy, the blob's format (a device leaf
+    copied back once)."""
+    return [l.cpu().numpy() if torch.is_tensor(l) else l for l in leaves]
+
+
+class _ShardUpdate:
+    """One sync's per-chunk outer update of an owner's shard: reads the
+    state as it was (``old``; chunks slice the ORIGINAL state) and writes
+    the new state into ``staged``.
+
+    State on the host takes the host contract: ``update(lo, hi, avg)`` with
+    the averaged f32 chunk returns the host delta.  State on a device takes
+    the card contract: :meth:`on_card` with the chunk's gathered
+    contributions there, which the outer kernel (``ops.outer``) sums,
+    scales and steps the shard with in one pass, writing the delta into
+    ``out``."""
+
+    def __init__(self, outer: OuterSGD, old: List[_Leaf], staged: List[_Leaf], base: int) -> None:
+        self._outer = outer
+        self._old = old
+        self._staged = staged
+        self._base = base
+
+    def __call__(self, lo: int, hi: int, avg: np.ndarray) -> np.ndarray:
+        s, e = lo - self._base, hi - self._base
+        updates, new_state = self._outer.update(avg, [l[s:e] for l in self._old])
+        for j, leaf in enumerate(new_state):
+            self._staged[j][s:e] = leaf
+        return np.asarray(updates, dtype=np.float32)
+
+    def on_card(self, lo: int, hi: int, contribs: torch.Tensor, scale: float,
+                out: torch.Tensor) -> None:
+        from torchft_tpu_torch.ops.outer import outer_update
+
+        s, e = lo - self._base, hi - self._base
+        outer = self._outer
+        trace, new_trace = (self._old[0][s:e], self._staged[0][s:e]) if self._old else (None, None)
+        outer_update(contribs, scale, out, outer.lr, outer.momentum, outer.nesterov,
+                     trace, new_trace)
 
 
 def partition_parameters(model: nn.Module, num_fragments: int) -> List[List[str]]:
@@ -347,12 +411,31 @@ def fragments_from_jax(
     return [[name for i in group for name in port_names(paths[i])] for group in jax_fragments]
 
 
-def _host_copies(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """Host copies of ``tensors`` in their dtypes.  A copy from the card
-    runs behind the work already queued on its stream (the inner step) and
-    returns once it is done, into pageable memory: pinned blocks would stay
-    cached, rounded up to a power of two, for every fragment's size."""
-    return [t.detach().to("cpu", copy=True) for t in tensors]
+def _sync_device(device: torch.device) -> Optional[torch.device]:
+    """Where a fragment on ``device`` runs its sharded sync's arithmetic:
+    on the card, the card (``collectives.outer_sharded_sync``'s card path);
+    on the CPU, None — the host numpy path."""
+    return device if device.type == "cuda" else None
+
+
+@functools.lru_cache(maxsize=None)
+def _host_bf16_nan() -> int:
+    """The bits torch's CPU cast writes into bf16 for every NaN, whatever
+    its sign and payload, read from the cast itself (its vectorized x86
+    path writes 0xffff, c10's scalar rounding 0x7fc0); CUDA's cast writes
+    its canonical 0x7fff instead."""
+    return int(torch.full((64,), float("nan")).to(torch.bfloat16).view(torch.int16)[0])
+
+
+def _round_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """f32 ``x`` rounded to ``dtype`` as the host rounds it: on the card a
+    bf16 NaN is rewritten to the host cast's bits, so a replica applies the
+    same bits on either."""
+    y = x.to(dtype)
+    if dtype != torch.bfloat16 or x.device.type == "cpu":
+        return y
+    nan = torch.tensor(_host_bf16_nan(), dtype=torch.int16).view(torch.bfloat16).to(x.device)
+    return torch.where(torch.isnan(x), nan, y)
 
 
 def _write_params(params: Sequence[nn.Parameter], values: Sequence[torch.Tensor]) -> None:
@@ -485,7 +568,10 @@ class _Fragment:
         self.heals = 0
         self.stream_barriers = 0
 
-        self.backup: List[torch.Tensor] = _host_copies(self._params)
+        # the last globally-synced values, beside the parameters (on the
+        # card, in device memory) in their dtypes
+        self.backup: List[torch.Tensor] = [p.detach().clone() for p in self._params]
+        self._device = self._params[0].device
         # (flat offset, size, shape, dtype) of each parameter over the
         # fragment's f32 element space
         self._leaf_meta: List[Tuple[int, int, torch.Size, torch.dtype]] = []
@@ -504,7 +590,7 @@ class _Fragment:
         self.outer_state: Optional[List[torch.Tensor]] = (
             outer.init_leaves(self.backup) if _outer_shard_mode() == "0" else None
         )
-        self._shard = _OuterShard(outer, self._n, should_quantize)
+        self._shard = _OuterShard(outer, self._n, should_quantize, _sync_device(self._device))
 
         # fragment state rides the healing checkpoint
         manager.register_state_dict_fn(
@@ -512,19 +598,24 @@ class _Fragment:
         )
 
     def _save_state(self) -> Dict[str, Any]:
-        return {
-            "backup": self.backup,
-            "outer_state": self.outer_state,
-            "outer_shard": self._shard.save_state(),
-        }
+        # the owner's shard crosses card -> host here; the backups go to the
+        # transport as they lie
+        with obs_span("diloco::save_state", frag=self._index):
+            return {
+                "backup": self.backup,
+                "outer_state": self.outer_state,
+                "outer_shard": self._shard.save_state(),
+            }
 
     def _load_state(self, state: Dict[str, Any]) -> None:
-        self.backup = [torch.as_tensor(b) for b in state["backup"]]
-        outer_state = state.get("outer_state")
-        self.outer_state = (
-            None if outer_state is None else [torch.as_tensor(l) for l in outer_state]
-        )
-        self._shard.load_state(state.get("outer_shard"))
+        with obs_span("diloco::load_state", frag=self._index):
+            self.backup = [torch.as_tensor(b).to(self._device) for b in state["backup"]]
+            outer_state = state.get("outer_state")
+            self.outer_state = (
+                None if outer_state is None
+                else [torch.as_tensor(l).to(self._device) for l in outer_state]
+            )
+            self._shard.load_state(state.get("outer_shard"))
         self.heals += 1
 
     def backup_sha256(self) -> str:
@@ -550,11 +641,11 @@ class _Fragment:
                 self._prepare_sync_sharded(stream)
                 return
             with obs_span("diloco::host_copy", frag=self._index):
-                local = _host_copies(self._params)
+                psg = [_host_array((b - p.detach()).cpu()) for b, p in zip(self.backup, self._params)]
             # in_place: pseudograds are freshly computed for this call and
             # only the returned average is read afterwards
             self._work = self._manager.allreduce(
-                [_host_array(b - l) for b, l in zip(self.backup, local)],
+                psg,
                 should_quantize=self._should_quantize,
                 in_place=True,
                 stream=self._index if stream else None,
@@ -564,24 +655,29 @@ class _Fragment:
         """Sharded outer sync: assemble the flat f32 pseudo-gradient,
         (re)build this owner's shard for the current quorum, and hand the
         per-chunk outer update to the pipelined reduce_scatter→update→
-        allgather."""
+        allgather (on the card, its card path)."""
         with obs_span("diloco::reshard", frag=self._index):
             self._shard.maybe_reshard(self._manager)
         meta = self._shard.meta
         gsize = meta["gsize"] if meta is not None else 1
         padded, _per, _unit = outer_shard_layout(self._n, max(1, gsize), self._should_quantize)
-        psg = self._scratch.take(padded)
+        device = _sync_device(self._device)
+        psg = self._scratch.take(padded, pinned=device is not None and device.type == "cuda")
         psg_t = torch.from_numpy(psg)
         for (off, size, _shape, _dtype), b, p in zip(self._leaf_meta, self.backup, self._params):
-            seg, live = psg_t[off : off + size], p.detach().reshape(-1)
-            with obs_span("diloco::host_copy", frag=self._index):
-                # the live value widened exactly to f32 where it lives, piece
-                # by piece, and copied straight into the scratch (no host
-                # copy of its own)
-                for lo in range(0, size, _WIDEN_PIECE):
-                    seg[lo : lo + _WIDEN_PIECE].copy_(live[lo : lo + _WIDEN_PIECE].float())
-            with obs_span("diloco::pseudograd", frag=self._index):
-                torch.sub(b.reshape(-1), seg, out=seg)  # backup - live, in f32
+            seg, back, live = psg_t[off : off + size], b.reshape(-1), p.detach().reshape(-1)
+            # backup - live in f32 where both live, one piece at a time (the
+            # card never holds a leaf in f32), each piece copied straight
+            # into the buffer the wire reads.  The copy waits for the work
+            # queued before it on this stream (the inner step that wrote
+            # the parameters) and returns once done, so the next inner step
+            # cannot overwrite what it reads
+            for lo in range(0, size, _WIDEN_PIECE):
+                hi = min(lo + _WIDEN_PIECE, size)
+                with obs_span("diloco::pseudograd", frag=self._index):
+                    piece = back[lo:hi].float() - live[lo:hi].float()
+                with obs_span("diloco::host_copy", frag=self._index):
+                    seg[lo:hi].copy_(piece)
         psg[self._n :] = 0.0
 
         update_cb = (
@@ -593,6 +689,7 @@ class _Fragment:
             update_cb,
             should_quantize=self._should_quantize,
             stream=self._index if stream else None,
+            device=device,
         )
 
     def perform_sync(self) -> bool:
@@ -616,14 +713,9 @@ class _Fragment:
 
         if committed and sharded and result is not None:
             # delta = the allgathered sharded outer update, identical bytes
-            # on every replica: global = backup + delta, summed in f32 in the
-            # delta's own buffer (this sync's, read by nothing else)
-            delta = torch.from_numpy(result)
+            # on every replica
             with obs_span("diloco::apply", frag=self._index):
-                global_params = [
-                    delta[off : off + size].add_(b.reshape(-1)).to(dtype).reshape(shape)
-                    for (off, size, shape, dtype), b in zip(self._leaf_meta, self.backup)
-                ]
+                global_params = self.global_from_delta(result)
             self._apply_global(global_params)
             self._shard.commit_stage()
             # hot spares: the committed delta (identical bytes on every
@@ -631,7 +723,10 @@ class _Fragment:
             self._manager.publish_staged_outer_delta(self._index)
         elif committed and not sharded:
             # optax.sgd + apply_updates on the leaves, each in its dtype
-            averaged = [_host_tensor(a).reshape(b.shape) for a, b in zip(result, self.backup)]
+            averaged = [
+                _host_tensor(a).reshape(b.shape).to(self._device)
+                for a, b in zip(result, self.backup)
+            ]
             if self.outer_state is None:
                 self.outer_state = self._outer.init_leaves(self.backup)
             updates, self.outer_state = self._outer.update_leaves(averaged, self.outer_state)
@@ -645,25 +740,46 @@ class _Fragment:
                 _write_params(self._params, self.backup)
         return committed
 
+    def global_from_delta(self, delta: Union[np.ndarray, torch.Tensor]) -> List[torch.Tensor]:
+        """The new global values, backup + ``delta`` (flat f32 over the
+        fragment) summed in f32 and rounded once to each leaf's dtype, on the
+        backup's device, a piece at a time in the delta's own buffer (this
+        sync's, read by nothing else afterwards)."""
+        delta = torch.as_tensor(delta)
+        if delta.device != self._device:
+            delta = delta.to(self._device)
+        elif delta.is_cuda:
+            # the sync's own stream wrote it: keep its memory from being
+            # reused there while this stream still reads it
+            delta.record_stream(torch.cuda.current_stream(delta.device))
+        out = []
+        for (off, size, shape, dtype), b in zip(self._leaf_meta, self.backup):
+            g, back = torch.empty(size, dtype=dtype, device=b.device), b.reshape(-1)
+            for lo in range(0, size, _WIDEN_PIECE):
+                hi = min(lo + _WIDEN_PIECE, size)
+                g[lo:hi].copy_(_round_to(delta[off + lo : off + hi].add_(back[lo:hi]), dtype))
+            out.append(g.reshape(shape))
+        return out
+
     def _apply_global(self, global_params: List[torch.Tensor]) -> None:
         """model = (1−α)·global + α·local, computed in f32 and rounded once
         to each parameter's dtype (the JAX package's host arithmetic: numpy
-        promotes ``float · bf16`` to f32)."""
+        promotes ``float · bf16`` to f32), where the parameters live."""
         if self._alpha == 0.0:
             mixed = global_params
         else:
-            local = _host_copies(self._params)
             mixed = [
-                (g.float() * (1.0 - self._alpha) + l.float() * self._alpha).to(l.dtype)
-                for g, l in zip(global_params, local)
+                _round_to(g.float() * (1.0 - self._alpha) + p.detach().float() * self._alpha,
+                          p.dtype)
+                for g, p in zip(global_params, self._params)
             ]
         with obs_span("diloco::write", frag=self._index):
             _write_params(self._params, mixed)
         self.backup = global_params
 
 
-# elements of a live parameter widened to f32 at a time for the
-# pseudo-gradient: the card holds one piece (256 MiB), not a leaf in f32
+# elements of a leaf widened to f32 at a time for the pseudo-gradient and
+# the apply: the card holds one piece (256 MiB), not a leaf in f32
 _WIDEN_PIECE = 1 << 26
 
 
@@ -671,14 +787,22 @@ class _FlatScratch:
     """The padded f32 pseudo-gradient buffer of the sharded sync, shared by
     a DiLoCo's fragments and grown to the largest: at most one fragment's
     sync is in flight (the next prepare runs after the previous perform, or
-    after its streamed barrier), and the pipeline has copied it by then."""
+    after its streamed barrier), and the pipeline has copied it by then.
+    ``pinned`` (the card path) takes it in page-locked memory, which the
+    card's copies fill at DMA rate."""
 
     def __init__(self) -> None:
         self._buf: Optional[np.ndarray] = None
+        self._pinned: Optional[torch.Tensor] = None
 
-    def take(self, padded: int) -> np.ndarray:
-        if self._buf is None or self._buf.size < padded:
-            self._buf = np.zeros(padded, dtype=np.float32)
+    def take(self, padded: int, pinned: bool = False) -> np.ndarray:
+        if self._buf is None or self._buf.size < padded or (self._pinned is not None) != pinned:
+            self._buf = self._pinned = None
+            if pinned:
+                self._pinned = torch.zeros(padded, dtype=torch.float32, pin_memory=True)
+                self._buf = self._pinned.numpy()
+            else:
+                self._buf = np.zeros(padded, dtype=np.float32)
         return self._buf[:padded]
 
 

@@ -1154,14 +1154,15 @@ class Manager:
                             f"with {checkpoint_metadata=}"
                         )
                         # applied on the main thread at should_commit when safe
-                        self._pending_state_dict = (
-                            self._checkpoint_transport.recv_checkpoint(
-                                src_rank=recover_src_replica_rank,
-                                metadata=checkpoint_metadata,
-                                step=max_step,
-                                timeout=self._timeout,
+                        with obs_span("manager::heal_recv", step=max_step):
+                            self._pending_state_dict = (
+                                self._checkpoint_transport.recv_checkpoint(
+                                    src_rank=recover_src_replica_rank,
+                                    metadata=checkpoint_metadata,
+                                    step=max_step,
+                                    timeout=self._timeout,
+                                )
                             )
-                        )
                     self.load_state_dict(
                         cast(Dict[str, int], self._pending_state_dict["torchft"])
                     )
@@ -1456,6 +1457,7 @@ class Manager:
         update_cb: Callable[[int, int, np.ndarray], np.ndarray],
         should_quantize: bool = False,
         stream: Optional[int] = None,
+        device: Optional["torch.device"] = None,
     ) -> Work:
         """Fault-tolerant sharded outer sync (ZeRO-1 over the replica dim):
         chunk-pipelined ``reduce_scatter → update_cb → allgather`` of the
@@ -1479,7 +1481,12 @@ class Manager:
         the submit.  :meth:`should_commit` votes False while any streamed
         work is unresolved — a half-streamed sync NEVER commits; the caller
         must ``wait()`` the work at its bounded-staleness barrier before
-        voting."""
+        voting.
+
+        ``device``, when given, runs the chunk arithmetic on it
+        (``collectives.outer_sharded_sync``'s card path; ``update_cb`` then
+        carries ``on_card``) and, on a flat topology, the value is a tensor
+        there."""
 
         def _failed_fast(w: Work) -> Work:
             # fail-fast streamed submits still register + stamp FRAG_SUBMIT
@@ -1551,6 +1558,7 @@ class Manager:
                     ),
                     tag_base=tag_base,
                     tag_span=tag_span,
+                    device=device,
                 )
                 fut.set_result(delta)
             except Exception as e:  # noqa: BLE001 — funnel, never raise

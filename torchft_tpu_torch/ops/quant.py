@@ -38,7 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -261,21 +261,29 @@ def reduce_quantized_device(
     return q, out_scales
 
 
-def dequantize_rowwise_device(q: torch.Tensor, scales: torch.Tensor, n: int) -> torch.Tensor:
-    """(wire [rows, row_size], f32 [rows, 1]) → float32 [n].  The wire kind
-    is carried by ``q.dtype``."""
+def dequantize_rowwise_device(
+    q: torch.Tensor, scales: torch.Tensor, n: int, out: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """(wire [rows, row_size], f32 [rows, 1]) → float32 [n], written into
+    ``out`` (f32, n elements) when given.  The wire kind is carried by
+    ``q.dtype``."""
     kind = _kind_of(q)
     if q.dim() != 2 or scales.numel() != q.shape[0]:
         raise ValueError(f"q {tuple(q.shape)} and scales {tuple(scales.shape)} do not match")
     if not 0 <= n <= q.numel():
         raise ValueError(f"n={n} is outside the payload's {q.numel()} elements")
-    if q.device.type == "cpu":
-        return dequantize_rowwise_plain(q, scales, n)
+    if out is not None and out.numel() != n:
+        raise ValueError(f"out has {out.numel()} elements, not n={n}")
+    if q.device.type == "cpu" and (out is None or out.device.type == "cpu"):
+        plain = dequantize_rowwise_plain(q, scales, n)
+        return plain if out is None else out.copy_(plain.view(out.shape))
     if q.shape[1] != ROW_SIZE:
         raise ValueError(f"the dequantize kernel takes rows of {ROW_SIZE}, got {q.shape[1]}")
     _check("q", q, q.dtype, q.device)
     _check("scales", scales, torch.float32, q.device)
-    out = torch.empty(n, dtype=torch.float32, device=q.device)
+    if out is None:
+        out = torch.empty(n, dtype=torch.float32, device=q.device)
+    _check("out", out, torch.float32, q.device)
     lib = _lib(KERNEL_SOURCE)
     rc = lib.tft_dequantize_rowwise(
         q.data_ptr(), scales.data_ptr(), out.data_ptr(), n, _KIND_CODE[kind], _stream(q),

@@ -9,7 +9,8 @@ update sees.
 
 :class:`OuterSGD` is DiLoCo's outer optimizer: a functional transform over
 flat f32 host arrays, because the sharded outer sync steps it per chunk on
-slices of its state; the replicated sync steps it per leaf in the leaf's
+slices of its state (on the card the outer kernel, ``ops/outer.py``, does
+the same arithmetic); the replicated sync steps it per leaf in the leaf's
 dtype (:meth:`OuterSGD.update_leaves`).
 """
 

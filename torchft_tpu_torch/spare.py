@@ -24,7 +24,7 @@ instead of a dead replica restarting and healing cold:
   the caller a manager that is mid-``start_quorum`` of its first active
   step.
 - :func:`diloco_delta_apply` — the delta feed's consumer for a spare
-  shadowing a DiLoCo fleet, over the port's fragments (host backups, live
+  shadowing a DiLoCo fleet, over the port's fragments (backups and live
   parameters on their device).
 
 The ACTIVE side (staging warm snapshots, publishing committed deltas)
@@ -533,9 +533,10 @@ def diloco_delta_apply(diloco) -> Callable[[int, int, bytes], None]:
     local mixing (a parked spare has no inner steps, i.e. local == global,
     so the update is exact at ANY alpha).
 
-    The sum runs in f32 on the host backup and rounds once to each leaf's
-    dtype, as that branch does; the live parameters take the result in
-    place on their device.  Only the wire payload passes through numpy."""
+    The sum runs in f32 where the backup lives and rounds once to each
+    leaf's dtype (``_Fragment.global_from_delta``, that branch's own); the
+    live parameters take the result in place.  Only the wire payload passes
+    through numpy."""
 
     def _apply(step: int, frag: int, payload: bytes) -> None:
         f = diloco.fragments[frag]
@@ -545,10 +546,7 @@ def diloco_delta_apply(diloco) -> Callable[[int, int, bytes], None]:
                 f"delta for fragment {frag} has {delta.numel()} elements, "
                 f"expected {f._n}"
             )
-        new_backup = [
-            delta[off : off + size].add_(b.reshape(-1)).to(dtype).reshape(shape)
-            for (off, size, shape, dtype), b in zip(f._leaf_meta, f.backup)
-        ]
+        new_backup = f.global_from_delta(delta)
         with torch.no_grad():
             for p, g in zip(f._params, new_backup):
                 p.copy_(g)
