@@ -54,11 +54,12 @@ built.  It then builds the port's CUDA kernels from
    momentum and a no-momentum case; what this host's numpy does where the
    kernel follows it (a sum of -0s, the int8 chunk sum's einsum); the
    pseudo-gradient's copy to its host buffer, pageable against pinned, in
-   turns; and one fragment of the 1-layer model through two whole sharded
-   syncs on a one-replica quorum (``outer_sync_check``; the second steps
-   the trace the first committed on the card), on the card path and on the
-   host path from the same inner steps: backups, live parameters and
-   traces bit for bit;
+   turns; and fragment 0 of the 1-layer model less its embedding through
+   two whole sharded syncs on a one-replica quorum (``outer_sync_check``;
+   the second steps the trace the first committed on the card; each sync
+   at least two pipeline chunks), on the card path and on the host path
+   from the same inner steps: backups, live parameters and traces bit for
+   bit;
 3. ring phase (``ring_phase``) — sequence parallelism's ring attention
    at Llama-3-8B attention width (H=32, KV=8, D=128, bf16), B=1, S=8192
    split over sp=4 ranks held in one process (blocks of 2048): the ring's
@@ -267,18 +268,21 @@ built.  It then builds the port's CUDA kernels from
    :data:`EXPECTED_SHA256` (a signal at an arbitrary moment changes which
    steps commit with one participant).
 
-15. ``chaos_deadlock`` (beside ``hsdp_cpp``, in a process of its own) —
+15. ``chaos_deadlock`` (beside ``hsdp_cpp`` and ``pipeline_phase``, in a
+   process of its own) —
    ``python -m torchft_tpu_torch.chaos_drill --failure deadlock``: two
    ``train_ddp`` processes under the port's supervisor train ``cnn_cpp``'s
-   CNN on the card on the C++ tier for 100 steps paced 0.5 s (0.4 s of
+   CNN on the card on the C++ tier for 160 steps paced 0.5 s (0.4 s of
    work planned past the pace); group 1 is frozen with SIGSTOP past the
    per-op timeout the drill derives from that step and evicted; it thaws, exits on its lapsed
    should_commit RPC deadline, and is restarted by its supervisor and
    heals (or rejoins in place and heals).  Checks
    (``check_chaos_deadlock``): one deadlock injected; the victim's next
-   commit after its freeze; both groups end at step 100 with equal hashes;
+   commit after its freeze; both groups end at step 160 with equal hashes;
    the victim healed past step 0; no worker left alive.  Prints the
-   timing, the heal and the wall time.
+   timing, the heal, the step it healed at and the survivor's steps left
+   then, and the wall time; a drill that failed raises with the drill's
+   own last lines.
 
 Each sync's C++-tier parameter hash must equal its Python tier's.  The
 DDP train phases run with ``obs.spans`` on; each prints the ``commit`` split
@@ -286,7 +290,13 @@ DDP train phases run with ``obs.spans`` on; each prints the ``commit`` split
 ``manager::fence`` and ``manager::should_commit``), the host tail of the
 gradient average (:data:`HOST_SPANS`) and the seconds of the step outside
 ``compute`` that no span covers (``unspanned_s``), and the heal's seconds
-and bytes.  Any failure raises, so the exit code is non-zero.  The last line
+and bytes.  Every phase that heals (the train phases, the DiLoCo phases,
+``hsdp_cpp``, ``supervised_cpp`` and ``baby_cpp``; ``spare_python`` beside
+``diloco_cpp``'s cold heal) prints its heal's bytes, GB/s and split
+(``heal_split_s``: seconds in each span of :data:`HEAL_SPANS` per replica;
+the worker processes of ``hsdp_cpp`` and ``supervised_cpp`` record spans
+under ``TORCHFT_FLIGHT_SPANS=1`` and report their totals).  Any failure
+raises, so the exit code is non-zero.  The last line
 of standard output is ``{"ok": true, "device": {...}}``.
 """
 
@@ -390,12 +400,20 @@ DILOCO_SPANS = ("diloco::host_copy", "diloco::reshard", "diloco::pseudograd", "d
                 "outer_shard::chunk_update", "outer_shard::to_wire", "outer_shard::gather_wait",
                 "outer_shard::from_wire")
 # the spans of a heal and the reshard after it, summed per replica over the
-# phase: the checkpoint's send (which holds the fragments' save_state: the
-# owner's shard card -> host) and receive, the fragments' load_state (the
-# backups host -> card), and the reshard's export of the shard (card ->
-# host), its exchange (the wait for the healed peer and the allgathers)
-# and its rebuild (the shard host -> card)
-HEAL_SPANS = ("manager::heal_send", "manager::heal_recv", "diloco::save_state",
+# phase (over every thread: the serving threads of parallel range requests
+# add up): the checkpoint's send (which holds the fragments' save_state:
+# the owner's shard card -> host) and, inside it, the sender's copies from
+# the card to the host (heal::send_copy) and its socket or comm writes
+# (heal::send_write, the waits on them); the receive and, inside it, the
+# receiver's landing buffers (heal::recv_land: their allocation, and the
+# first touch where it is done apart) and its reads into them
+# (heal::recv_read); the apply at should_commit (manager::heal_apply: the
+# copy back to the card), which holds the fragments' load_state (the
+# backups host -> card); the reshard's export of the shard (card -> host),
+# its exchange (the wait for the healed peer and the allgathers) and its
+# rebuild (the shard host -> card)
+HEAL_SPANS = ("manager::heal_send", "heal::send_copy", "heal::send_write", "manager::heal_recv",
+              "heal::recv_land", "heal::recv_read", "manager::heal_apply", "diloco::save_state",
               "diloco::load_state", "outer_shard::export", "outer_shard::exchange",
               "outer_shard::rebuild")
 # (results key, run_diloco_fleet keywords) of each DiLoCo / LocalSGD phase,
@@ -473,18 +491,20 @@ CNN_PHASE = dict(replicas=2, steps=20, batch=32, lr=1e-3, kill_at=(1, 5))
 # tier, and the timing the drill derives from a 0.5 s pace and 0.4 s of
 # work: a 5 s per-op timeout, a 12 s freeze).  On the
 # card the thawed member exits with its should_commit RPC's deadline
-# lapsed and its supervisor restarts it (~33 s from the thaw to its first
-# commit), so the survivor must train ~42 s past the eviction: a lone
-# survivor steps at about its pace, and 100 steps paced 0.5 s keep it
-# training ~47 s, with a pace near the paired step (~0.55 s) so the run's
-# length does not hang on how the member returns
-CHAOS_DEADLOCK = dict(replicas=2, failure="deadlock", victim=1, steps=100, step_time=0.5,
+# lapsed and its supervisor restarts it (30-41 s from the thaw to its
+# first commit on H100 hosts, more on a slower or busier host), and the
+# survivor must still train then: a lone survivor steps at about its
+# pace, and 160 steps paced 0.5 s keep it training ~77 s past the
+# eviction, room for a restart of 70 s (100 steps left 7-14 s to spare
+# and lost the race on a slower host), with a pace near the paired step
+# (~0.55 s) so the run's length does not hang on how the member returns
+CHAOS_DEADLOCK = dict(replicas=2, failure="deadlock", victim=1, steps=160, step_time=0.5,
                       step_work=0.4)
 # the CLI's worker flags: the CNN keeps its preset (--layers 0)
 CHAOS_WORKER = ["--device", "cuda", "--model", "cnn", "--layers", "0"]
-# it runs beside hsdp_cpp (start_chaos_deadlock), whose numbers no other
-# phase is held against, at the cost of a fraction of one core; alone it
-# took 76-88 s
+# it runs beside hsdp_cpp and pipeline_phase (start_chaos_deadlock), whose
+# numbers no other phase is held against, at the cost of a fraction of one
+# core; alone, at 100 steps, it took 76-88 s
 CHAOS_DEADLOCK_TIMEOUT_S = 600.0
 HSDP_PHASE = dict(groups=2, fsdp=1, tp=1, steps=STEPS, batch=1, seq=2048, lr=1e-4, kill_at=(1, 2))
 # pipeline_phase: PipelinedLlama at Llama-3-8B width, 2 layers over 2
@@ -1494,25 +1514,39 @@ def _solo_manager():
 # two syncs: the second steps the trace the first staged and committed on
 # the card, which the sync's own stream writes
 OUTER_SYNC_STEPS = 2
+# the check's fragment: fragment 0 of the 1-layer DiLoCo phases less its
+# embedding (525,336,576 of its 684,732,416 elements), whose host reference
+# took most of the check's 33-44 s; outer_phase holds the kernel at a whole
+# shard of the full fragment.  Each sync still runs this many pipeline
+# chunks at least (one outer launch each)
+OUTER_SYNC_SKIP = ("embed",)
+OUTER_SYNC_MIN_CHUNKS = 2
+
+
+def outer_sync_fragment(train_ddp) -> list:
+    """(name, shape, dtype) of each leaf :func:`outer_sync_check` syncs."""
+    return [leaf for leaf in diloco_fragments(train_ddp, DILOCO_LAYERS["diloco_cpp"])[0]
+            if leaf[0] not in OUTER_SYNC_SKIP]
 
 
 def outer_sync_check(train_ddp, outer) -> dict:
-    """One fragment of the 1-layer DiLoCo phases (its parameters at their
-    shapes and dtypes, random from a seed) through :data:`OUTER_SYNC_STEPS`
-    whole sharded syncs on a one-replica quorum — the pseudo-gradient, the
-    outer update and the apply — on the card (the card path: the backup,
-    the shard's trace and the delta in device memory, the outer kernel) and
-    on the host (the same module on the CPU: host numpy), each inner step
-    the same on both: the backups, the live parameters and the traces must
-    be equal bit for bit.  Raises if not, or if the card path launched no
-    outer kernel."""
+    """Fragment 0 of the 1-layer DiLoCo phases less its embedding
+    (:func:`outer_sync_fragment`: its other parameters at their shapes and
+    dtypes, random from a seed) through :data:`OUTER_SYNC_STEPS` whole
+    sharded syncs on a one-replica quorum — the pseudo-gradient, the outer
+    update and the apply — on the card (the card path: the backup, the
+    shard's trace and the delta in device memory, the outer kernel) and on
+    the host (the same module on the CPU: host numpy), each inner step the
+    same on both: the backups, the live parameters and the traces must be
+    equal bit for bit.  Raises if not, or if a card sync ran fewer than
+    :data:`OUTER_SYNC_MIN_CHUNKS` pipeline chunks (outer launches)."""
     from torch import nn
 
     from torchft_tpu_torch.local_sgd import DiLoCo, _host_leaves
     from torchft_tpu_torch.optim import OuterSGD
     from torchft_tpu_torch.train_diloco import OUTER_LR, OUTER_MOMENTUM
 
-    fragment = diloco_fragments(train_ddp, DILOCO_LAYERS["diloco_cpp"])[0]
+    fragment = outer_sync_fragment(train_ddp)
     gen = torch.Generator(device="cuda").manual_seed(11)
     card, host = nn.Module(), nn.Module()
     for i, (_name, shape, dtype) in enumerate(fragment):
@@ -1523,20 +1557,25 @@ def outer_sync_check(train_ddp, outer) -> dict:
                        sync_every=1) for m in (card, host)]
     outer.reset_launches()
     seconds = {"card": 0.0, "host": 0.0}
+    chunks = []  # outer launches of each card sync: one a pipeline chunk
     for step in range(OUTER_SYNC_STEPS):
         with torch.no_grad():
             for p, q in zip(card.parameters(), host.parameters()):
                 p.sub_((torch.randn(p.shape, generator=gen, device="cuda") * 1e-3).to(p.dtype))
                 q.copy_(p)
         for key, wrapper in zip(("card", "host"), wrappers):
+            before = outer.launches["outer"]
             t0 = time.perf_counter()
             if wrapper.step() is not True:
                 raise AssertionError(f"outer sync check: the {key} sync {step} did not commit")
             torch.cuda.synchronize()
             seconds[key] += time.perf_counter() - t0
+            if key == "card":
+                chunks.append(outer.launches["outer"] - before)
     launches = outer.launches["outer"]
-    if launches <= 0:
-        raise AssertionError("outer sync check: the card path launched no outer kernel")
+    if min(chunks) < OUTER_SYNC_MIN_CHUNKS:
+        raise AssertionError(f"outer sync check: the card syncs ran {chunks} pipeline chunks, "
+                             f"fewer than {OUTER_SYNC_MIN_CHUNKS}")
     cf, hf = wrappers[0].fragments[0], wrappers[1].fragments[0]
     pairs = [("backup", a, b) for a, b in zip(cf.backup, hf.backup)]
     pairs += [("live", a.detach(), b.detach()) for a, b in zip(card.parameters(), host.parameters())]
@@ -1552,7 +1591,7 @@ def outer_sync_check(train_ddp, outer) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return dict(elements=elements, syncs=OUTER_SYNC_STEPS, launches=launches,
-                card_s=seconds["card"], host_s=seconds["host"])
+                chunks_per_sync=chunks, card_s=seconds["card"], host_s=seconds["host"])
 
 
 def commit_split(spans, windows, replicas: int, names=SPLIT_SPANS) -> list:
@@ -1646,6 +1685,24 @@ def check_heal(bytes_total: int | None, state_bytes: int, transport: str, where:
                              f"not its state's {state_bytes} and the framing")
 
 
+def heal_split(recorded: list, replicas: int) -> dict:
+    """Seconds per replica over a phase in each span of :data:`HEAL_SPANS`,
+    from ``obs.spans.snapshot()``."""
+    return {name: sum(rec["dur"] for rec in recorded if rec["name"] == name) / replicas
+            for name in HEAL_SPANS}
+
+
+def heal_split_of(totals: list) -> dict:
+    """Seconds per replica in each span of :data:`HEAL_SPANS` from worker
+    processes' span totals (``obs.spans.totals``), one dict a replica."""
+    return {name: sum(t.get(name, 0.0) for t in totals) / len(totals) for name in HEAL_SPANS}
+
+
+def split_line(split: dict | None) -> str:
+    """A heal split for a printed line: the spans that recorded time."""
+    return json.dumps({k: round(v, 3) for k, v in (split or {}).items() if v})
+
+
 def check_expected_hashes(hashes: dict) -> None:
     """Each final parameter sha256 against :data:`EXPECTED_SHA256`."""
     for key, sha in hashes.items():
@@ -1682,8 +1739,8 @@ def train_phase(train_ddp, fa, qk, avg, spans, card: str, should_quantize: bool,
     )
     wall_s = time.perf_counter() - t0
     launches = {**fa.launches, **qk.launches, **avg.launches}
-    split = commit_split(spans.snapshot(), results[0].step_windows, len(results),
-                         SPLIT_SPANS + HOST_SPANS)
+    recorded = spans.snapshot()
+    split = commit_split(recorded, results[0].step_windows, len(results), SPLIT_SPANS + HOST_SPANS)
     for i, r in enumerate(results):
         if not all(math.isfinite(x) for x in r.losses):
             raise AssertionError(f"replica {i}: non-finite loss in {r.losses}")
@@ -1748,6 +1805,8 @@ def train_phase(train_ddp, fa, qk, avg, spans, card: str, should_quantize: bool,
         heal=dict(seconds=heal.duration_s, bytes=heal.bytes_total, sources=heal.num_sources,
                   gb_per_s=heal.bytes_per_sec / 1e9, transport=heal_transport,
                   state_bytes=results[1].state_bytes),
+        # seconds per replica over the phase in each heal span
+        heal_split_s=heal_split(recorded, len(results)),
         tokens_per_s_per_replica=2048 / step_s,
         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
         wall_s=wall_s,
@@ -1962,13 +2021,12 @@ def diloco_phase(train_diloco, train_ddp, fa, qk, card: str, fleet: dict,
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched in the int8 outer sync")
     r0 = results[0]
-    sync_split = heal_split = None
+    sync_split = healed_split = None
     if spans is not None:
         recorded = spans.snapshot()
-        totals = {name: sum(rec["dur"] for rec in recorded if rec["name"] == name) / len(results)
-                  for name in DILOCO_SPANS + HEAL_SPANS}
-        sync_split = {name: totals[name] / r0.final_step for name in DILOCO_SPANS}
-        heal_split = {name: totals[name] for name in HEAL_SPANS}
+        sync_split = {name: sum(rec["dur"] for rec in recorded if rec["name"] == name)
+                      / len(results) / r0.final_step for name in DILOCO_SPANS}
+        healed_split = heal_split(recorded, len(results))
     shard = [t for t in r0.outer_shard if "outer_shard_wall_s" in t]
     split = {k: _median(t[f"outer_shard_{k}_s"] for t in shard)
              for k in ("wall", "scatter", "update", "gather")} if shard else None
@@ -2003,9 +2061,10 @@ def diloco_phase(train_diloco, train_ddp, fa, qk, card: str, fleet: dict,
         # seconds per replica per committed sync in each span
         sync_split_s=sync_split,
         # seconds per replica over the phase in each heal span
-        heal_split_s=heal_split,
+        heal_split_s=healed_split,
         heal=None if heal is None else dict(
-            seconds=heal.duration_s, bytes=heal.bytes_total, sources=heal.num_sources),
+            seconds=heal.duration_s, bytes=heal.bytes_total, sources=heal.num_sources,
+            gb_per_s=heal.bytes_per_sec / 1e9),
         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
         peak_host_rss_gb=rss.peak_bytes / 1e9,
         start_host_rss_gb=rss.start_bytes / 1e9,
@@ -2340,6 +2399,13 @@ def cnn_phase(train_ddp, card: str) -> dict:
     )
 
 
+def drill_heal_steps(log: str) -> list:
+    """The steps a drill worker's log shows it healing at (the fleet's
+    ``max_step`` it fetched)."""
+    return [int(n) for n in re.findall(
+        r"healing required, fetching checkpoint metadata from \S+ max_step=(\d+)", log)]
+
+
 def check_chaos_deadlock(result: dict, steps: int, victim: int) -> None:
     """chaos_deadlock: raises unless the drill injected one deadlock into
     group ``victim``; its next commit came after the freeze thawed; every
@@ -2357,8 +2423,7 @@ def check_chaos_deadlock(result: dict, steps: int, victim: int) -> None:
             gid: str(steps) for gid in finals}:
         raise AssertionError(f"the groups' FINAL lines {finals}, not all at step {steps}")
     with open(result["logs"][victim]) as f:
-        heal_steps = [int(n) for n in re.findall(
-            r"healing required, fetching checkpoint metadata from \S+ max_step=(\d+)", f.read())]
+        heal_steps = drill_heal_steps(f.read())
     # the step-0 sync heals every group but one; the frozen member's heal
     # after it thawed is one at a later step
     if not heal_steps or max(heal_steps) <= 0 or int(finals[victim].get("heal_bytes", 0)) <= 0:
@@ -2421,10 +2486,12 @@ def stop_chaos_deadlock(started: dict) -> None:
 
 def _drill_result(text: str) -> dict:
     """The drill CLI's ``drill numbers: {...}`` line, its per-group keys
-    back to ints; raises if it printed none."""
+    back to ints; raises if it printed none, with the drill's last lines
+    (its ``DrillFailed`` message among them)."""
     lines = [line for line in text.splitlines() if line.startswith("drill numbers: ")]
     if "DRILL PASSED" not in text or not lines:
-        raise AssertionError("the chaos drill did not pass")
+        tail = [line[:300] for line in text.splitlines()[-5:]]
+        raise AssertionError("the chaos drill did not pass: " + " | ".join(tail))
     result = json.loads(lines[-1].removeprefix("drill numbers: "))
     for key in ("logs", "finals"):
         result[key] = {int(gid): v for gid, v in result[key].items()}
@@ -2457,8 +2524,10 @@ def chaos_deadlock_phase(started: dict, card: str) -> dict:
                       + "\n".join(line[:300] for line in tail), flush=True)
         raise
     with open(result["logs"][CHAOS_DEADLOCK["victim"]]) as f:
-        # each incarnation of the victim's group prints one FIRST_COMMIT
-        victim_restarts = f.read().count("FIRST_COMMIT ") - 1
+        log = f.read()
+    # each incarnation of the victim's group prints one FIRST_COMMIT
+    victim_restarts = log.count("FIRST_COMMIT ") - 1
+    heal_step = max(drill_heal_steps(log))
     shutil.rmtree(logdir, ignore_errors=True)
     finals = result["finals"]
     return dict(
@@ -2466,6 +2535,9 @@ def chaos_deadlock_phase(started: dict, card: str) -> dict:
         timing=result["timing"],
         inject_to_commit_s=result["inject_to_commit_s"], params_sha=result["params_sha"],
         victim_restarts=victim_restarts,
+        # the survivor's steps still to train when the victim healed: the
+        # drill's margin over the victim's restart
+        heal_step=heal_step, steps_left_at_heal=CHAOS_DEADLOCK["steps"] - heal_step,
         heal=dict(seconds=float(finals[CHAOS_DEADLOCK["victim"]]["heal_s"]),
                   bytes=int(finals[CHAOS_DEADLOCK["victim"]]["heal_bytes"])),
         peak_device_gb={gid: f.get("peak_device_gb") for gid, f in finals.items()},
@@ -2509,8 +2581,10 @@ def hsdp_phase(train_hsdp, train_ddp, card: str, ddp_sha256: str) -> dict:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     fleet = dict(HSDP_PHASE)
-    groups = train_hsdp.run_hsdp_fleet(cfg, torch.device("cuda"), tier="cpp", timeout=300.0,
-                                       heal_transport=HSDP_HEAL_TRANSPORT, **fleet)
+    # the rank processes record spans and report the heal's split
+    with mock.patch.dict(os.environ, {"TORCHFT_FLIGHT_SPANS": "1"}):
+        groups = train_hsdp.run_hsdp_fleet(cfg, torch.device("cuda"), tier="cpp", timeout=300.0,
+                                           heal_transport=HSDP_HEAL_TRANSPORT, **fleet)
     wall_s = time.perf_counter() - t0
     check_hsdp(groups, fleet["steps"])
     r0, healed = groups[0][0], groups[1][0]
@@ -2531,6 +2605,8 @@ def hsdp_phase(train_hsdp, train_ddp, card: str, ddp_sha256: str) -> dict:
         heal=dict(healed["heal"], transport=healed["heal_transport"],
                   state_bytes=healed["state_bytes"],
                   gb_per_s=healed["heal"]["bytes"] / healed["heal"]["seconds"] / 1e9),
+        # seconds per group in each heal span, from each group's last process
+        heal_split_s=heal_split_of([g[0]["heal_split_s"] for g in groups]),
         max_memory_allocated_gb=[r["max_memory_allocated_gb"] for g in groups for r in g],
         launches=[r["launches"] for g in groups for r in g],
         planes=[r["planes"] for g in groups for r in g],
@@ -2852,8 +2928,9 @@ def supervised_phase(card: str) -> dict:
     torch.cuda.empty_cache()
     workdir = tempfile.mkdtemp(prefix="supervised_cpp_")
     root = os.path.dirname(os.path.abspath(__file__))
+    # TORCHFT_FLIGHT_SPANS: each FINAL line carries its heal's split
     env = {"PYTHONPATH": os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")])),
-           "TORCHFT_TIER": "cpp"}
+           "TORCHFT_TIER": "cpp", "TORCHFT_FLIGHT_SPANS": "1"}
     logs = {g: os.path.join(workdir, f"group{g}.log") for g in (0, 1)}
     specs = [launcher.ReplicaSpec(replica_group_id=g, cmd=[sys.executable, *SUPERVISED_CMD],
                                   env=dict(env), log_path=logs[g], standby=g == 1)
@@ -2948,7 +3025,10 @@ def supervised_phase(card: str) -> dict:
         kill_to_adopt_s=t_adopt - t_kill,
         kill_to_first_commit_s=float(g1["first_commit_t"]) - t_kill,
         heal=dict(seconds=float(g1["heal_s"]), bytes=int(g1["heal_bytes"]),
-                  state_bytes=int(g1["state_bytes"]), transport="comm"),
+                  state_bytes=int(g1["state_bytes"]), transport="comm",
+                  gb_per_s=int(g1["heal_bytes"]) / float(g1["heal_s"]) / 1e9),
+        # seconds per process in each heal span (group 0, the promoted standby)
+        heal_split_s=heal_split_of([json.loads(g["heal_split"]) for g in (g0, g1)]),
         peak_device_gb={"group0": _gb(g0["peak_device_gb"]),
                         "promoted_standby": _gb(g1["peak_device_gb"]),
                         "standby_parked": _gb(facts["standby"]["peak_device_gb"])},
@@ -3073,8 +3153,10 @@ def main() -> int:
     outer_t = outer_phase(outer, train_ddp, ITERS)
     outer_t["sync_check"] = t = outer_sync_check(train_ddp, outer)
     print(f"outer sync check: {t['syncs']} whole sharded sync(s) of a {t['elements']}-element "
-          f"fragment on the card bit for bit the host's ({t['launches']} outer launches; card "
-          f"{t['card_s']:.2f} s, host {t['host_s']:.2f} s)", flush=True)
+          f"fragment (fragment 0 less {', '.join(OUTER_SYNC_SKIP)}) on the card bit for bit the "
+          f"host's ({t['launches']} outer launches, pipeline chunks per sync "
+          f"{t['chunks_per_sync']}; card {t['card_s']:.2f} s, host {t['host_s']:.2f} s)",
+          flush=True)
     ring_t = ring_phase(fa, ring, ITERS)
     print(f"ring_phase: {json.dumps(ring_t)}", flush=True)
     print(f"ring_phase (sp={RING_CASE['sp']} in one process, S={RING_CASE['S']}): launches "
@@ -3109,7 +3191,8 @@ def main() -> int:
               f"{json.dumps(t['host_split_ms_median_last3'])}, in no span "
               f"{t['unspanned_ms_median_last3']:.1f} ms; heal over {h['transport']} "
               f"{h['seconds']:.3f} s for {h['bytes']} bytes ({h['gb_per_s']:.3f} GB/s; state "
-              f"{h['state_bytes']} bytes); wall {t['wall_s']:.1f} s", flush=True)
+              f"{h['state_bytes']} bytes), heal split (s per replica) "
+              f"{split_line(t['heal_split_s'])}; wall {t['wall_s']:.1f} s", flush=True)
     results["baby_cpp"] = t = baby_phase(train_ddp, baby, fa, qk, avg, spans, card)
     print(f"baby_cpp: {json.dumps(t)}", flush=True)
     ref = results["train_cpp"]
@@ -3122,7 +3205,8 @@ def main() -> int:
           f"{t['pickled_ops']} pickled, largest allreduce {t['largest_allreduce_bytes']} bytes, "
           f"largest arena {t['largest_arena_bytes']} bytes, /dev/shm "
           f"{t['dev_shm_bytes']['total']} bytes; heal {t['heal']['seconds']:.3f} s for "
-          f"{t['heal']['bytes']} bytes; wall {t['wall_s']:.1f} s", flush=True)
+          f"{t['heal']['bytes']} bytes ({t['heal']['gb_per_s']:.3f} GB/s), split (s per replica) "
+          f"{split_line(t['heal_split_s'])}; wall {t['wall_s']:.1f} s", flush=True)
     hashes = check_cross_tier(results)
     if len({results[key]["heal"]["state_bytes"] for key, _, _ in TRAIN_PHASES}) != 1:
         raise AssertionError("the train phases healed states of different sizes")
@@ -3140,7 +3224,9 @@ def main() -> int:
           f"warm standby promoted; cold start {t['cold_start_s']:.1f} s, standby parked "
           f"{t['standby_park_s']:.1f} s, kill to adopted quorum {t['kill_to_adopt_s']:.3f} s, kill "
           f"to first commit {t['kill_to_first_commit_s']:.3f} s; heal {t['heal']['seconds']:.3f} s "
-          f"for {t['heal']['bytes']} bytes; peak device GB {json.dumps(t['peak_device_gb'])}; "
+          f"for {t['heal']['bytes']} bytes ({t['heal']['gb_per_s']:.3f} GB/s), split (s per "
+          f"process) {split_line(t['heal_split_s'])}; peak device GB "
+          f"{json.dumps(t['peak_device_gb'])}; "
           f"equal hashes {t['params_sha']} ({'equal to' if t['equals_train_cpp_sha256'] else 'not'} "
           f"train_cpp's); wall {t['wall_s']:.1f} s", flush=True)
     for key, fleet in DILOCO_PHASES:
@@ -3154,14 +3240,14 @@ def main() -> int:
                                         DILOCO_LAYERS.get(key, LAYERS), env=DILOCO_ENV.get(key),
                                         spans=spans)
         print(f"{key}: {json.dumps(t)}", flush=True)
-        heal = (f"heal {t['heal']['seconds']:.3f} s for {t['heal']['bytes']} bytes"
-                if t["heal"] else "no heal")
+        heal = (f"heal {t['heal']['seconds']:.3f} s for {t['heal']['bytes']} bytes "
+                f"({t['heal']['gb_per_s']:.3f} GB/s)" if t["heal"] else "no heal")
         print(f"{key} (cpp tier, {t['model']}): inner step {t['inner_step_ms_median']:.1f} ms (median), "
               f"train loop held {t['sync_s_per_commit']:.3f} s per committed sync, outer sync "
               "(s, median) "
               f"{json.dumps(t['outer_shard_s_median'])}, split (s per replica per committed "
               f"sync) {json.dumps(t['sync_split_s'])}; {heal}, split (s per replica) "
-              f"{json.dumps(t['heal_split_s'])}; peak device "
+              f"{split_line(t['heal_split_s'])}; peak device "
               f"{t['max_memory_allocated_gb']:.1f} GB, peak host RSS {t['peak_host_rss_gb']:.1f} GB "
               f"({t['start_host_rss_gb']:.1f} GB at its start); "
               f"{t['tokens_per_s_per_replica']:.1f} tokens/s per replica; wall {t['wall_s']:.1f} s",
@@ -3184,8 +3270,9 @@ def main() -> int:
                   f"{t['tokens_per_s_per_replica']:.1f} tokens/s per replica "
                   f"({ref['tokens_per_s_per_replica']:.1f})", flush=True)
     spans.configure(False)
-    results["spare_python"] = t = spare_phase(train_diloco, train_ddp, fa, qk, card,
-                                              results["diloco_cpp"]["heal"])
+    results["spare_python"] = t = spare_phase(
+        train_diloco, train_ddp, fa, qk, card,
+        dict(results["diloco_cpp"]["heal"], heal_split_s=results["diloco_cpp"]["heal_split_s"]))
     print(f"spare_python: {json.dumps(t)}", flush=True)
     print(f"spare_python (python tier, 2 actives + 1 spare): replica 1 killed, the spare promoted "
           f"once in one membership edit, no heal; promote_s {t['promote_s']:.3f} s at warm lag "
@@ -3199,7 +3286,9 @@ def main() -> int:
           f"{t['host_rss_before_release_gb']:.1f} GB before freed memory went back); "
           f"wall {t['wall_s']:.1f} s; for "
           f"comparison only (C++ tier), diloco_cpp's cold heal {t['diloco_cpp_cold_heal']['seconds']:.3f} s "
-          f"for {t['diloco_cpp_cold_heal']['bytes']} bytes", flush=True)
+          f"for {t['diloco_cpp_cold_heal']['bytes']} bytes "
+          f"({t['diloco_cpp_cold_heal']['gb_per_s']:.3f} GB/s), split (s per replica) "
+          f"{split_line(t['diloco_cpp_cold_heal']['heal_split_s'])}", flush=True)
     results["spare_drills"] = t = spare_drills_phase(drill, train_diloco, fa, card)
     print(f"spare_drills: {json.dumps(t)}", flush=True)
     d = t["delta_fleet"]
@@ -3215,33 +3304,37 @@ def main() -> int:
           f"loss {t['losses'][0][0]:.4f} -> {t['losses'][0][-1]:.4f}; heal "
           f"{t['heal']['seconds']:.3f} s for {t['heal']['bytes']} bytes; wall {t['wall_s']:.1f} s",
           flush=True)
-    chaos = start_chaos_deadlock()  # beside hsdp_cpp, collected after it
+    chaos = start_chaos_deadlock()  # beside hsdp_cpp and the pipeline, collected after them
     try:
         results["hsdp_cpp"] = t = hsdp_phase(
             train_hsdp, train_ddp, card, results["train_cpp"]["params_sha256"])
         check_expected_hashes({"hsdp": t["params_sha256"]})
+        results["pipeline"] = t = pipeline_phase(fa, train_ddp, card)
         results["chaos_deadlock"] = c = chaos_deadlock_phase(chaos, card)
     finally:
         stop_chaos_deadlock(chaos)  # a no-op once it has been collected
     print(f"chaos_deadlock: {json.dumps(c)}", flush=True)
-    print(f"chaos_deadlock (cpp tier, {' '.join(c['command'])}; beside hsdp_cpp): rg1 "
-          f"frozen {c['timing']['freeze_s']:g} s past a "
+    print(f"chaos_deadlock (cpp tier, {' '.join(c['command'])}; beside hsdp_cpp and the "
+          f"pipeline): rg1 frozen {c['timing']['freeze_s']:g} s past a "
           f"{c['timing']['comm_timeout_s']:g} s per-op timeout (a "
           f"{c['timing']['step_s']:g} s step planned), evicted, thawed, restarted by its "
           f"supervisor {c['victim_restarts']} time(s) and healed {c['heal']['bytes']} "
-          f"bytes in {c['heal']['seconds']:.3f} s; injection to its next commit "
+          f"bytes in {c['heal']['seconds']:.3f} s at step {c['heal_step']} (the survivor "
+          f"{c['steps_left_at_heal']} steps from its end); injection to its next commit "
           f"{c['inject_to_commit_s']:.1f} s; equal hashes {c['params_sha']}; wall "
           f"{c['wall_s']:.1f} s", flush=True)
+    t = results["hsdp_cpp"]
     print(f"hsdp_cpp: {json.dumps(t)}", flush=True)
     print(f"hsdp_cpp (cpp tier, FSDP2 at world 1 per group): step "
           f"{t['step_ms_median_last3']:.1f} ms, phases {json.dumps(t['phase_ms_median_last3'])}; "
           f"heal over {t['heal']['transport']} {t['heal']['seconds']:.3f} s for "
-          f"{t['heal']['bytes']} bytes ({t['heal']['gb_per_s']:.3f} GB/s); peak device GB per "
+          f"{t['heal']['bytes']} bytes ({t['heal']['gb_per_s']:.3f} GB/s), split (s per group) "
+          f"{split_line(t['heal_split_s'])}; peak device GB per "
           f"process {json.dumps(t['max_memory_allocated_gb'])}; last_quorum_timings "
           f"{json.dumps(t['last_quorum_timings'])}; final hash "
           f"{'equals' if t['equals_train_cpp_sha256'] else 'differs from'} train_cpp's; "
           f"wall {t['wall_s']:.1f} s", flush=True)
-    results["pipeline"] = t = pipeline_phase(fa, train_ddp, card)
+    t = results["pipeline"]
     print(f"pipeline_phase: {json.dumps(t)}", flush=True)
     print(f"pipeline_phase (PipelinedLlama, pp={PIPELINE_CASE['pp']} in one process, "
           f"M={PIPELINE_CASE['microbatches']}, remat {PIPELINE_CASE['remat_mode']}): loss "

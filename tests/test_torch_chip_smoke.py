@@ -12,6 +12,7 @@ and the rotation come from importing ``chip_smoke.py``, which needs only
 torch (no card) to import."""
 
 import ast
+import math
 import os
 import sys
 import time
@@ -1197,8 +1198,9 @@ def test_chaos_deadlock_phase_takes_run_drills_keywords(chip_smoke, monkeypatch)
     """``chaos_deadlock`` runs the drill's CLI with flags it parses into
     CHAOS_DEADLOCK's ``run_drill`` arguments, on ``cnn_cpp``'s model on the
     card; at its pace a lone survivor still trains past the rest of the
-    freeze and a restart of the victim (~33 s on the card), and the drill's
-    timing is the JAX example's.  It runs beside ``hsdp_cpp``."""
+    freeze and a restart of the victim of 70 s (30-41 s on H100 hosts), and
+    the drill's timing is the JAX example's.  It runs beside ``hsdp_cpp``
+    and ``pipeline_phase``."""
     from torchft_tpu_torch import chaos_drill
 
     seen = []
@@ -1219,13 +1221,14 @@ def test_chaos_deadlock_phase_takes_run_drills_keywords(chip_smoke, monkeypatch)
     assert (planned.comm_timeout_s, planned.freeze_s) == (5.0, 12.0)
     remaining = steps - chaos_drill.WARMUP_STEPS - 1
     assert planned.survivors_outlast_freeze(remaining)
-    # the freeze's last 7 s past the eviction, and 35 s for a restart
-    assert remaining * pace >= planned.freeze_s - chaos_drill.HEARTBEAT_S + 35.0
+    # the freeze's last 7 s past the eviction, and 70 s for a restart
+    assert remaining * pace >= planned.freeze_s - chaos_drill.HEARTBEAT_S + 70.0
     source = (REPO / "chip_smoke.py").read_text()
     assert 'results["chaos_deadlock"] = c = chaos_deadlock_phase(chaos, card)' in source
     hsdp = source.index('results["hsdp_cpp"] = t = hsdp_phase(')
+    pipeline = source.index('results["pipeline"] = t = pipeline_phase(')
     assert (source.index("chaos = start_chaos_deadlock()  # beside hsdp_cpp") < hsdp
-            < source.index("chaos_deadlock_phase(chaos, card)"))
+            < pipeline < source.index("chaos_deadlock_phase(chaos, card)"))
     assert 'row["stream_launches"] = results["diloco_stream_cpp"]["launches"]' in source
     assert 'for n in results["chaos_deadlock"]["launches"]]' in source
 
@@ -1241,8 +1244,18 @@ def test_drill_output_is_read_back_with_int_groups(chip_smoke) -> None:
     got = chip_smoke._drill_result(text)
     assert got["events"] == [("deadlock", "rg1")] and set(got["finals"]) == {0, 1}
     assert got["logs"] == {1: "x"}
-    with pytest.raises(AssertionError, match="did not pass"):
-        chip_smoke._drill_result("replicas diverged: {}\n")
+    with pytest.raises(AssertionError, match="did not pass: .*replicas diverged"):
+        chip_smoke._drill_result("injected deadlock into rg1\nreplicas diverged: {}\n")
+
+
+def test_drill_heal_steps_read_every_heal_of_a_log(chip_smoke) -> None:
+    """The steps a drill worker healed at, in its log's order: the report's
+    ``heal_step`` (the last) and the survivor's steps left then."""
+    log = ("healing required, fetching checkpoint metadata from http://h:1 max_step=0\n"
+           "step 3 loss 2.1 committed=True\n"
+           "healing required, fetching checkpoint metadata from http://h:1 max_step=118\n")
+    assert chip_smoke.drill_heal_steps(log) == [0, 118]
+    assert chip_smoke.drill_heal_steps("step 3 loss 2.1 committed=True\n") == []
 
 
 def test_stop_chaos_deadlock_takes_the_workers_down_too(chip_smoke) -> None:
@@ -1403,18 +1416,77 @@ def test_outer_pipeline_spans_are_recorded_by_the_port(chip_smoke, name) -> None
 
 @pytest.mark.parametrize("name", [
     "manager::heal_send", "manager::heal_recv", "diloco::save_state", "diloco::load_state",
-    "outer_shard::export", "outer_shard::exchange", "outer_shard::rebuild"])
+    "outer_shard::export", "outer_shard::exchange", "outer_shard::rebuild",
+    "heal::send_copy", "heal::send_write", "heal::recv_land", "heal::recv_read",
+    "manager::heal_apply"])
 def test_heal_spans_are_recorded_by_the_port(chip_smoke, name) -> None:
-    """The heal's split (the send and receive, the fragments' state across
-    card and host, the reshard's export, exchange and rebuild) reads spans
-    the port records, and the DiLoCo phases print it."""
+    """The heal's split (the send and, inside it, the sender's copies from
+    the card and its writes; the receive and, inside it, the landing
+    buffers and the reads; the apply at should_commit; the fragments' state
+    across card and host, the reshard's export, exchange and rebuild) reads
+    spans the port records, every phase that heals prints it, and the
+    worker processes report the heal's spans (``obs.spans.HEAL_PREFIXES``)."""
+    from torchft_tpu_torch.obs import spans
+
     assert name in chip_smoke.HEAL_SPANS
     assert f'obs_span("{name}"' in "".join(
         p.read_text() for p in (REPO / "torchft_tpu_torch").rglob("*.py"))
-    assert "heal_split_s" in (REPO / "chip_smoke.py").read_text()
+    text = (REPO / "chip_smoke.py").read_text()
+    assert text.count("heal_split_s") >= 8
+    if name.startswith(("heal::", "manager::heal_")):
+        assert name.startswith(spans.HEAL_PREFIXES)
+
+
+def test_heal_spans_split_a_heal_recorded_on_the_cpu(chip_smoke) -> None:
+    """A heal over each transport on the CPU records its send, copy, write,
+    receive, landing and read spans, which ``heal_split`` sums and
+    ``obs.spans.totals`` reports for a worker process."""
+    import io
+
+    import torch
+
+    from torchft_tpu_torch.checkpointing.serialization import load_pytree, plan_pytree
+    from torchft_tpu_torch.obs import spans
+
+    spans.configure(True)
+    try:
+        spans.clear()
+        state = {"w": torch.arange(4096, dtype=torch.float32), "b": torch.ones(3, dtype=torch.bool)}
+        plan = plan_pytree(state, snapshot=True)
+        buf = io.BytesIO()
+        plan.write_range(0, plan.total_len, buf)
+        buf.seek(0)
+        load_pytree(buf)
+        split = chip_smoke.heal_split(spans.snapshot(), 1)
+        totals = spans.totals(spans.HEAL_PREFIXES)
+    finally:
+        spans.configure(None)
+        spans.clear()
+    for name in ("heal::send_write", "heal::recv_land", "heal::recv_read"):
+        # snapshot() rounds each span to the microsecond
+        assert split[name] > 0 and totals[name] == pytest.approx(split[name], abs=1e-5)
+    assert set(split) == set(chip_smoke.HEAL_SPANS)
+    assert chip_smoke.heal_split_of([totals, {}])["heal::recv_read"] == totals["heal::recv_read"] / 2
 
 
 def test_outer_sync_check_steps_a_committed_trace(chip_smoke) -> None:
     """The whole on-card sync check runs at least two syncs, so the second
-    steps the trace the first staged and committed on the card."""
+    steps the trace the first staged and committed on the card, over
+    fragment 0 of the 1-layer DiLoCo phases less its embedding (its other
+    159,395,840 elements at their 8B-width shapes and dtypes), in at least
+    two pipeline chunks a sync at one owner."""
+    import torch
+
+    from torchft_tpu_torch import train_ddp
+    from torchft_tpu_torch.collectives import _outer_chunk_ranges, outer_shard_layout
+
     assert chip_smoke.OUTER_SYNC_STEPS >= 2
+    fragment = chip_smoke.outer_sync_fragment(train_ddp)
+    full = chip_smoke.diloco_fragments(train_ddp, chip_smoke.DILOCO_LAYERS["diloco_cpp"])[0]
+    assert [leaf for leaf in full if leaf not in fragment] == [
+        ("embed", (128256, 4096), torch.bfloat16)]
+    elements = sum(math.prod(shape) for _name, shape, _dtype in fragment)
+    assert elements == 159_395_840
+    assert chip_smoke.OUTER_SYNC_MIN_CHUNKS >= 2
+    _padded, per, unit = outer_shard_layout(elements, 1, False)
+    assert len(_outer_chunk_ranges(per, unit, 1)) >= chip_smoke.OUTER_SYNC_MIN_CHUNKS

@@ -37,7 +37,7 @@ from torchft_tpu.checkpointing.comm_transport import CommTransport as JaxCommTra
 from torchft_tpu_torch import native, train_ddp
 from torchft_tpu_torch.checkpointing.comm_transport import CommTransport
 from torchft_tpu_torch.checkpointing.serialization import ShardedHostArray
-from torchft_tpu_torch.communicator import TCPCommunicator
+from torchft_tpu_torch.communicator import TCPCommunicator, join_parts
 from torchft_tpu_torch.store import StoreServer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -106,6 +106,9 @@ class _Capture:
     def send_bytes(self, data, dst, tag=0):
         self.frames.append((dst, tag, bytes(memoryview(data).cast("B"))))
         return _Done(len(self.frames[-1][2]))
+
+    def send_frame_parts(self, parts, nbytes, dst, tag=0):
+        return self.send_bytes(join_parts(parts, nbytes), dst, tag)
 
     def recv_bytes(self, src, tag=0):
         return _Done(pickle.dumps(("done",)))

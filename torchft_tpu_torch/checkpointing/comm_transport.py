@@ -13,45 +13,53 @@ Protocol per (src → dst) pair, tags in the heal range of ``wire.py``:
 
 The frames are the JAX package's byte for byte: the same tags in the same
 order, the same array payloads, the same ``array_meta`` and chunk index;
-only the skeleton's pickle names this package's classes.  Leaves leave the
-sender one at a time (a CUDA tensor is copied to the host as its turn
-comes, a window of 4 leaves in flight) and land on the receiver in CPU
-tensors, received straight into their bytes, so bf16 needs no extension
-dtype.  Received leaves are CPU tensors, as ``HTTPTransport`` returns them;
-a DTensor leaf comes back as a ``ShardedHostArray`` of the sender rank's
-local shard.  ``recv_checkpoint(into=...)`` lands each payload in place in
+only the skeleton's pickle names this package's classes.  A CUDA leaf
+leaves the sender through a ring of reused pinned buffers
+(``serialization.StagingRing``), a copier thread ahead of the writes: its
+frame is written in parts as they are staged
+(``Communicator.send_frame_parts``), a striped chunk's frame from one slot.
+Leaves land on the receiver in CPU tensors, received straight into their
+bytes, so bf16 needs no extension dtype; a thread maps each landing buffer
+with its pages faulted in ahead of the frame that lands in it.  Received
+leaves are CPU tensors, as ``HTTPTransport`` returns them; a DTensor leaf
+comes back as a ``ShardedHostArray`` of the sender rank's local shard.  ``recv_checkpoint(into=...)`` lands each payload in place in
 a matching contiguous CPU tensor (or numpy array) of ``into``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import io
 import logging
 import pickle
 import threading
 import time
-from typing import Any, Dict, List, Optional, Tuple, TypeVar
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Dict, Iterator, List, Optional, Tuple, TypeVar
 
 import numpy as np
 import torch
 
 from torchft_tpu_torch import wire
 from torchft_tpu_torch.checkpointing.serialization import (
+    StagingRing,
     _SkeletonUnpickler,
     _dtype_name,
     _extract_arrays,
     _leaf_meta,
+    _leaf_source,
     _resolve_dtype,
     _restore_arrays,
     _tensor_bytes,
     array_chunk_ranges,
-    as_byte_view,
     balanced_shares,
     heal_chunk_bytes,
-    materialize_leaf,
+    populated_empty,
 )
 from torchft_tpu_torch.checkpointing.transport import CheckpointTransport
 from torchft_tpu_torch.communicator import Communicator
+from torchft_tpu_torch.obs.spans import span as obs_span
 from torchft_tpu_torch.observability import HealMetrics
 
 logger = logging.getLogger(__name__)
@@ -105,11 +113,26 @@ def _inplace_targets(into: Any, array_meta: List[Tuple[str, Tuple[int, ...]]]) -
     return out
 
 
+def _land_ahead(target: Any, dtype_name: str, shape) -> Any:
+    """``target``, or a fresh landing buffer with its pages faulted in."""
+    if target is not None:
+        return target
+    with obs_span("heal::recv_land"):
+        return populated_empty(tuple(shape), _resolve_dtype(dtype_name))
+
+
 def _landing_buffers(inplace: List[Any], array_meta) -> List[Any]:
     return [
         target if target is not None else torch.empty(tuple(shape), dtype=_resolve_dtype(name))
         for target, (name, shape) in zip(inplace, array_meta)
     ]
+
+
+def _whole_leaf(leaf: Any, nbytes: int) -> Iterator[Tuple[Any, int, int]]:
+    """A leaf's bytes as one piece for a :class:`StagingRing`, looked up
+    when its frame is written (a non-contiguous CUDA leaf is made
+    contiguous on the card only then)."""
+    yield _leaf_source(leaf), 0, nbytes
 
 
 class CommTransport(CheckpointTransport[T]):
@@ -120,8 +143,9 @@ class CommTransport(CheckpointTransport[T]):
     keeps a late transfer of an earlier heal from pairing with a new one.
     """
 
-    # at most this many leaves' host copies are in flight while streaming a
-    # heal (the sends pipeline; the window caps host memory)
+    # at most this many leaves' frames are queued a destination while
+    # streaming a heal (a communicator that joins a frame's parts before
+    # sending holds each queued leaf on the host)
     _SEND_WINDOW_LEAVES = 4
 
     def __init__(self, comm: Communicator, timeout: float = 60.0) -> None:
@@ -156,19 +180,22 @@ class CommTransport(CheckpointTransport[T]):
         )
         base = self._tags(step)
         deadline = time.monotonic() + timeout
-        # leaves come to the host one at a time and are sent from their
-        # buffer; the window overlaps the copy of leaf k+1 with the wire of
-        # leaf k
-        works: List[tuple] = [(self._comm.send_bytes(meta, dst, tag=base), meta) for dst in dst_ranks]
+        # each leaf is one frame a destination, written as a ring of that
+        # destination's own stages it from the card (a host leaf passes
+        # through); the frames queue in order on the op thread
+        works = deque(self._comm.send_bytes(meta, dst, tag=base) for dst in dst_ranks)
+        rings = {dst: StagingRing() for dst in dst_ranks}
         for i, leaf in enumerate(arrays):
-            blob = as_byte_view(materialize_leaf(leaf))
+            nbytes = _nbytes(*_leaf_meta(leaf))
             for dst in dst_ranks:
-                works.append((self._comm.send_bytes(blob, dst, tag=base + 1 + i), blob))
-            while len(works) > self._SEND_WINDOW_LEAVES * len(dst_ranks):
-                work, _keepalive = works.pop(0)
+                parts = rings[dst].chunks(_whole_leaf(leaf, nbytes))
+                works.append(self._comm.send_frame_parts(parts, nbytes, dst, tag=base + 1 + i))
+            with obs_span("heal::send_write"):
+                while len(works) > self._SEND_WINDOW_LEAVES * len(dst_ranks):
+                    works.popleft().wait(timeout=max(0.0, deadline - time.monotonic()))
+        with obs_span("heal::send_write"):
+            for work in works:
                 work.wait(timeout=max(0.0, deadline - time.monotonic()))
-        for work, _keepalive in works:
-            work.wait(timeout=max(0.0, deadline - time.monotonic()))
         logger.info("sent checkpoint step=%d (%d arrays) to ranks %s", step, len(arrays), dst_ranks)
 
     def recv_checkpoint(
@@ -182,16 +209,30 @@ class CommTransport(CheckpointTransport[T]):
         t0 = time.monotonic()
         base = self._tags(step)
         skeleton, array_meta = _loads(self._comm.recv_bytes(src_rank, tag=base).wait(timeout=timeout))
-        arrays = _landing_buffers(_inplace_targets(into, array_meta), array_meta)
+        # the landing buffers are mapped in order on a thread of their own,
+        # their pages faulted in there, while the frames land in the ones
+        # before them
+        inplace = _inplace_targets(into, array_meta)
+        arrays: List[Any] = []
         total = 0
-        for i, target in enumerate(arrays):
-            view = _landing_bytes(target)
-            got = self._comm.recv_bytes_into(src_rank, view, tag=base + 1 + i).wait(timeout=timeout)
-            if got != view.nbytes:
-                raise ValueError(
-                    f"checkpoint array {i}: payload {got} bytes != expected {view.nbytes}"
-                )
-            total += view.nbytes
+        lander = ThreadPoolExecutor(1, thread_name_prefix="tpuft_heal_land")
+        try:
+            landing = [lander.submit(_land_ahead, target, name, shape)
+                       for target, (name, shape) in zip(inplace, array_meta)]
+            for i, future in enumerate(landing):
+                target = future.result()
+                arrays.append(target)
+                view = _landing_bytes(target)
+                with obs_span("heal::recv_read"):
+                    got = self._comm.recv_bytes_into(src_rank, view, tag=base + 1 + i).wait(
+                        timeout=timeout)
+                if got != view.nbytes:
+                    raise ValueError(
+                        f"checkpoint array {i}: payload {got} bytes != expected {view.nbytes}"
+                    )
+                total += view.nbytes
+        finally:
+            lander.shutdown(wait=False, cancel_futures=True)
         self.last_heal_metrics = HealMetrics(
             step=step,
             num_sources=1,
@@ -245,41 +286,43 @@ class CommTransport(CheckpointTransport[T]):
         def _serve_dst(dst: int) -> None:
             base = self._tags(step)
             sent_bytes = 0
-            # one-array host memo: a share's chunks are sorted, so ranges of
-            # the same array are served back to back
-            memo: Dict[int, np.ndarray] = {}
-
-            def _chunk_view(i: int) -> memoryview:
-                ai, start, stop = chunks[i]
-                if ai not in memo:
-                    memo.clear()
-                    memo[ai] = materialize_leaf(arrays[ai])
-                return as_byte_view(memo[ai])[start:stop]
 
             def _send_chunks(indices: List[int]) -> None:
+                # each chunk is one frame, staged through a ring of this
+                # stream's own (a slot holds the largest chunk) and reused
+                # once the frame that reads it is sent
                 nonlocal sent_bytes
+                ring = StagingRing(
+                    slot_bytes=max((chunks[i][2] - chunks[i][1] for i in indices), default=1))
+                pieces = ((_leaf_source(arrays[chunks[i][0]]), chunks[i][1], chunks[i][2])
+                          for i in indices)
                 window: List[tuple] = []
-                for i in indices:
-                    # the trip wire honors its arm gate: bytes served before
-                    # the event is set neither count nor kill
-                    armed = self.chaos_arm is None or self.chaos_arm.is_set()
-                    if (
-                        armed
-                        and self.chaos_die_after_bytes is not None
-                        and sent_bytes >= self.chaos_die_after_bytes
-                    ):
-                        self.chaos_fired.set()
-                        self._comm.abort("chaos: heal source killed mid-transfer")
-                        raise ConnectionError("chaos: heal source killed mid-transfer")
-                    blob = _chunk_view(i)
-                    window.append((self._comm.send_bytes(blob, dst, tag=base + _S_CHUNK_OFF + i), blob))
-                    if armed:
-                        sent_bytes += len(blob)
-                    while len(window) > self._SEND_WINDOW_LEAVES:
-                        work, _keep = window.pop(0)
-                        work.wait(timeout=_remaining())
-                for work, _keep in window:
-                    work.wait(timeout=_remaining())
+                with contextlib.closing(ring.chunks(pieces)) as staged:
+                    for i, (blob, release) in zip(indices, staged):
+                        # the trip wire honors its arm gate: bytes served
+                        # before the event is set neither count nor kill
+                        armed = self.chaos_arm is None or self.chaos_arm.is_set()
+                        if (
+                            armed
+                            and self.chaos_die_after_bytes is not None
+                            and sent_bytes >= self.chaos_die_after_bytes
+                        ):
+                            self.chaos_fired.set()
+                            self._comm.abort("chaos: heal source killed mid-transfer")
+                            raise ConnectionError("chaos: heal source killed mid-transfer")
+                        window.append((self._comm.send_bytes(blob, dst, tag=base + _S_CHUNK_OFF + i),
+                                       release))
+                        if armed:
+                            sent_bytes += len(blob)
+                        with obs_span("heal::send_write"):
+                            while len(window) >= ring.slots:
+                                work, done = window.pop(0)
+                                work.wait(timeout=_remaining())
+                                done()
+                    with obs_span("heal::send_write"):
+                        for work, done in window:
+                            work.wait(timeout=_remaining())
+                            done()
 
             self._comm.send_bytes(meta_blob, dst, tag=base + _S_META_OFF).wait(timeout=_remaining())
             _send_chunks(own)
@@ -380,7 +423,8 @@ class CommTransport(CheckpointTransport[T]):
 
         array_meta = index["array_meta"]
         chunks: List[Tuple[int, int, int]] = [tuple(c) for c in index["chunks"]]
-        arrays = _landing_buffers(_inplace_targets(into, array_meta), array_meta)
+        with obs_span("heal::recv_land"):
+            arrays = _landing_buffers(_inplace_targets(into, array_meta), array_meta)
         flat = [_landing_bytes(a) for a in arrays]
         chunk_arrays = [flat[ai][start:stop] for ai, start, stop in chunks]
         chunk_views = [memoryview(a) for a in chunk_arrays]
@@ -388,24 +432,25 @@ class CommTransport(CheckpointTransport[T]):
         shares = balanced_shares([e - s for _, s, e in chunks], len(src_ranks))
         expected = {r: shares[i] for i, r in enumerate(src_ranks) if r not in dead}
         orphans = [c for i, r in enumerate(src_ranks) if r in dead for c in shares[i]]
-        try:
-            drain = self._comm.heal_drain(
-                chunk_views,
-                expected,
-                orphans,
-                chunk_tag=lambda i: base + _S_CHUNK_OFF + i,
-                ctrl_tag=base + _S_CTRL_OFF,
-                make_need=lambda idxs: pickle.dumps(("need", list(idxs))),
-                done_blob=pickle.dumps(("done",)),
-                timeout_s=_remaining(),
-            )
-            res = drain.wait(timeout=_remaining())
-        except NotImplementedError:
-            logger.warning(
-                "striped heal: communicator has no heal_drain; draining %d sources one "
-                "after another", len(expected),
-            )
-            res = self._drain_serially(chunk_arrays, expected, orphans, base, _remaining)
+        with obs_span("heal::recv_read"):
+            try:
+                drain = self._comm.heal_drain(
+                    chunk_views,
+                    expected,
+                    orphans,
+                    chunk_tag=lambda i: base + _S_CHUNK_OFF + i,
+                    ctrl_tag=base + _S_CTRL_OFF,
+                    make_need=lambda idxs: pickle.dumps(("need", list(idxs))),
+                    done_blob=pickle.dumps(("done",)),
+                    timeout_s=_remaining(),
+                )
+                res = drain.wait(timeout=_remaining())
+            except NotImplementedError:
+                logger.warning(
+                    "striped heal: communicator has no heal_drain; draining %d sources one "
+                    "after another", len(expected),
+                )
+                res = self._drain_serially(chunk_arrays, expected, orphans, base, _remaining)
         dead.update(res["dead"])
 
         total_bytes = sum(len(v) for v in chunk_views)

@@ -8,14 +8,17 @@ so the train loop can't mutate weights mid-transfer
 (``http_transport.py:181-202``).
 
 Divergence from the reference: staging stores a serialization *plan* (the
-tree skeleton + snapshots of the leaves), and serving threads copy one leaf
-at a time to the host while streaming it to the socket (the reference's
-incremental-save analog, ``_serialization.py:14-39``).  Peak extra host RSS
-during a heal send is one leaf, not 1-2× the model; chunked fetches stream
-the byte range they own the same way.  Tensors are snapshotted on their
-device (``clone()``) at staging time, so the optimizer's in-place update
-can't change them while a peer is still fetching; received leaves arrive as
-CPU tensors for the caller to ``copy_`` into its live tensors.
+tree skeleton + snapshots of the leaves), and each serving thread streams
+its byte range to the socket while a copier thread brings the CUDA leaves
+in it to the host through a ring of reused pinned buffers of the request's
+own (``serialization.StagingRing``; the reference's incremental-save
+analog, ``_serialization.py:14-39``).  Peak extra host RSS during a heal
+send is a ring per request, not 1-2× the model or a leaf.  Tensors are
+snapshotted on their device (``clone()``) at staging time, so the
+optimizer's in-place update can't change them while a peer is still
+fetching; a chunked fetch lands each range in place in the arrays of the
+received state (``serialization.StreamLanding``), which arrive as CPU
+tensors for the caller to ``copy_`` into its live tensors.
 """
 
 from __future__ import annotations
@@ -34,12 +37,17 @@ from urllib.request import urlopen
 
 from torchft_tpu_torch.checkpointing._rwlock import RWLock
 from torchft_tpu_torch.checkpointing.serialization import (
+    MAGIC,
     PytreePlan,
+    StreamLanding,
     ViewReader as _ViewReader,
+    header_len_of,
     load_pytree,
     plan_pytree,
+    read_into,
 )
 from torchft_tpu_torch.checkpointing.transport import CheckpointTransport
+from torchft_tpu_torch.obs.spans import span as obs_span
 from torchft_tpu_torch.observability import HealMetrics
 
 logger = logging.getLogger(__name__)
@@ -56,16 +64,6 @@ def _heal_source_timeout(overall: float) -> float:
     raw = os.environ.get(HEAL_SOURCE_TIMEOUT_ENV)
     per_source = float(raw) if raw else 30.0
     return max(0.1, min(per_source, overall))
-
-
-def _read_stream_into(resp, view: memoryview) -> None:
-    """Drain exactly ``len(view)`` bytes from a response into ``view``."""
-    off = 0
-    while off < len(view):
-        n = resp.readinto(view[off:])
-        if not n:
-            raise EOFError("truncated checkpoint response")
-        off += n
 
 
 class _RawSocketWriter(RawIOBase):
@@ -114,6 +112,14 @@ class _ChaosWriter(RawIOBase):
 
 
 # _ViewReader moved to serialization.ViewReader (shared with CommTransport)
+
+
+# the Manager's HTTPTransport serves its state in this many chunks and a
+# healer fetches them over as many parallel connections: one loopback
+# stream into fresh host memory ran at 1.24 GB/s, four at 2.31 (H100 80GB
+# HBM3 host, 700.00 W; scripts/heal_probe.py), and a JAX-package server
+# (num_chunks 0) is fetched as its one chunk
+HEAL_NUM_CHUNKS = 4
 
 
 class HTTPTransport(CheckpointTransport[T]):
@@ -317,10 +323,13 @@ class HTTPTransport(CheckpointTransport[T]):
     ) -> T:
         """Fetch and deserialize a peer's live checkpoint.
 
-        Default (num_chunks=0) is fully streaming: array payloads are read
+        With num_chunks=0 it streams ``/full``: array payloads are read
         straight off the socket into preallocated arrays, and ``leaf_hook``
         (e.g. a ``copy_`` into the healing replica's live tensor) maps
-        each leaf on arrival so its host copy dies immediately."""
+        each leaf on arrival so its host copy dies immediately.  With
+        num_chunks > 0 (the Manager's :data:`HEAL_NUM_CHUNKS`) the server's
+        chunks are fetched in parallel, each straight into the arrays, and
+        ``leaf_hook`` maps the leaves once all have landed."""
         base = f"{metadata}/checkpoint/{step}"
         t0 = time.monotonic()
         if self._num_chunks == 0:
@@ -329,32 +338,36 @@ class HTTPTransport(CheckpointTransport[T]):
                 self._single_source_metrics(step, metadata, int(resp.headers["X-Total-Len"]), t0)
                 return state  # type: ignore[return-value]
 
-        # chunked mode: parallel range fetches landing in one preallocated
-        # buffer (no per-chunk bytes objects, no join copy)
-        with urlopen(f"{base}/0", timeout=timeout) as resp:
-            total = int(resp.headers.get("X-Num-Chunks", "1"))
+        # chunked mode: the header first (its first bytes give its length),
+        # then the server's chunks fetched in parallel, each landing in
+        # place in the state's arrays (serialization.StreamLanding)
+        prefix = len(MAGIC) + 4
+        with urlopen(f"{base}/range/0/{prefix}", timeout=timeout) as resp:
+            num_chunks = int(resp.headers.get("X-Num-Chunks", "1"))
             total_len = int(resp.headers["X-Total-Len"])
-            chunk_size = -(-total_len // max(1, total))
-            buf = bytearray(total_len)
-            view = memoryview(buf)
-            _read_stream_into(resp, view[: min(chunk_size, total_len)])
-
-        done = [False] * total
-        done[0] = True
+            head = resp.read()
+        with urlopen(f"{base}/range/{prefix}/{header_len_of(head)}", timeout=timeout) as resp:
+            landing = StreamLanding(head + resp.read())
+        if landing.total_len != total_len:
+            raise ValueError(f"checkpoint header describes {landing.total_len} bytes, the "
+                             f"server serves {total_len}")
+        chunk_size = -(-total_len // max(1, num_chunks))
+        done = [False] * num_chunks
         errors: List[BaseException] = []
 
         def _fetch(i: int) -> None:
             try:
                 start = i * chunk_size
                 stop = min(total_len, start + chunk_size)
-                with urlopen(f"{base}/{i}", timeout=timeout) as r:
-                    _read_stream_into(r, view[start:stop])
+                with urlopen(f"{base}/{i}", timeout=timeout) as r, obs_span("heal::recv_read"):
+                    landing.read_range(r, start, stop)
                 done[i] = True
             except BaseException as e:  # noqa: BLE001 — re-raised on the caller
                 errors.append(e)
 
         threads = [
-            threading.Thread(target=_fetch, args=(i,)) for i in range(1, total)
+            threading.Thread(target=_fetch, args=(i,), name=f"tpuft_heal_fetch_{i}", daemon=True)
+            for i in range(num_chunks)
         ]
         deadline = time.monotonic() + timeout
         for t in threads:
@@ -367,7 +380,7 @@ class HTTPTransport(CheckpointTransport[T]):
             raise errors[0]
         if not all(done):
             raise TimeoutError("chunked checkpoint fetch timed out")
-        state = load_pytree(_ViewReader(view), leaf_hook=leaf_hook)
+        state = landing.finish(leaf_hook)
         self._single_source_metrics(step, metadata, total_len, t0)
         return state  # type: ignore[return-value]
 
@@ -431,7 +444,8 @@ class HTTPTransport(CheckpointTransport[T]):
         digest = index.get("header_digest")
         chunks: deque = deque(tuple(c) for c in index["chunks"])
         num_chunks = len(chunks)
-        buf = bytearray(total_len)
+        with obs_span("heal::recv_land"):
+            buf = bytearray(total_len)
         view = memoryview(buf)
 
         lock = threading.Lock()
@@ -474,7 +488,8 @@ class HTTPTransport(CheckpointTransport[T]):
                             raise ValueError(
                                 f"source {meta} skeleton digest mismatch"
                             )
-                        _read_stream_into(r, view[start:stop])
+                        with obs_span("heal::recv_read"):
+                            read_into(r, view[start:stop])
                     with lock:
                         state["done"] += 1
                         per_source_bytes[meta] += stop - start

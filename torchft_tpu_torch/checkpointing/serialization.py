@@ -26,20 +26,25 @@ torch alone, so bfloat16 needs no numpy extension dtype on either side.
 
 from __future__ import annotations
 
+import bisect
+import contextlib
 import hashlib
 import io
 import os
 import pickle
+import queue
 import struct
 import threading
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
-from typing import Any, BinaryIO, Dict, List, Optional, Tuple
+from typing import Any, BinaryIO, Callable, Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from torchft_tpu_torch.obs.spans import span as obs_span
 
 MAGIC = b"TFTC\x01"
 
@@ -61,6 +66,14 @@ CHUNK_BYTES = 64 << 20
 # chunks staged ahead of the slowest consumer: the pinned ring a save of a
 # CUDA state holds (RING_CHUNKS * CHUNK_BYTES = 512 MiB)
 RING_CHUNKS = 8
+
+# A heal's sender stages each CUDA leaf to the host in chunks of
+# SEND_SLOT_BYTES through a StagingRing of SEND_RING_SLOTS pinned buffers;
+# every request being served (an HTTP range, a comm stream) has a ring of
+# its own, so its peak extra host memory is SEND_RING_SLOTS * SEND_SLOT_BYTES
+# (64 MiB), not a leaf
+SEND_SLOT_BYTES = 16 << 20
+SEND_RING_SLOTS = 4
 
 
 def heal_chunk_bytes() -> int:
@@ -222,6 +235,88 @@ def materialize_leaf(leaf: Any) -> np.ndarray:
     return _tensor_bytes(leaf.detach().cpu())
 
 
+class StagingRing:
+    """Byte ranges of leaves brought to the host through a ring of reused
+    buffers, a copier thread ahead of the consumer.
+
+    :meth:`chunks` takes pieces ``(source, lo, hi)`` in order.  A host
+    source (a memoryview) passes through as it is; a tensor source (a flat
+    uint8 tensor: a CUDA leaf's bytes) is copied ``slot_bytes`` at a time
+    into the ring's slots, pinned when the source is on the card.  Each
+    chunk comes out as ``(view, release)``: the consumer calls ``release()``
+    once every write that reads ``view`` is done, and only then does the
+    copier refill that slot.  A consumer must hold fewer than ``slots``
+    unreleased chunks when it asks for the next one.  A pinned allocation
+    that fails raises; nothing falls back to pageable memory.  The copies'
+    seconds add up in ``copy_s`` and, under ``copy_span``, in
+    ``obs.spans``."""
+
+    def __init__(self, slots: Optional[int] = None, slot_bytes: Optional[int] = None,
+                 copy_span: str = "heal::send_copy") -> None:
+        self.slots = slots or SEND_RING_SLOTS
+        self.slot_bytes = slot_bytes or SEND_SLOT_BYTES
+        self.copy_span = copy_span
+        self.copy_s = 0.0
+        self._copy_s_lock = threading.Lock()
+        self._bufs: List[Optional[torch.Tensor]] = [None] * self.slots
+
+    def _slot(self, i: int, pin: bool) -> torch.Tensor:
+        buf = self._bufs[i]
+        if buf is None or buf.is_pinned() != pin:
+            buf = self._bufs[i] = torch.empty(self.slot_bytes, dtype=torch.uint8, pin_memory=pin)
+        return buf
+
+    def chunks(
+        self, pieces: Iterable[Tuple[Any, int, int]]
+    ) -> Iterator[Tuple[memoryview, Callable[[], None]]]:
+        free: "queue.Queue[int]" = queue.Queue()
+        for i in range(self.slots):
+            free.put(i)
+        ready: "queue.Queue[Any]" = queue.Queue()
+        stop = threading.Event()
+
+        def _noop() -> None:
+            pass
+
+        def _copy() -> None:
+            try:
+                for src, lo, hi in pieces:
+                    if not isinstance(src, torch.Tensor):
+                        ready.put((memoryview(src)[lo:hi], _noop))
+                        continue
+                    for off in range(lo, hi, self.slot_bytes):
+                        i = free.get()
+                        if stop.is_set():
+                            return
+                        n = min(self.slot_bytes, hi - off)
+                        t0 = time.perf_counter()
+                        with obs_span(self.copy_span):
+                            staged = self._slot(i, src.is_cuda)[:n]
+                            staged.copy_(src[off : off + n])
+                        with self._copy_s_lock:
+                            self.copy_s += time.perf_counter() - t0
+                        ready.put((memoryview(staged.numpy()), lambda i=i: free.put(i)))
+            except BaseException as e:  # noqa: BLE001 — raised on the consumer
+                ready.put(e)
+            else:
+                ready.put(None)
+
+        copier = threading.Thread(target=_copy, name="tpuft_heal_stage", daemon=True)
+        copier.start()
+        try:
+            while True:
+                item = ready.get()
+                if item is None:
+                    return
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+            free.put(-1)  # wakes a copier waiting for a slot
+            copier.join()
+
+
 def _leaf_meta(leaf: Any) -> Tuple[str, Tuple[int, ...]]:
     """(dtype name, shape) without materializing the leaf on host."""
     return _dtype_name(leaf.dtype), tuple(leaf.shape)
@@ -286,7 +381,7 @@ def _restore_arrays(obj: Any, arrays: List[Any]) -> Any:
 @dataclass
 class PytreePlan:
     """Serialization plan: everything needed to stream a pytree without
-    materializing more than one leaf on host at a time.
+    bringing more than a ring of chunks of it to the host at a time.
 
     ``header`` is the byte prefix (magic + skeleton + array count); each
     leaf then rides as an 8-byte length + raw bytes.  ``total_len`` lets a
@@ -296,9 +391,8 @@ class PytreePlan:
     leaves: List[Any]
     leaf_nbytes: List[int]
     total_len: int
-    # one-leaf D2H memo: several striped range requests cut the same large
-    # leaf, and each write_range would otherwise copy the whole leaf to host
-    # again; the memo holds the most recent materialization
+    # one-leaf host memo of _materialize (a warm snapshot's crc pass reads
+    # every chunk of a leaf in turn); write_range stages through a ring
     _memo: Optional[Tuple[int, np.ndarray]] = None
     _memo_lock: threading.Lock = field(default_factory=threading.Lock)
 
@@ -320,36 +414,50 @@ class PytreePlan:
         with self._memo_lock:
             if self._memo is not None and self._memo[0] == index:
                 return self._memo[1]
-        arr = materialize_leaf(self.leaves[index])
+        with obs_span("heal::send_copy"):
+            arr = materialize_leaf(self.leaves[index])
         with self._memo_lock:
             self._memo = (index, arr)
         return arr
 
     def write_range(self, start: int, stop: int, stream: BinaryIO) -> None:
-        """Stream bytes [start, stop) of the serialized form, materializing
-        only the leaves that overlap the range (chunked HTTP fetches)."""
+        """Stream bytes [start, stop) of the serialized form (chunked HTTP
+        fetches): only the leaves that overlap the range are read, a CUDA
+        leaf through a :class:`StagingRing` of this call's own."""
+        pieces: List[Tuple[Any, int, int]] = []
         off = 0
 
-        def _emit(chunk) -> None:
+        def _add(source: Any, n: int) -> None:
             nonlocal off
-            n = len(chunk)
             lo, hi = max(start, off), min(stop, off + n)
             if lo < hi:
-                stream.write(memoryview(chunk)[lo - off : hi - off])
+                pieces.append((source, lo - off, hi - off))
             off += n
 
-        _emit(self.header)
+        _add(self.header, len(self.header))
         for i, nbytes in enumerate(self.leaf_nbytes):
             if off + 8 + nbytes <= start:
                 off += 8 + nbytes  # fully before the range: skip cheaply
                 continue
             if off >= stop:
                 break
-            _emit(struct.pack("<Q", nbytes))
+            _add(struct.pack("<Q", nbytes), 8)
             if off + nbytes <= start:
                 off += nbytes
                 continue
-            _emit(as_byte_view(self._materialize(i)))
+            _add(i, nbytes)
+
+        def _sources() -> Iterator[Tuple[Any, int, int]]:
+            # a leaf (by index) is looked up as the copier reaches it
+            for source, lo, hi in pieces:
+                yield (_leaf_source(self.leaves[source]) if isinstance(source, int)
+                       else source), lo, hi
+
+        with contextlib.closing(StagingRing().chunks(_sources())) as staged:
+            for view, release in staged:
+                with obs_span("heal::send_write"):
+                    stream.write(view)
+                release()
 
 
 def _snapshot_leaf(leaf: Any) -> Any:
@@ -407,16 +515,16 @@ def save_pytree(
 ) -> Dict[str, float]:
     """Stream-serialize ``state``: the header, then each leaf's 8-byte
     length and bytes.  Leaves move to host in :data:`CHUNK_BYTES` chunks,
-    in order, on this thread, while a writer thread writes the chunks
-    before them to ``stream``; a chunk of a CUDA tensor is staged through
-    a ring of :data:`RING_CHUNKS` pinned buffers, which copies several
-    times faster than a pageable copy (peak extra host RSS: the ring, or
-    one leaf of a host state).  ``digest``, if given, takes every chunk of
-    every leaf (``digest.submit(view) -> futures``, done before the view is
-    reused, as :class:`~torchft_tpu_torch.utils.checkpoint.ChunkDigest`
-    does); with no ``stream`` nothing is written and the leaves are only
-    hashed.  Returns the busy seconds of the copies (``host_copy_s``) and
-    of the writes (``write_s``); they overlap."""
+    in order, through a :class:`StagingRing` of :data:`RING_CHUNKS`
+    buffers (pinned for a CUDA tensor, which copies several times faster
+    than a pageable copy; peak extra host RSS: the ring, or one leaf of a
+    host state), while a writer thread writes the chunks before them to
+    ``stream``.  ``digest``, if given, takes every chunk of every leaf
+    (``digest.submit(view) -> futures``, done before the view is reused,
+    as :class:`~torchft_tpu_torch.utils.checkpoint.ChunkDigest` does);
+    with no ``stream`` nothing is written and the leaves are only hashed.
+    Returns the busy seconds of the copies (``host_copy_s``) and of the
+    writes (``write_s``); they overlap."""
     plan = plan_pytree(state)
     busy = {"host_copy_s": 0.0, "write_s": 0.0}
 
@@ -425,51 +533,53 @@ def save_pytree(
         stream.write(data)
         busy["write_s"] += time.perf_counter() - t0  # the writer thread alone
 
-    cuda_nbytes = [n for leaf, n in zip(plan.leaves, plan.leaf_nbytes)
-                   if isinstance(leaf, torch.Tensor) and leaf.is_cuda]
-    slot_bytes = min(CHUNK_BYTES, max(cuda_nbytes, default=0))
-    writer = ThreadPoolExecutor(1, thread_name_prefix="save_pytree") if stream else None
-    ring: List[Optional[torch.Tensor]] = [None] * RING_CHUNKS
-    pending: deque = deque()  # each staged chunk's futures, oldest first
-    slot = 0
-    try:
-        if writer is not None:
-            pending.append([writer.submit(_write, plan.header)])
+    def _pieces() -> Iterator[Tuple[Any, int, int]]:
+        # one piece a chunk of each leaf (an empty leaf: one empty chunk),
+        # each leaf's bytes looked up as its turn comes
         for leaf, nbytes in zip(plan.leaves, plan.leaf_nbytes):
             src = _leaf_source(leaf)
             if len(src) != nbytes:
                 raise ValueError(f"leaf changed size while saving: {len(src)} != {nbytes}")
             for off in range(0, max(nbytes, 1), CHUNK_BYTES):
-                if len(pending) >= RING_CHUNKS:  # the slot about to be reused
-                    for fut in pending.popleft():
-                        fut.result()
-                t0 = time.perf_counter()
-                end = min(off + CHUNK_BYTES, nbytes)
-                if isinstance(src, torch.Tensor):
-                    if ring[slot] is None:
-                        ring[slot] = torch.empty(slot_bytes, dtype=torch.uint8, pin_memory=True)
-                    staged = ring[slot][: end - off]
-                    staged.copy_(src[off:end])
-                    view = memoryview(staged.numpy())
-                else:
-                    view = src[off:end]
-                busy["host_copy_s"] += time.perf_counter() - t0
+                yield (src if nbytes else memoryview(b"")), off, min(off + CHUNK_BYTES, nbytes)
+
+    # beside each chunk, the leaf's length where it is the leaf's first
+    firsts = [nbytes if off == 0 else None for nbytes in plan.leaf_nbytes
+              for off in range(0, max(nbytes, 1), CHUNK_BYTES)]
+    ring = StagingRing(RING_CHUNKS, CHUNK_BYTES, copy_span="checkpoint::host_copy")
+    writer = ThreadPoolExecutor(1, thread_name_prefix="save_pytree") if stream else None
+    pending: deque = deque()  # each chunk's futures and its slot's release, oldest first
+    try:
+        if writer is not None:
+            pending.append(([writer.submit(_write, plan.header)], None))
+        with contextlib.closing(ring.chunks(_pieces())) as staged:
+            for first, (view, release) in zip(firsts, staged):
                 futs = []
                 if writer is not None:
-                    if off == 0:
-                        futs.append(writer.submit(_write, struct.pack("<Q", nbytes)))
+                    if first is not None:
+                        futs.append(writer.submit(_write, struct.pack("<Q", first)))
                     futs.append(writer.submit(_write, view))
                 if digest is not None:
                     futs += digest.submit(view)
-                pending.append(futs)
-                slot = (slot + 1) % RING_CHUNKS
+                pending.append((futs, release))
+                while len(pending) >= RING_CHUNKS:  # the ring's slots, all but one held
+                    _settle(pending.popleft())
         while pending:
-            for fut in pending.popleft():
-                fut.result()
+            _settle(pending.popleft())
     finally:
         if writer is not None:
             writer.shutdown(wait=True)
+    busy["host_copy_s"] = ring.copy_s
     return busy
+
+
+def _settle(entry: Tuple[List[Any], Optional[Callable[[], None]]]) -> None:
+    """Wait a staged chunk's writes and digests, then free its slot."""
+    futs, release = entry
+    for fut in futs:
+        fut.result()
+    if release is not None:
+        release()
 
 
 def _read_exact(stream: BinaryIO, n: int) -> bytes:
@@ -503,15 +613,9 @@ class _SkeletonUnpickler(pickle.Unpickler):
         return super().find_class(module, name)
 
 
-def load_pytree(stream: BinaryIO, leaf_hook: Any = None) -> Any:
-    """Inverse of :func:`save_pytree`, reading payloads straight into
-    preallocated arrays (``readinto``, no intermediate copies).
-
-    Every array leaf comes back as a CPU torch tensor.  ``leaf_hook(t) ->
-    Any``, if given, maps each tensor right after its bytes arrive — e.g. a
-    ``copy_`` into the live parameter on its device — so the host copy of
-    each leaf can be dropped as soon as the next one starts arriving
-    (in-place-on-arrival heal)."""
+def _read_header(stream: BinaryIO) -> Tuple[Any, List[_ArrayPlaceholder]]:
+    """The skeleton and each array's placeholder, in payload order, from the
+    stream's header (magic, skeleton, array count)."""
     magic = _read_exact(stream, len(MAGIC))
     if magic != MAGIC:
         raise ValueError(f"bad checkpoint magic {magic!r}")
@@ -534,37 +638,144 @@ def load_pytree(stream: BinaryIO, leaf_hook: Any = None) -> Any:
                 _collect(v)
 
     _collect(skeleton)
-
-    arrays: List[Any] = []
-    for i in range(narrays):
-        ph = placeholders[i]
+    for i, ph in enumerate(placeholders):
         if ph is None:
             raise ValueError(f"missing placeholder for array {i}")
+    return skeleton, placeholders
+
+
+def header_len_of(prefix: bytes) -> int:
+    """The header's length from its first ``len(MAGIC) + 4`` bytes."""
+    if prefix[: len(MAGIC)] != MAGIC:
+        raise ValueError(f"bad checkpoint magic {prefix[: len(MAGIC)]!r}")
+    (skel_len,) = struct.unpack("<I", prefix[len(MAGIC) : len(MAGIC) + 4])
+    return len(MAGIC) + 4 + skel_len + 4
+
+
+def read_into(stream: BinaryIO, view: memoryview) -> None:
+    """Exactly ``len(view)`` bytes of ``stream`` into ``view``."""
+    read_into_ = getattr(stream, "readinto", None)
+    off = 0
+    while off < len(view):
+        if read_into_ is not None:
+            n = read_into_(view[off:])
+        else:
+            chunk = stream.read(min(1 << 20, len(view) - off))
+            n = len(chunk)
+            view[off : off + n] = chunk
+        if not n:
+            raise EOFError("truncated checkpoint stream")
+        off += n
+
+
+# a landing buffer at least this large is mapped with its pages faulted in
+# at once (MAP_POPULATE): 5.27 GB/s against 3.70 GB/s for the page faults
+# of a first write, on the H100 80GB HBM3 host at 700.00 W
+# (scripts/heal_probe.py)
+POPULATE_MIN_BYTES = 1 << 20
+
+
+def populated_empty(shape: Tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
+    """An uninitialized CPU tensor whose pages are already faulted in (a
+    fresh anonymous mapping with ``MAP_POPULATE``; small ones are plain
+    ``torch.empty``): a receive lands in it without a page fault."""
+    nbytes = dtype.itemsize
+    for d in shape:
+        nbytes *= d
+    if nbytes < POPULATE_MIN_BYTES:
+        return torch.empty(shape, dtype=dtype)
+    import mmap
+
+    region = mmap.mmap(-1, nbytes, flags=mmap.MAP_PRIVATE | mmap.MAP_ANONYMOUS | mmap.MAP_POPULATE)
+    return torch.frombuffer(region, dtype=torch.uint8).view(dtype).view(shape)
+
+
+def _landing_arrays(placeholders: List[_ArrayPlaceholder]) -> List[torch.Tensor]:
+    with obs_span("heal::recv_land"):
+        return [torch.empty(ph.shape, dtype=_resolve_dtype(ph.dtype)) for ph in placeholders]
+
+
+def load_pytree(stream: BinaryIO, leaf_hook: Any = None) -> Any:
+    """Inverse of :func:`save_pytree`, reading payloads straight into
+    preallocated arrays (``readinto``, no intermediate copies).
+
+    Every array leaf comes back as a CPU torch tensor.  ``leaf_hook(t) ->
+    Any``, if given, maps each tensor right after its bytes arrive — e.g. a
+    ``copy_`` into the live parameter on its device — so the host copy of
+    each leaf can be dropped as soon as the next one starts arriving
+    (in-place-on-arrival heal)."""
+    skeleton, placeholders = _read_header(stream)
+    arrays: List[Any] = []
+    for i, ph in enumerate(placeholders):
         (nbytes,) = struct.unpack("<Q", _read_exact(stream, 8))
-        arr = torch.empty(ph.shape, dtype=_resolve_dtype(ph.dtype))
+        (arr,) = _landing_arrays([ph])
         expected = arr.numel() * arr.element_size()
         if nbytes != expected:
             raise ValueError(
                 f"array {i}: payload {nbytes} bytes != expected {expected}"
             )
-        view = memoryview(_tensor_bytes(arr))
-        read_into = stream.readinto if hasattr(stream, "readinto") else None
-        off = 0
-        while off < nbytes:
-            if read_into is not None:
-                n = read_into(view[off:])
-                if not n:
-                    raise EOFError("truncated checkpoint stream")
-            else:
-                chunk = stream.read(min(1 << 20, nbytes - off))
-                if not chunk:
-                    raise EOFError("truncated checkpoint stream")
-                view[off : off + len(chunk)] = chunk
-                n = len(chunk)
-            off += n
+        with obs_span("heal::recv_read"):
+            read_into(stream, memoryview(_tensor_bytes(arr)))
         arrays.append(arr if leaf_hook is None else leaf_hook(arr))
 
     return _restore_arrays(skeleton, arrays)
+
+
+class StreamLanding:
+    """The serialized stream landed in place from byte ranges read in any
+    order, on any threads: the header parsed once, every array allocated
+    once, and each range read straight into where its bytes belong (the
+    header's copy, a leaf's 8-byte length, a leaf's payload).  Parallel
+    range fetches of one heal so land in the arrays the state comes back
+    in, with no buffer of the whole stream and no second copy."""
+
+    def __init__(self, header: bytes) -> None:
+        stream = io.BytesIO(header)
+        self._skeleton, placeholders = _read_header(stream)
+        if stream.tell() != len(header):
+            raise ValueError("checkpoint header has trailing bytes")
+        self._header = header
+        self.arrays = _landing_arrays(placeholders)
+        self._header_copy = bytearray(len(header))
+        self._lengths = [bytearray(8) for _ in self.arrays]
+        self._segments: List[Tuple[int, memoryview]] = [(0, memoryview(self._header_copy))]
+        off = len(header)
+        for length, arr in zip(self._lengths, self.arrays):
+            self._segments.append((off, memoryview(length)))
+            off += 8
+            if arr.numel():
+                self._segments.append((off, memoryview(_tensor_bytes(arr))))
+                off += arr.numel() * arr.element_size()
+        self._starts = [start for start, _ in self._segments]
+        self.total_len = off
+
+    def read_range(self, stream: BinaryIO, start: int, stop: int) -> None:
+        """Bytes [start, stop) of the serialized stream from ``stream``."""
+        if not 0 <= start <= stop <= self.total_len:
+            raise ValueError(f"bad range [{start}, {stop}) of {self.total_len}")
+        i = bisect.bisect_right(self._starts, start) - 1
+        off = start
+        while off < stop:
+            seg_start, view = self._segments[i]
+            hi = min(len(view), stop - seg_start)
+            read_into(stream, view[off - seg_start : hi])
+            off = seg_start + hi
+            i += 1
+
+    def finish(self, leaf_hook: Any = None) -> Any:
+        """The state, once every byte of the stream has landed: checks the
+        header's copy and each leaf's length, maps each leaf through
+        ``leaf_hook`` as :func:`load_pytree` does."""
+        if bytes(self._header_copy) != self._header:
+            raise ValueError("the ranges of the stream carry another header")
+        arrays: List[Any] = []
+        for i, (length, arr) in enumerate(zip(self._lengths, self.arrays)):
+            (nbytes,) = struct.unpack("<Q", length)
+            expected = arr.numel() * arr.element_size()
+            if nbytes != expected:
+                raise ValueError(f"array {i}: payload {nbytes} bytes != expected {expected}")
+            arrays.append(arr if leaf_hook is None else leaf_hook(arr))
+        return _restore_arrays(self._skeleton, arrays)
 
 
 def array_chunk_ranges(

@@ -30,6 +30,7 @@ that runs anywhere; the same interface is implemented by the C++ runtime
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import mmap
 import os
@@ -45,7 +46,7 @@ import uuid
 from abc import ABC, abstractmethod
 from concurrent.futures import Future
 from enum import Enum
-from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -132,6 +133,36 @@ class PeerGoneError(CommunicatorError):
     stream and the whole epoch must be poisoned."""
 
 
+@contextlib.contextmanager
+def closing_parts(parts: Any) -> Any:
+    """``parts`` for a ``for`` loop, closed at its end (a generator of
+    staged chunks stops its copier there, however the loop ends)."""
+    try:
+        yield parts
+    finally:
+        close = getattr(parts, "close", None)
+        if close is not None:
+            close()
+
+
+def join_parts(parts: Any, nbytes: int) -> bytearray:
+    """A frame's ``(view, release)`` parts copied into one buffer, each
+    released once copied."""
+    out = bytearray(nbytes)
+    off = 0
+    with closing_parts(parts) as each:
+        for view, release in each:
+            n = len(view)
+            if off + n > nbytes:
+                raise CommunicatorError(f"frame parts carry more than {nbytes} bytes")
+            out[off : off + n] = view
+            release()
+            off += n
+    if off != nbytes:
+        raise CommunicatorError(f"frame parts carried {off} bytes, not {nbytes}")
+    return out
+
+
 class Communicator(ABC):
     """Abstract reconfigurable communicator (``process_group.py:131-399``)."""
 
@@ -191,6 +222,15 @@ class Communicator(ABC):
         """Zero-copy variant: receive one frame directly into ``out`` (a
         contiguous writable array); the Work's value is the payload size."""
         raise NotImplementedError
+
+    def send_frame_parts(self, parts: Any, nbytes: int, dst: int, tag: int = 0) -> Work:
+        """Send one frame of ``nbytes`` whose payload comes as ``parts``,
+        ``(view, release)`` pairs in order (a ``StagingRing``'s chunks):
+        each is ``release()``d once its bytes are written.  The frame on
+        the wire is :meth:`send_bytes`' of the joined payload.  This
+        default, for a communicator that cannot write a frame in pieces,
+        joins the parts into one host buffer and sends that."""
+        return self.send_bytes(join_parts(parts, nbytes), dst, tag)
 
     def heal_drain(
         self,
@@ -1528,6 +1568,45 @@ class _TcpMesh:
     def _check_abort(self) -> None:
         if self._aborted.is_set():
             raise CommunicatorAborted("communicator aborted")
+
+    def send_frame_stream(
+        self, dst: int, tag: int, nbytes: int, parts: Any, deadline: float
+    ) -> None:
+        """One frame of ``nbytes`` on the p2p lane, its payload written
+        as ``parts`` (``(view, release)`` pairs) arrive: the bytes on the
+        wire are :meth:`exchange`'s for the joined payload."""
+        key = (dst, self._lane_route(dst, self.p2p_lane))
+        sock = self.lane_socks[key]
+
+        def _send_all(view: memoryview) -> None:
+            while len(view):
+                self._check_abort()
+                if time.monotonic() > deadline:
+                    raise TimeoutError("send_frame_stream timed out")
+                _, writable, _ = select.select([], [sock], [], 0.1)
+                if not writable:
+                    continue
+                try:
+                    sent = sock.send(view)
+                except BlockingIOError:
+                    self.lane_stalls[key[1]] += 1
+                    continue
+                except OSError as e:
+                    raise PeerGoneError(f"send to rank {dst} failed: {e}") from e
+                self.lane_tx_bytes[key[1]] += sent
+                view = view[sent:]
+
+        _send_all(memoryview(_HDR.pack(nbytes, tag)))
+        sent = 0
+        with closing_parts(parts) as each:
+            for view, release in each:
+                view = memoryview(view).cast("B")
+                _send_all(view)
+                release()
+                sent += len(view)
+        if sent != nbytes:
+            raise CommunicatorError(f"frame parts carried {sent} bytes, not {nbytes}")
+        self._tx_seq[key] = self._tx_seq.get(key, 0) + 1
 
     def recv_dynamic_into(
         self, src: int, tag: int, view: memoryview, deadline: float
@@ -3157,6 +3236,26 @@ class TCPCommunicator(Communicator):
 
         return self._submit(_make, peer_fail_stop=True)
 
+    def send_frame_parts(self, parts, nbytes: int, dst: int, tag: int = 0) -> Work:
+        """One frame written as its parts arrive, in one op on the p2p
+        lane (:meth:`_TcpMesh.send_frame_stream`).  Under the link
+        emulator or a fault program the parts are joined and sent as one
+        frame, so pacing and injected faults apply as to any frame."""
+
+        def _make(ctx: "_CommCtx") -> Callable[[], object]:
+            def _run() -> object:
+                mesh = ctx.require_peer(dst)
+                if mesh._emu is None and mesh.faults is None:
+                    mesh.send_frame_stream(dst, tag, nbytes, parts, ctx.deadline())
+                else:
+                    mesh.exchange([(dst, tag, memoryview(join_parts(parts, nbytes)))], [],
+                                  ctx.deadline(), lane=mesh.p2p_lane)
+                return nbytes
+
+            return _run
+
+        return self._submit(_make, peer_fail_stop=True)
+
     def recv_bytes(self, src: int, tag: int = 0) -> Work:
         """Receive one frame from ``src``; the size rides in the frame header
         so this pairs directly with :meth:`send_bytes` of any length."""
@@ -3893,6 +3992,9 @@ class FakeCommunicatorWrapper(Communicator):
     def send_bytes(self, data: bytes, dst: int, tag: int = 0) -> Work:
         return self._wrap(self._comm.send_bytes(data, dst, tag))
 
+    def send_frame_parts(self, parts, nbytes: int, dst: int, tag: int = 0) -> Work:
+        return self._wrap(self._comm.send_frame_parts(parts, nbytes, dst, tag))
+
     def recv_bytes(self, src: int, tag: int = 0) -> Work:
         return self._wrap(self._comm.recv_bytes(src, tag))
 
@@ -3981,6 +4083,9 @@ class ManagedCommunicator(Communicator):
 
     def send_bytes(self, data: bytes, dst: int, tag: int = 0) -> Work:
         return self._manager._comm.send_bytes(data, dst, tag)
+
+    def send_frame_parts(self, parts, nbytes: int, dst: int, tag: int = 0) -> Work:
+        return self._manager._comm.send_frame_parts(parts, nbytes, dst, tag)
 
     def recv_bytes(self, src: int, tag: int = 0) -> Work:
         return self._manager._comm.recv_bytes(src, tag)

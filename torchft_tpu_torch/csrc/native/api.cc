@@ -169,6 +169,14 @@ int tpuft_comm_send(void* h, const void* data, uint64_t nbytes, int64_t dst,
   return guarded([&] { comm->send(data, nbytes, dst, tag); });
 }
 
+int tpuft_comm_send_part(void* h, const void* data, uint64_t nbytes,
+                         int64_t dst, uint64_t tag, uint64_t total,
+                         int first) {
+  auto* comm = static_cast<tpuft::Communicator*>(h);
+  return guarded(
+      [&] { comm->send_part(data, nbytes, dst, tag, total, first != 0); });
+}
+
 int tpuft_comm_recv_alloc(void* h, int64_t src, uint64_t tag, uint8_t** out,
                           uint64_t* out_n) {
   auto* comm = static_cast<tpuft::Communicator*>(h);

@@ -1284,6 +1284,21 @@ class Communicator {
                     std::move(payload), nbytes, deadline, io->lanes - 1);
   }
 
+  // one frame written in parts on the p2p lane: the part with ``first``
+  // writes the frame's header (``total`` payload bytes, ``tag``) ahead of
+  // its bytes, every later part its bytes alone.  The wire is send()'s; the
+  // caller keeps the parts of one frame in one op, so nothing interleaves
+  void send_part(const void* data, size_t nbytes, int64_t dst, uint64_t tag,
+                 size_t total, bool first) {
+    IoPtr io = io_snapshot();
+    auto deadline = deadline_in(timeout_s_);
+    std::vector<struct iovec> payload;
+    if (nbytes)
+      payload.push_back({const_cast<void*>(data), nbytes});
+    send_framed_iov(*io, peer_fd(dst, io->lanes - 1), dst, tag,
+                    std::move(payload), total, deadline, io->lanes - 1, first);
+  }
+
   // zero-copy: receive one frame directly into a caller buffer; returns
   // the payload size (must be <= cap)
   size_t recv_into(int64_t src, uint64_t tag, void* buf, size_t cap) {
@@ -1428,13 +1443,16 @@ class Communicator {
 
   void send_framed_iov(EpochIO& io, int fd, int64_t peer, uint64_t tag,
                        std::vector<struct iovec> payload, size_t nbytes,
-                       TimePoint deadline, size_t lane) {
-    io.gate();
+                       TimePoint deadline, size_t lane, bool header = true) {
     uint64_t hdr[2] = {nbytes, tag};
-    payload.insert(payload.begin(), {hdr, sizeof(hdr)});
+    size_t hdr_left = 0;
+    if (header) {
+      io.gate();
+      payload.insert(payload.begin(), {hdr, sizeof(hdr)});
+      hdr_left = sizeof(hdr);
+    }
     IovCursor cursor(std::move(payload));
     struct iovec batch[kMaxIovSegs + 1];
-    size_t hdr_left = sizeof(hdr);
     while (cursor.remaining() > 0) {
       check_abort();
       if (now() > deadline) throw CommError("send timed out");

@@ -305,9 +305,14 @@ class Manager:
         )
 
         if checkpoint_transport is None:
-            from torchft_tpu_torch.checkpointing.http_transport import HTTPTransport
+            from torchft_tpu_torch.checkpointing.http_transport import (
+                HEAL_NUM_CHUNKS,
+                HTTPTransport,
+            )
 
-            checkpoint_transport = HTTPTransport(timeout=self._timeout)
+            checkpoint_transport = HTTPTransport(
+                timeout=self._timeout, num_chunks=HEAL_NUM_CHUNKS
+            )
         self._checkpoint_transport: CheckpointTransport = checkpoint_transport
 
         self._own_store: Optional[StoreServer] = None
@@ -1243,7 +1248,7 @@ class Manager:
         self._logger.info("applying pending state dict")
         assert self._load_state_dict_fns, "user load_state_dict is not initialized"
         pending_user = cast(Dict[str, object], pending_state_dict["user"])
-        with self._state_dict_lock.w_lock():
+        with self._state_dict_lock.w_lock(), obs_span("manager::heal_apply", step=self._step):
             for key, load_fn in self._load_state_dict_fns.items():
                 load_fn(pending_user[key])
             self._pending_state_dict = None

@@ -55,6 +55,7 @@ from torchft_tpu_torch.communicator import (
     CommunicatorError,
     ReduceOp,
     _avg_in_place,
+    closing_parts,
 )
 from torchft_tpu_torch.futures import TimerHandle, schedule_timeout
 from torchft_tpu_torch.obs.flight import FlightEvent, FlightRecorder
@@ -236,6 +237,15 @@ def _load() -> Optional[ctypes.CDLL]:
             ctypes.c_uint64,
             ctypes.c_int64,
             ctypes.c_uint64,
+        ]
+        lib.tpuft_comm_send_part.argtypes = [
+            ctypes.c_void_p,
+            ctypes.c_void_p,
+            ctypes.c_uint64,
+            ctypes.c_int64,
+            ctypes.c_uint64,
+            ctypes.c_uint64,
+            ctypes.c_int,
         ]
         lib.tpuft_comm_recv_alloc.argtypes = [
             ctypes.c_void_p,
@@ -1005,6 +1015,32 @@ class CppCommunicator(Communicator):
                 self._lib.tpuft_comm_send(self._h, ptr, nbytes, dst, tag),
                 "send",
             )
+            return nbytes
+
+        return self._submit(_run)
+
+    def send_frame_parts(self, parts, nbytes: int, dst: int, tag: int = 0) -> Work:
+        """One frame of ``nbytes`` written as its parts arrive (see
+        :meth:`Communicator.send_frame_parts`), in one op: the first part
+        carries the frame's header, the rest their bytes alone."""
+
+        def _run() -> object:
+            sent, first = 0, True
+            with closing_parts(parts) as each:
+                for view, release in each:
+                    ptr, n, _keep = _buffer_ptr(view)
+                    self._check(
+                        self._lib.tpuft_comm_send_part(
+                            self._h, ptr, n, dst, tag, nbytes, int(first)),
+                        "send",
+                    )
+                    release()
+                    sent, first = sent + n, False
+            if first:  # an empty payload: the header alone
+                self._check(
+                    self._lib.tpuft_comm_send_part(self._h, None, 0, dst, tag, nbytes, 1), "send")
+            if sent != nbytes:
+                raise CommunicatorError(f"frame parts carried {sent} bytes, not {nbytes}")
             return nbytes
 
         return self._submit(_run)

@@ -32,7 +32,7 @@ from __future__ import annotations
 import json
 import threading
 import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import collections
 
@@ -136,6 +136,24 @@ def snapshot() -> List[Dict[str, Any]]:
         if attrs:
             rec["attrs"] = attrs
         out.append(rec)
+    return out
+
+
+# the heal's spans (manager::heal_send / heal_recv / heal_apply and the
+# transports' heal::*), which a worker process reports as totals
+HEAL_PREFIXES = ("manager::heal_", "heal::")
+# the buffer of a worker process that records spans: room for a few steps'
+# collectives after its heal
+WORKER_CAP = 1 << 18
+
+
+def totals(prefixes: Tuple[str, ...] = ()) -> Dict[str, float]:
+    """Seconds summed per span name over the collected spans (summed over
+    threads), those whose name starts with one of ``prefixes`` if given."""
+    out: Dict[str, float] = {}
+    for name, _t0, dur, _tid, _attrs in list(_spans):
+        if not prefixes or name.startswith(prefixes):
+            out[name] = out.get(name, 0.0) + dur
     return out
 
 

@@ -70,6 +70,7 @@ from torchft_tpu_torch.manager import Manager
 from torchft_tpu_torch.models.cnn import SimpleCNN
 from torchft_tpu_torch.models.llama import Llama, LlamaConfig, llama3_8b, llama3_70b, llama_debug
 from torchft_tpu_torch.models.llama_moe import LlamaMoE, LlamaMoEConfig
+from torchft_tpu_torch.obs import spans
 from torchft_tpu_torch.obs.spans import device_fence
 from torchft_tpu_torch.observability import HealMetrics
 from torchft_tpu_torch.ops import avg as avg_ops
@@ -496,6 +497,8 @@ def main(argv: Optional[List[str]] = None) -> None:
                         help="seconds to sleep before each step (paces chaos-test scenarios)")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
+    if spans.spans_enabled():  # TORCHFT_FLIGHT_SPANS=1: FINAL carries the heal's split
+        spans.configure(True, cap=spans.WORKER_CAP)
 
     device = resolve_device(args.device)
     cfg = model_config(args.model, args.layers)
@@ -546,6 +549,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     if heal is not None:
         final["heal_s"] = f"{heal.duration_s:.3f}"
         final["heal_bytes"] = str(heal.bytes_total)
+    if spans.spans_enabled():
+        final["heal_split"] = _compact(spans.totals(spans.HEAL_PREFIXES))
     final["state_bytes"] = str(sum(plan_pytree(save()).leaf_nbytes))
     final["launches"] = _compact(_launches())
     final["peak_device_gb"] = _peak_device_gb(device)

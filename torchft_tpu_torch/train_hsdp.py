@@ -165,8 +165,12 @@ def _rank_main(spec: RankSpec) -> None:
     from torchft_tpu_torch.parallel.hsdp import HSDPTrainer, adamw
     from torchft_tpu_torch.parallel.mesh import make_mesh
     from torchft_tpu_torch.tier import make_communicator, manager_server_cls
+    from torchft_tpu_torch.obs import spans
     from torchft_tpu_torch.obs.spans import device_fence
     from torchft_tpu_torch.train_ddp import heal_transport_for, resolve_device, synthetic_batches
+
+    if spans.spans_enabled():  # TORCHFT_FLIGHT_SPANS=1: the result carries the heal's split
+        spans.configure(True, cap=spans.WORKER_CAP)
 
     device = resolve_device(spec.device)
     if device.type == "cuda":
@@ -312,6 +316,8 @@ def _rank_main(spec: RankSpec) -> None:
             stolen_chunks=heal.stolen_chunks),
         heal_source_killed=source_killed is not None and source_killed.is_set(),
         heal_transport=spec.heal_transport,
+        # seconds in each heal span (obs.spans), None with spans off
+        heal_split_s=spans.totals(spans.HEAL_PREFIXES) if spans.spans_enabled() else None,
         state_bytes=state_bytes,
         last_quorum_timings=dict(manager.last_quorum_timings),
         planes=dict(
