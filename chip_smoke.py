@@ -93,16 +93,22 @@ built.  It then builds the port's CUDA kernels from
    communicator, and every flash kernel and the avg kernel must have
    launched;
 6. quantized train phases — the same fleet with ``should_quantize=True``
-   (int8 wire), on the C++ tier and on the Python tier
-   (``train_quantized_python``, driven again): gradients quantized on the
-   card, the windowed quantized pipeline with its per-window reduce on the
-   card, the reduced stream dequantized and divided on the card; both heal
-   over HTTP, so one run holds both transports to the same state.  The
-   same checks, and the quantize, reduce, dequantize and avg kernels must
-   have launched.  Every train phase's heal must move the replica's whole state:
-   over the communicator exactly its array payload bytes, over HTTP those
-   and its stream's framing; and each sync's final hash must be
-   :data:`EXPECTED_SHA256`'s (a heal is bit-exact, whatever carries it).
+   (int8 wire) and three replica groups (:data:`TRAIN_REPLICAS`), on the
+   C++ tier and on the Python tier (``train_quantized_python``, driven
+   again): gradients quantized on the card, the windowed quantized pipeline
+   with its per-window reduce on the card, the reduced stream dequantized
+   and divided on the card; both heal over HTTP, so one run holds both
+   transports to the same state.  On the Python tier replica 1 heals
+   striped from replicas 0 and 2 (the heal of every fleet of three or more
+   groups); the C++ sidecar advertises one source.  The same checks, and
+   the quantize, reduce, dequantize and avg kernels must have launched.
+   Every train phase's heal must move the replica's whole state: over the
+   communicator exactly its array payload bytes, over HTTP those and its
+   stream's framing; it must come from :data:`TRAIN_HEAL_SOURCES`'s number
+   of sources, each serving bytes, together the heal's, none failed and no
+   chunk stolen; and each sync's final hash must be
+   :data:`EXPECTED_SHA256`'s (a heal is bit-exact, whatever carries it), on
+   every group and both tiers.
 
 7. DiLoCo and LocalSGD phases, every plane on the C++ tier, at the same
    width, depth, batch and sequence, 2 replicas, inner AdamW, outer
@@ -344,15 +350,25 @@ TRAIN_PHASES = (
 # compares both transports on the same state
 TRAIN_HEAL_TRANSPORT = {"train_cpp": "comm", "train_python": "comm",
                         "train_quantized_cpp": "http", "train_quantized_python": "http"}
+# replica groups of each train phase, and the sources replica 1's heal
+# takes: the int8 phases train three groups, so on the Python tier the
+# killed one heals striped from the two others (every up-to-date group is
+# a source, manager_server.py); the C++ sidecar advertises one source in
+# both packages.  The float phases keep two groups
+TRAIN_REPLICAS = {"train_cpp": 2, "train_python": 2,
+                  "train_quantized_cpp": 3, "train_quantized_python": 3}
+TRAIN_HEAL_SOURCES = {"train_cpp": 1, "train_python": 1,
+                      "train_quantized_cpp": 1, "train_quantized_python": 2}
 HSDP_HEAL_TRANSPORT = "comm"
 # the final parameter sha256 of each DDP sync and of hsdp_cpp, as every
 # earlier run of this script at STEPS gave them (PERF.md): a heal is
 # bit-exact, whatever carries it, so any change is a fault.  At 4 steps
 # (before the fleet phases joined) they were c894c076..., fd116fce... and
-# 8dcd35ec...
+# 8dcd35ec...; the int8 sync's at two groups (before it trained three)
+# 54b70f3a5945b0df771ee59fdafd37d5c0d9c769f0743275e0ad5ba312851c48
 EXPECTED_SHA256 = {
     "float": "963bb6894370d0036e34d8acafa3d7be5566419a0f4df4f417fb575dff1ec943",
-    "quantized": "54b70f3a5945b0df771ee59fdafd37d5c0d9c769f0743275e0ad5ba312851c48",
+    "quantized": "73db8d6fcbaeab71498209bdd191c77af9d80680e10d62106b4d005fe58fa794",
     "hsdp": "c93b8cb0340484ee02a44812d83efbfe5d5653893648b8deb6cf008a6d426bbc",
 }
 PLANES = {
@@ -523,7 +539,7 @@ PIPE_TIMED_STEPS = 3
 MOE_LAYERS = 1
 MOE_PHASE = dict(groups=2, fsdp=1, tp=1, ep=1, steps=3, batch=1, seq=2048, lr=1e-4)
 SPAN_CAP = 200_000  # the quantized phase records ~1,400 comm ops a step
-LAYERS = 2  # Llama-3-8B depth cut from 32 so two replicas fit one card
+LAYERS = 2  # Llama-3-8B depth cut from 32 so the replicas (2, or 3 int8) fit one card
 # Every kernel of the main path: its CUDA source, and the ``def`` of the
 # Pallas TPU kernel it replaces (file:line in the JAX package).
 KERNELS = {
@@ -1703,6 +1719,25 @@ def split_line(split: dict | None) -> str:
     return json.dumps({k: round(v, 3) for k, v in (split or {}).items() if v})
 
 
+def check_heal_sources(heal, sources: int, where: str) -> None:
+    """A heal took ``sources`` sources, each serving bytes, together
+    exactly the heal's, with no source failed and no chunk stolen."""
+    if heal is None:
+        raise AssertionError(f"{where} restarted but recorded no heal")
+    served = heal.per_source_bytes
+    if heal.num_sources != sources or len(served) != sources:
+        raise AssertionError(f"{where} healed from {heal.num_sources} sources ({served}), "
+                             f"not {sources}")
+    if any(n <= 0 for n in served.values()):
+        raise AssertionError(f"{where}: a heal source served no bytes ({served})")
+    if sum(served.values()) != heal.bytes_total:
+        raise AssertionError(f"{where}: the sources served {sum(served.values())} bytes, the "
+                             f"heal moved {heal.bytes_total}")
+    if heal.failed_sources or heal.stolen_chunks:
+        raise AssertionError(f"{where}: heal sources {heal.failed_sources} failed, "
+                             f"{heal.stolen_chunks} chunks stolen")
+
+
 def check_expected_hashes(hashes: dict) -> None:
     """Each final parameter sha256 against :data:`EXPECTED_SHA256`."""
     for key, sha in hashes.items():
@@ -1712,13 +1747,15 @@ def check_expected_hashes(hashes: dict) -> None:
 
 
 def train_phase(train_ddp, fa, qk, avg, spans, card: str, should_quantize: bool, tier: str,
-                heal_transport: str, make_comm=None, planes: dict | None = None) -> dict:
-    """The port's main path: 2 replica threads at Llama-3-8B width with a
-    kill and heal over ``heal_transport``, averaging gradients in f32/bf16
-    or through the int8 quantized wire, every plane on ``tier``; the launch
-    counts and the spans cover exactly this run.  ``make_comm`` replaces
-    each incarnation's communicator (``run_fleet``'s), and ``planes`` the
-    plane classes every replica must have run (default: ``tier``'s)."""
+                heal_transport: str, make_comm=None, planes: dict | None = None,
+                replicas: int = 2, sources: int = 1) -> dict:
+    """The port's main path: ``replicas`` replica threads at Llama-3-8B
+    width with a kill of replica 1 and its heal from ``sources`` sources
+    over ``heal_transport``, averaging gradients in f32/bf16 or through the
+    int8 quantized wire, every plane on ``tier``; the launch counts and the
+    spans cover exactly this run.  ``make_comm`` replaces each
+    incarnation's communicator (``run_fleet``'s), and ``planes`` the plane
+    classes every replica must have run (default: ``tier``'s)."""
     steps, layers = STEPS, LAYERS
     cfg = train_ddp.model_config("llama3_8b", layers)
     device = torch.device("cuda")
@@ -1732,11 +1769,12 @@ def train_phase(train_ddp, fa, qk, avg, spans, card: str, should_quantize: bool,
     qk.reset_launches()
     avg.reset_launches()
     t0 = time.perf_counter()
-    results = train_ddp.run_fleet(
-        cfg, device, replicas=2, steps=steps, batch=1, seq=2048, kill_at=(1, 2),
-        should_quantize=should_quantize, tier=tier, heal_transport=heal_transport,
-        make_comm=make_comm,
-    )
+    with HostRss() as rss:
+        results = train_ddp.run_fleet(
+            cfg, device, replicas=replicas, steps=steps, batch=1, seq=2048, kill_at=(1, 2),
+            should_quantize=should_quantize, tier=tier, heal_transport=heal_transport,
+            make_comm=make_comm,
+        )
     wall_s = time.perf_counter() - t0
     launches = {**fa.launches, **qk.launches, **avg.launches}
     recorded = spans.snapshot()
@@ -1746,14 +1784,16 @@ def train_phase(train_ddp, fa, qk, avg, spans, card: str, should_quantize: bool,
             raise AssertionError(f"replica {i}: non-finite loss in {r.losses}")
         if r.final_step != steps:
             raise AssertionError(f"replica {i} ended at step {r.final_step}, not {steps}")
-    if results[1].restarts != 1:
-        raise AssertionError(f"replica 1 restarted {results[1].restarts} times, expected 1")
+    restarts = [r.restarts for r in results]
+    if restarts != [int(i == 1) for i in range(replicas)]:
+        raise AssertionError(f"restarts {restarts}: replica 1 must restart once, no other")
     for i, r in enumerate(results):
         if r.planes != (planes or PLANES[tier]):
             raise AssertionError(f"replica {i} ran {r.planes}, not {planes or PLANES[tier]}")
     heal = results[1].heal
     check_heal(None if heal is None else heal.bytes_total, results[1].state_bytes, heal_transport,
                "replica 1")
+    check_heal_sources(heal, sources, "replica 1")
     shas = {r.params_sha256 for r in results}
     if len(shas) != 1:
         raise AssertionError(f"replicas diverged: parameter sha256 {shas}")
@@ -1802,13 +1842,17 @@ def train_phase(train_ddp, fa, qk, avg, spans, card: str, should_quantize: bool,
         },
         # per steady iteration, what no span covers outside compute
         unspanned_ms_median_last3=unspanned[len(unspanned) // 2] * 1e3,
+        replicas=replicas,
         heal=dict(seconds=heal.duration_s, bytes=heal.bytes_total, sources=heal.num_sources,
+                  per_source_bytes=list(heal.per_source_bytes.values()),
                   gb_per_s=heal.bytes_per_sec / 1e9, transport=heal_transport,
                   state_bytes=results[1].state_bytes),
         # seconds per replica over the phase in each heal span
         heal_split_s=heal_split(recorded, len(results)),
         tokens_per_s_per_replica=2048 / step_s,
         max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+        peak_host_rss_gb=rss.peak_bytes / 1e9,
+        start_host_rss_gb=rss.start_bytes / 1e9,
         wall_s=wall_s,
         launches=launches,
     )
@@ -3181,18 +3225,23 @@ def main() -> int:
     spans.configure(True, cap=SPAN_CAP)
     for key, quantized, tier in TRAIN_PHASES:
         results[key] = train_phase(train_ddp, fa, qk, avg, spans, card, quantized, tier,
-                                   TRAIN_HEAL_TRANSPORT[key])
+                                   replicas=TRAIN_REPLICAS[key], sources=TRAIN_HEAL_SOURCES[key],
+                                   heal_transport=TRAIN_HEAL_TRANSPORT[key])
         print(f"{key}: {json.dumps(results[key])}", flush=True)
         t = results[key]
         h = t["heal"]
-        print(f"{key} ({tier} tier, {t['sync']}): step {t['step_ms_median_last3']:.1f} ms, "
+        print(f"{key} ({tier} tier, {t['sync']}, {t['replicas']} groups): step "
+              f"{t['step_ms_median_last3']:.1f} ms, "
               f"phases {json.dumps(t['phase_ms_median_last3'])}, commit split (ms per replica) "
               f"{json.dumps(t['commit_split_ms_median_last3'])}, host tail (ms per replica) "
               f"{json.dumps(t['host_split_ms_median_last3'])}, in no span "
-              f"{t['unspanned_ms_median_last3']:.1f} ms; heal over {h['transport']} "
+              f"{t['unspanned_ms_median_last3']:.1f} ms; heal over {h['transport']} from "
+              f"{h['sources']} source(s), bytes per source {h['per_source_bytes']}, "
               f"{h['seconds']:.3f} s for {h['bytes']} bytes ({h['gb_per_s']:.3f} GB/s; state "
               f"{h['state_bytes']} bytes), heal split (s per replica) "
-              f"{split_line(t['heal_split_s'])}; wall {t['wall_s']:.1f} s", flush=True)
+              f"{split_line(t['heal_split_s'])}; peak device {t['max_memory_allocated_gb']:.2f} "
+              f"GB, peak host RSS {t['peak_host_rss_gb']:.1f} GB (at its start "
+              f"{t['start_host_rss_gb']:.1f}); wall {t['wall_s']:.1f} s", flush=True)
     results["baby_cpp"] = t = baby_phase(train_ddp, baby, fa, qk, avg, spans, card)
     print(f"baby_cpp: {json.dumps(t)}", flush=True)
     ref = results["train_cpp"]

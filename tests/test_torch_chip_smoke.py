@@ -579,10 +579,74 @@ def test_heal_check_needs_the_whole_state(chip_smoke, transport, nbytes, match) 
         chip_smoke.check_heal(nbytes, 100, transport, "r")
 
 
+def test_int8_phases_train_three_groups_and_heal_striped_on_the_python_tier(chip_smoke) -> None:
+    """The int8 phases train three groups, so the Python tier's kill heals
+    from the two others; the C++ sidecar advertises one source; the float
+    phases keep two groups and one source; the main loop passes both."""
+    keys = {key for key, _, _ in chip_smoke.TRAIN_PHASES}
+    assert set(chip_smoke.TRAIN_REPLICAS) == set(chip_smoke.TRAIN_HEAL_SOURCES) == keys
+    for key, quantized, _tier in chip_smoke.TRAIN_PHASES:
+        assert chip_smoke.TRAIN_REPLICAS[key] == (3 if quantized else 2)
+    assert chip_smoke.TRAIN_HEAL_SOURCES == {"train_cpp": 1, "train_python": 1,
+                                             "train_quantized_cpp": 1,
+                                             "train_quantized_python": 2}
+    source = (REPO / "chip_smoke.py").read_text()
+    assert "replicas=TRAIN_REPLICAS[key]" in source and "sources=TRAIN_HEAL_SOURCES[key]" in source
+    assert "check_heal_sources(heal, sources" in source
+
+
+def _heal(**change):
+    from torchft_tpu_torch.observability import HealMetrics
+
+    return HealMetrics(**{**dict(num_sources=2, bytes_total=100,
+                                 per_source_bytes={"a": 60, "b": 40}), **change})
+
+
+@pytest.mark.parametrize("change, sources, match", [
+    ({}, 1, "from 2 sources"),
+    (dict(num_sources=1, per_source_bytes={"a": 100}), 2, "from 1 sources"),
+    (dict(per_source_bytes={"a": 100}), 2, "from 2 sources"),
+    (dict(per_source_bytes={"a": 100, "b": 0}), 2, "served no bytes"),
+    (dict(per_source_bytes={"a": 60, "b": 39}), 2, "the sources served 99 bytes"),
+    (dict(failed_sources=["b"]), 2, "failed"),
+    (dict(stolen_chunks=1), 2, "1 chunks stolen"),
+], ids=["too_many", "too_few", "one_served", "zero_bytes", "short_sum", "failed", "stolen"])
+def test_heal_source_check_raises_on_failure(chip_smoke, change, sources, match) -> None:
+    chip_smoke.check_heal_sources(_heal(), 2, "r")
+    chip_smoke.check_heal_sources(_heal(num_sources=1, per_source_bytes={"a": 100}), 1, "r")
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.check_heal_sources(_heal(**change), sources, "r")
+    with pytest.raises(AssertionError, match="recorded no heal"):
+        chip_smoke.check_heal_sources(None, sources, "r")
+
+
+@pytest.mark.parametrize("key", ["train_quantized_cpp", "train_quantized_python"])
+def test_int8_phase_heal_checks_pass_on_a_cpu_fleet(chip_smoke, monkeypatch, key) -> None:
+    """The int8 phases' fleet on the CPU at ``llama_debug`` size, each with
+    its tier, group count and HTTP heal: replica 1's heal passes the
+    phase's checks (the whole state, from the phase's sources)."""
+    import torch
+
+    from torchft_tpu_torch import train_ddp
+
+    monkeypatch.setenv("TORCHFT_HEAL_CHUNK_MB", "0.0625")  # many chunks of a small state
+    tier = dict((k, t) for k, _, t in chip_smoke.TRAIN_PHASES)[key]
+    results = train_ddp.run_fleet(
+        train_ddp.model_config("llama_debug"), torch.device("cpu"),
+        replicas=chip_smoke.TRAIN_REPLICAS[key], steps=chip_smoke.STEPS, seq=64, batch=2,
+        lr=1e-3, kill_at=(1, 2), timeout=60.0, should_quantize=True, tier=tier,
+        heal_transport=chip_smoke.TRAIN_HEAL_TRANSPORT[key])
+    heal = results[1].heal
+    chip_smoke.check_heal(heal.bytes_total, results[1].state_bytes, "http", "replica 1")
+    chip_smoke.check_heal_sources(heal, chip_smoke.TRAIN_HEAL_SOURCES[key], "replica 1")
+    assert len({r.params_sha256 for r in results}) == 1
+
+
 def test_expected_hashes_are_held(chip_smoke) -> None:
-    """The card's hashes at 3 steps (c894c076, fd116fce, 8dcd35ec at 4)."""
+    """The card's hashes at 3 steps (c894c076, fd116fce, 8dcd35ec at 4; the
+    int8 sync at two groups 54b70f3a, at three 73db8d6f)."""
     expected = chip_smoke.EXPECTED_SHA256
-    assert expected["float"].startswith("963bb689") and expected["quantized"].startswith("54b70f3a")
+    assert expected["float"].startswith("963bb689") and expected["quantized"].startswith("73db8d6f")
     assert expected["hsdp"].startswith("c93b8cb0") and all(len(h) == 64 for h in expected.values())
     chip_smoke.check_expected_hashes(dict(expected))
     with pytest.raises(AssertionError, match="float: final parameter sha256"):

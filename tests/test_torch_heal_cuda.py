@@ -1,8 +1,9 @@
 """The heal's card path: a state on the card sent through the pinned
 staging rings, held bit for bit against the host path (the same state on
-the CPU) for ``HTTPTransport`` (``/full`` and the parallel chunks, each
-landing in place) and ``CommTransport`` (per-array frames written in parts,
-and a striped heal from two sources) on both tiers.
+the CPU) for ``HTTPTransport`` (``/full``, the parallel chunks, each
+landing in place, and a striped heal from two sources) and
+``CommTransport`` (per-array frames written in parts, and a striped heal
+from two sources) on both tiers.
 
 Marked ``cuda`` and skipped without a card.  It imports nothing of JAX, so
 it runs on the card's machine with::
@@ -107,6 +108,30 @@ def test_http_heal_of_a_card_state_is_the_host_paths(cuda_device, num_chunks) ->
             client.shutdown()
     assert _leaf_bytes(got["card"]) == _leaf_bytes(got["host"]) == _leaf_bytes(_state(cuda_device))
     assert got["card"]["params"]["mask"].dtype == torch.bool
+
+
+@pytest.mark.cuda
+def test_striped_http_heal_of_card_states_is_the_host_paths(cuda_device) -> None:
+    """Two sources staging the state on the card, healed striped (the
+    chunk index at 4 KiB, so ranges cross the ring's slots) into the
+    landing arrays: bit for bit the host path's single-source heal."""
+    host = HTTPTransport(timeout=60.0)
+    sources = [HTTPTransport(timeout=60.0, heal_chunk_bytes=4096) for _ in range(2)]
+    client = HTTPTransport(timeout=60.0)
+    try:
+        host.send_checkpoint([1], STEP, _state(torch.device("cpu")), 60.0)
+        for t in sources:
+            t.send_checkpoint([1], STEP, _state(cuda_device), 60.0)
+        want = client.recv_checkpoint(0, f"http://127.0.0.1:{host.port}", STEP, 60.0)
+        got = client.recv_checkpoint_striped(
+            [(i, f"http://127.0.0.1:{t.port}") for i, t in enumerate(sources)], STEP, 60.0)
+    finally:
+        for t in (host, client, *sources):
+            t.shutdown()
+    assert _leaf_bytes(got) == _leaf_bytes(want) == _leaf_bytes(_state(cuda_device))
+    m = client.last_heal_metrics
+    assert m.num_sources == 2 and sum(m.per_source_bytes.values()) == m.bytes_total
+    assert not m.failed_sources
 
 
 TIERS = {

@@ -21,6 +21,11 @@ on the card (``ring``; the slots are not pinned on the CPU).
   other's placeholder classes, a port ``HTTPTransport`` heals from a JAX
   one and a JAX one from a port one bit for bit, at ``num_chunks`` 0, 1, 3
   and 7.
+- A chunked heal of a small state (ROADMAP §C26): where the server's chunks
+  outnumber the stream's bytes, the last ones start past its end and carry
+  nothing.  A port healer at the Manager's ``HEAL_NUM_CHUNKS`` heals every
+  server chunk count either package serves (0, 1, 4, 7, 11, 12, 64) to the
+  JAX healer's result; at 12 a 50-byte stream's last chunk starts at 55.
 - The comm frames: per-array (written in parts) and striped, each the JAX
   package's, through writers held back on purpose (a frame's bytes are
   read only when its send is waited for; a stream's write sleeps before it
@@ -46,7 +51,7 @@ from torchft_tpu.checkpointing.http_transport import HTTPTransport as JaxHTTPTra
 from torchft_tpu_torch.checkpointing import comm_transport
 from torchft_tpu_torch.checkpointing import serialization as S
 from torchft_tpu_torch.checkpointing.comm_transport import CommTransport
-from torchft_tpu_torch.checkpointing.http_transport import HTTPTransport
+from torchft_tpu_torch.checkpointing.http_transport import HEAL_NUM_CHUNKS, HTTPTransport
 from torchft_tpu_torch.communicator import join_parts
 
 STEP = 5
@@ -276,6 +281,42 @@ def test_http_heals_across_the_packages_bit_for_bit(staging, mapped_skeletons, h
     assert got["torchft"] == state["torchft"]
     if healer == "port":
         assert got["params"]["w"].dtype == torch.bfloat16 and got["mask"].dtype == torch.bool
+
+
+def _small_state(kind: str) -> dict:
+    if kind == "step_only":
+        return {"torchft": {"step": STEP}}  # a 50-byte stream
+    rng = np.random.default_rng(3)
+    return {
+        "w": rng.standard_normal(7).astype(np.float32),
+        "h": rng.standard_normal(5).astype(ml_dtypes.bfloat16),
+        "mask": rng.random(3) < 0.5,
+        "torchft": {"step": STEP},
+    }
+
+
+@pytest.mark.parametrize("kind", ["step_only", "arrays"])
+@pytest.mark.parametrize("source", ["port", "jax"])
+@pytest.mark.parametrize("num_chunks", [0, 1, 4, 7, 11, 12, 64])
+def test_chunked_heal_of_a_small_state_is_the_jax_healers_c26(mapped_skeletons, num_chunks,
+                                                              source, kind) -> None:
+    state = _small_state(kind)
+    source_cls, source_state = ((HTTPTransport, _torch_state(state)) if source == "port"
+                                else (JaxHTTPTransport, state))
+    server, _ = _serve(source_cls, source_state, num_chunks)
+    healers = [HTTPTransport(timeout=30.0, num_chunks=HEAL_NUM_CHUNKS),
+               JaxHTTPTransport(timeout=30.0, num_chunks=HEAL_NUM_CHUNKS)]
+    try:
+        url = f"http://127.0.0.1:{server.port}"
+        got, want = (h.recv_checkpoint(0, url, STEP, 30.0) for h in healers)
+    finally:
+        server.shutdown()
+        for h in healers:
+            h.shutdown()
+    assert _leaf_bytes(got) == _leaf_bytes(want) == _leaf_bytes(state)
+    assert got["torchft"] == want["torchft"] == state["torchft"]
+    if kind == "arrays":
+        assert got["h"].dtype == torch.bfloat16 and got["mask"].dtype == torch.bool
 
 
 class _Deferred:

@@ -7,11 +7,12 @@ the tier ``tier.py`` resolves (the C++ tier wherever it builds).
 - A recovery run (replica 1 killed before step 2, restarted, healed from
   replica 0) ends with equal parameter hashes.
 - The same run in each package, from the converted JAX init on the same
-  batches, ends with allclose parameters: f32 and AdamW with optax's
-  defaults on both sides.  Three steps at lr 1e-3 move parameters by up to
-  3e-3; summation-order differences left at most 7e-6 between the packages
-  here, and the 1e-4 absolute tolerance leaves room for another CPU's
-  rounding while staying well below one step's movement.
+  batches, ends with allclose parameters (two groups; and three, group 1
+  killed before step 2 and healed striped from the two others): f32 and
+  AdamW with optax's defaults on both sides.  Three steps at lr 1e-3 move
+  parameters by up to 3e-3; summation-order differences left at most 7e-6
+  between the packages here, and the 1e-4 absolute tolerance leaves room
+  for another CPU's rounding while staying well below one step's movement.
 - The quantized gradient sync (``should_quantize=True``, int8 and fp8):
   a recovery run ends with equal parameter hashes and finite losses, and a
   2-replica quantized average of the same gradients in each package agrees
@@ -63,15 +64,19 @@ def test_fleet_ends_bit_identical(kill_at) -> None:
     assert results[0].restarts == 0
 
 
-def _jax_fleet(params0, cfg, steps, lr, batch, seq):
+def _jax_fleet(params0, cfg, steps, lr, batch, seq, groups=2, kill_at=None):
     """The JAX package's DDP loop (examples/train_ddp.py) on the port's
-    batches: two threads, one lighthouse."""
+    batches: ``groups`` threads, one lighthouse.  ``kill_at=(group, step)``
+    kills that group once before that step, as ``run_fleet`` does: its
+    manager shuts down and it starts over from ``params0`` with a new one,
+    which heals from the live groups."""
     lighthouse = JaxLighthouseServer(
-        bind="127.0.0.1:0", min_replicas=2, join_timeout_ms=100,
+        bind="127.0.0.1:0", min_replicas=groups, join_timeout_ms=100,
         quorum_tick_ms=20, heartbeat_timeout_ms=5000,
     )
     model = jllama.Llama(cfg)
     grad_fn = jax.jit(jax.value_and_grad(model.loss))
+    pending_kill = [kill_at]
 
     def replica(idx):
         batches = [
@@ -81,34 +86,50 @@ def _jax_fleet(params0, cfg, steps, lr, batch, seq):
             )
         ]
         tx = optax.adamw(lr, b1=0.9, b2=0.999, eps=1e-8, weight_decay=1e-4)
-        params = jax.tree_util.tree_map(jnp.asarray, params0)
-        holder = {"params": params, "opt_state": tx.init(params)}
-        manager = jmanager.Manager(
-            comm=JaxTCPCommunicator(timeout_s=30.0),
-            load_state_dict=holder.update,
-            state_dict=lambda: dict(holder),
-            min_replica_size=2,
-            replica_id=f"replica_{idx}",
-            lighthouse_addr=lighthouse.local_address(),
-            timeout=30.0, quorum_timeout=30.0, connect_timeout=30.0,
-        )
-        opt = JaxOptimizerWrapper(manager, tx)
-        try:
-            while manager.current_step() < steps:
-                tokens_targets = batches[manager.current_step() % len(batches)]
-                opt.start_step()
-                _, grads = grad_fn(holder["params"], tokens_targets)
-                opt.step(holder, ft_allreduce(manager, grads))
-            return jax.tree_util.tree_map(np.asarray, holder["params"])
-        finally:
-            manager.shutdown()
+        while True:
+            params = jax.tree_util.tree_map(jnp.asarray, params0)
+            holder = {"params": params, "opt_state": tx.init(params)}
+            manager = jmanager.Manager(
+                comm=JaxTCPCommunicator(timeout_s=30.0),
+                load_state_dict=holder.update,
+                state_dict=lambda holder=holder: dict(holder),
+                min_replica_size=groups,
+                replica_id=f"replica_{idx}",
+                lighthouse_addr=lighthouse.local_address(),
+                timeout=30.0, quorum_timeout=30.0, connect_timeout=30.0,
+            )
+            opt = JaxOptimizerWrapper(manager, tx)
+            try:
+                while manager.current_step() < steps:
+                    if pending_kill[0] == (idx, manager.current_step()):
+                        pending_kill[0] = None
+                        break
+                    tokens_targets = batches[manager.current_step() % len(batches)]
+                    opt.start_step()
+                    _, grads = grad_fn(holder["params"], tokens_targets)
+                    opt.step(holder, ft_allreduce(manager, grads))
+                else:
+                    return jax.tree_util.tree_map(np.asarray, holder["params"])
+            finally:
+                manager.shutdown()
 
     try:
-        with ThreadPoolExecutor(max_workers=2) as pool:
-            futures = [pool.submit(replica, i) for i in range(2)]
-            return [f.result(timeout=120) for f in futures]
+        with ThreadPoolExecutor(max_workers=groups) as pool:
+            futures = [pool.submit(replica, i) for i in range(groups)]
+            finals = [f.result(timeout=120) for f in futures]
     finally:
         lighthouse.shutdown()
+    assert pending_kill[0] is None, f"the kill at {kill_at} never fired"
+    return finals
+
+
+def _assert_allclose_to_jax(port_state, jax_params, cfg) -> None:
+    port_final = tllama.params_to_numpy(port_state, cfg.n_layers)
+    for (path, a), (_, b) in zip(
+        jax.tree_util.tree_leaves_with_path(jax_params),
+        jax.tree_util.tree_leaves_with_path(port_final),
+    ):
+        np.testing.assert_allclose(b, a, rtol=0, atol=1e-4, err_msg=str(path))
 
 
 def test_same_run_in_both_packages_ends_allclose() -> None:
@@ -124,11 +145,26 @@ def test_same_run_in_both_packages_ends_allclose() -> None:
     _check_fleet(results, steps)
     port_final = tllama.params_to_numpy(results[0].state, cfg.n_layers)
     assert not np.allclose(port_final["embed"], params0["embed"])  # it trained
-    for (path, a), (_, b) in zip(
-        jax.tree_util.tree_leaves_with_path(jax_final[0]),
-        jax.tree_util.tree_leaves_with_path(port_final),
-    ):
-        np.testing.assert_allclose(b, a, rtol=0, atol=1e-4, err_msg=str(path))
+    _assert_allclose_to_jax(results[0].state, jax_final[0], cfg)
+
+
+def test_three_groups_with_a_striped_heal_end_allclose_to_jax() -> None:
+    """Three groups, group 1 killed before step 2: on the Python tier of
+    each package it heals striped from groups 0 and 2 over HTTP, and the
+    fleets end allclose, as two groups do."""
+    cfg = jllama.llama_debug()
+    steps, lr, batch, seq = 3, 1e-3, 2, 128
+    params0 = jax.tree_util.tree_map(np.asarray, jllama.Llama(cfg).init(jax.random.PRNGKey(0)))
+    jax_final = _jax_fleet(params0, cfg, steps, lr, batch, seq, groups=3, kill_at=(1, 2))
+    results = train_ddp.run_fleet(
+        tllama.llama_debug(), CPU, replicas=3, steps=steps, seq=seq, batch=batch, lr=lr,
+        kill_at=(1, 2), init_state=tllama.params_from_jax(params0), timeout=30.0,
+        tier="python", heal_transport="http",
+    )
+    _check_fleet(results, steps)
+    assert results[1].restarts == 1 and results[1].heal.num_sources == 2
+    for got in jax_final:
+        _assert_allclose_to_jax(results[0].state, got, cfg)
 
 
 @pytest.mark.parametrize("kind", ["int8", "fp8"])

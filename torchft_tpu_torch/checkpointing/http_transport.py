@@ -16,13 +16,14 @@ analog, ``_serialization.py:14-39``).  Peak extra host RSS during a heal
 send is a ring per request, not 1-2× the model or a leaf.  Tensors are
 snapshotted on their device (``clone()``) at staging time, so the
 optimizer's in-place update can't change them while a peer is still
-fetching; a chunked fetch lands each range in place in the arrays of the
-received state (``serialization.StreamLanding``), which arrive as CPU
-tensors for the caller to ``copy_`` into its live tensors.
+fetching; a chunked or striped fetch lands each range in place in the
+arrays of the received state (``serialization.StreamLanding``), which
+arrive as CPU tensors for the caller to ``copy_`` into its live tensors.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import logging
 import os
@@ -30,9 +31,12 @@ import socket
 import threading
 import time
 from collections import deque
+from email.message import Message
+from http.client import HTTPConnection
 from io import BufferedWriter, RawIOBase
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Dict, List, Optional, Tuple, TypeVar
+from urllib.parse import urlsplit
 from urllib.request import urlopen
 
 from torchft_tpu_torch.checkpointing._rwlock import RWLock
@@ -40,11 +44,9 @@ from torchft_tpu_torch.checkpointing.serialization import (
     MAGIC,
     PytreePlan,
     StreamLanding,
-    ViewReader as _ViewReader,
     header_len_of,
     load_pytree,
     plan_pytree,
-    read_into,
 )
 from torchft_tpu_torch.checkpointing.transport import CheckpointTransport
 from torchft_tpu_torch.obs.spans import span as obs_span
@@ -111,7 +113,39 @@ class _ChaosWriter(RawIOBase):
         return self._inner.write(b)
 
 
-# _ViewReader moved to serialization.ViewReader (shared with CommTransport)
+def _fetch_header(base: str, timeout: float) -> Tuple[bytes, Message]:
+    """The stream's header from the server at ``base`` (its first
+    ``len(MAGIC) + 4`` bytes give its length, then the rest), and the
+    headers of the first response."""
+    prefix = len(MAGIC) + 4
+    with urlopen(f"{base}/range/0/{prefix}", timeout=timeout) as resp:
+        headers = resp.headers
+        head = resp.read()
+    with urlopen(f"{base}/range/{prefix}/{header_len_of(head)}", timeout=timeout) as resp:
+        return head + resp.read(), headers
+
+
+def _take_chunks(chunks: deque, workers: int) -> List[Tuple[int, int]]:
+    """Consecutive chunks off the front of a striped heal's queue, fetched
+    as one range: a ``1 / (2 * workers)`` share of what is left (guided
+    self-scheduling), so a heal makes few requests (each costs the
+    interpreter a request's parse on both ends) and its streams still end
+    together on the last single chunks."""
+    want = max(1, len(chunks) // (2 * workers))
+    jobs = [chunks.popleft()] if chunks else []
+    while chunks and len(jobs) < want and chunks[0][0] == jobs[-1][1]:
+        jobs.append(chunks.popleft())
+    return jobs
+
+
+def _landing(header: bytes, total_len: int) -> StreamLanding:
+    """A :class:`StreamLanding` for ``header``, which must describe the
+    ``total_len`` bytes the server says it serves."""
+    landing = StreamLanding(header)
+    if landing.total_len != total_len:
+        raise ValueError(f"checkpoint header describes {landing.total_len} bytes, the "
+                         f"server serves {total_len}")
+    return landing
 
 
 # the Manager's HTTPTransport serves its state in this many chunks and a
@@ -160,6 +194,10 @@ class HTTPTransport(CheckpointTransport[T]):
 
         class _Handler(BaseHTTPRequestHandler):
             protocol_version = "HTTP/1.1"
+            # a response's headers and its short body or tail would
+            # otherwise wait on Nagle for the healer's delayed ACK (~40 ms a
+            # small request on loopback: the index, the header's ranges)
+            disable_nagle_algorithm = True
 
             def log_message(self, fmt: str, *args: object) -> None:
                 logger.debug("http_transport: " + fmt, *args)
@@ -341,23 +379,20 @@ class HTTPTransport(CheckpointTransport[T]):
         # chunked mode: the header first (its first bytes give its length),
         # then the server's chunks fetched in parallel, each landing in
         # place in the state's arrays (serialization.StreamLanding)
-        prefix = len(MAGIC) + 4
-        with urlopen(f"{base}/range/0/{prefix}", timeout=timeout) as resp:
-            num_chunks = int(resp.headers.get("X-Num-Chunks", "1"))
-            total_len = int(resp.headers["X-Total-Len"])
-            head = resp.read()
-        with urlopen(f"{base}/range/{prefix}/{header_len_of(head)}", timeout=timeout) as resp:
-            landing = StreamLanding(head + resp.read())
-        if landing.total_len != total_len:
-            raise ValueError(f"checkpoint header describes {landing.total_len} bytes, the "
-                             f"server serves {total_len}")
+        header, headers = _fetch_header(base, timeout)
+        num_chunks = int(headers.get("X-Num-Chunks", "1"))
+        total_len = int(headers["X-Total-Len"])
+        landing = _landing(header, total_len)
         chunk_size = -(-total_len // max(1, num_chunks))
         done = [False] * num_chunks
         errors: List[BaseException] = []
 
         def _fetch(i: int) -> None:
             try:
-                start = i * chunk_size
+                # the server cuts its chunks so; where they outnumber the
+                # stream's bytes, the last ones start past its end and are
+                # empty, as the reference's slice of its buffer is
+                start = min(total_len, i * chunk_size)
                 stop = min(total_len, start + chunk_size)
                 with urlopen(f"{base}/{i}", timeout=timeout) as r, obs_span("heal::recv_read"):
                     landing.read_range(r, start, stop)
@@ -403,14 +438,21 @@ class HTTPTransport(CheckpointTransport[T]):
         leaf_hook=None,
     ) -> T:
         """Striped multi-source heal: fetch disjoint chunk ranges of the
-        serialized checkpoint from every source concurrently into one
-        preallocated buffer.
+        serialized checkpoint from every source concurrently, each landing in
+        place in the state's arrays (``serialization.StreamLanding``, as the
+        chunked single-source heal does): no buffer of the whole stream and
+        no second parse.
 
-        One worker per source pulls chunks from a shared queue (natural work
-        stealing: a fast source simply takes more chunks).  A source that
+        The chunk index and the header come from the first source that
+        answers both.  Workers, each on one kept-alive connection to its
+        source, the same number a source and at least ``HEAL_NUM_CHUNKS``
+        in all, then take shares of consecutive chunks off a shared queue,
+        one range request a share (:func:`_take_chunks`; natural work
+        stealing: a fast source simply takes more shares).  A source that
         errors or stalls past the per-request bound is declared dead, its
-        in-flight chunk is requeued for the survivors, and the heal degrades
-        all the way down to today's single-peer transfer before failing."""
+        workers stop, each in-flight share of it is requeued whole for the
+        survivors (which rewrite the whole range), and the heal degrades all
+        the way down to today's single-peer transfer before failing."""
         live = [(rank, meta) for rank, meta in sources if meta]
         if len(live) <= 1:
             return super().recv_checkpoint_striped(
@@ -421,61 +463,73 @@ class HTTPTransport(CheckpointTransport[T]):
         per_req_timeout = _heal_source_timeout(timeout)
         t0 = time.monotonic()
 
-        # chunk index from the first source that answers
         index: Optional[dict] = None
+        landing: Optional[StreamLanding] = None
         failed: List[str] = []
         for rank, meta in list(live):
             try:
-                with urlopen(
-                    f"{meta}/checkpoint/{step}/index", timeout=per_req_timeout
-                ) as resp:
+                base = f"{meta}/checkpoint/{step}"
+                with urlopen(f"{base}/index", timeout=per_req_timeout) as resp:
                     index = json.loads(resp.read())
+                header, _ = _fetch_header(base, per_req_timeout)
+                digest = index.get("header_digest")
+                if digest and hashlib.sha256(header).hexdigest() != digest:
+                    raise ValueError(f"source {meta} serves a header that is not its index's")
+                landing = _landing(header, int(index["total_len"]))
                 break
             except Exception as e:  # noqa: BLE001 — source-level failover
-                logger.warning("striped heal: index fetch from %s failed: %s", meta, e)
+                logger.warning("striped heal: index or header fetch from %s failed: %s", meta, e)
                 failed.append(meta)
                 live.remove((rank, meta))
-        if index is None:
+        if index is None or landing is None:
             raise ConnectionError(
-                f"striped heal: no source answered the chunk index ({failed})"
+                f"striped heal: no source answered the chunk index and header ({failed})"
             )
 
-        total_len = int(index["total_len"])
-        digest = index.get("header_digest")
+        total_len = landing.total_len
         chunks: deque = deque(tuple(c) for c in index["chunks"])
         num_chunks = len(chunks)
-        with obs_span("heal::recv_land"):
-            buf = bytearray(total_len)
-        view = memoryview(buf)
 
         lock = threading.Lock()
         state = {"done": 0, "stolen": 0}
         per_source_bytes: Dict[str, int] = {meta: 0 for _, meta in live}
         errors: List[BaseException] = []
+        dead: set = set()
+        # at least as many streams as a chunked heal opens (HEAL_NUM_CHUNKS),
+        # the same number from each source
+        streams = [meta for _, meta in live] * -(-HEAL_NUM_CHUNKS // len(live))
 
         def _worker(meta: str) -> None:
-            while True:
-                with lock:
-                    if state["done"] >= num_chunks:
-                        return
-                    job = chunks.popleft() if chunks else None
-                if job is None:
-                    # the remaining chunk(s) are in flight on ANOTHER worker
-                    # — whose source may yet die and requeue them; staying
-                    # available is what makes "survives losing P-1 sources"
-                    # true for the last chunk too
-                    if time.monotonic() > deadline:
-                        return
-                    time.sleep(0.02)
-                    continue
-                start, stop = job
-                try:
-                    if time.monotonic() > deadline:
-                        raise TimeoutError("striped heal deadline exceeded")
-                    with urlopen(
-                        f"{meta}/checkpoint/{step}/range/{start}/{stop}",
-                        timeout=per_req_timeout,
-                    ) as r:
+            # one kept-alive connection a worker: a range is a request on it,
+            # not a new connection and a new serving thread
+            url = urlsplit(meta)
+            path = f"{url.path}/checkpoint/{step}/range"
+            conn: Optional[HTTPConnection] = None
+            try:
+                while True:
+                    with lock:
+                        if state["done"] >= num_chunks or meta in dead:
+                            return
+                        jobs = _take_chunks(chunks, len(streams))
+                    if not jobs:
+                        # the remaining chunk(s) are in flight on ANOTHER
+                        # worker — whose source may yet die and requeue
+                        # them; staying available is what makes "survives
+                        # losing P-1 sources" true for the last chunk too
+                        if time.monotonic() > deadline:
+                            return
+                        time.sleep(0.02)
+                        continue
+                    start, stop = jobs[0][0], jobs[-1][1]
+                    try:
+                        if time.monotonic() > deadline:
+                            raise TimeoutError("striped heal deadline exceeded")
+                        if conn is None:
+                            conn = HTTPConnection(url.hostname, url.port, timeout=per_req_timeout)
+                        conn.request("GET", f"{path}/{start}/{stop}")
+                        r = conn.getresponse()
+                        if r.status != 200:
+                            raise ConnectionError(f"source {meta} answered {r.status} {r.reason}")
                         if int(r.headers["X-Total-Len"]) != total_len:
                             raise ValueError(
                                 f"source {meta} serves a different checkpoint "
@@ -489,29 +543,34 @@ class HTTPTransport(CheckpointTransport[T]):
                                 f"source {meta} skeleton digest mismatch"
                             )
                         with obs_span("heal::recv_read"):
-                            read_into(r, view[start:stop])
-                    with lock:
-                        state["done"] += 1
-                        per_source_bytes[meta] += stop - start
-                except BaseException as e:  # noqa: BLE001 — reassign + record
-                    with lock:
-                        chunks.appendleft((start, stop))
-                        state["stolen"] += 1
-                        failed.append(meta)
-                        errors.append(e)
-                    logger.warning(
-                        "striped heal: source %s died mid-heal (%s); "
-                        "reassigning its chunks",
-                        meta,
-                        e,
-                    )
-                    return
+                            landing.read_range(r, start, stop)
+                        with lock:
+                            state["done"] += len(jobs)
+                            per_source_bytes[meta] += stop - start
+                    except BaseException as e:  # noqa: BLE001 — reassign + record
+                        with lock:
+                            chunks.extendleft(reversed(jobs))
+                            state["stolen"] += len(jobs)
+                            if meta not in dead:
+                                dead.add(meta)
+                                failed.append(meta)
+                            errors.append(e)
+                        logger.warning(
+                            "striped heal: source %s died mid-heal (%s); "
+                            "reassigning its chunks",
+                            meta,
+                            e,
+                        )
+                        return
+            finally:
+                if conn is not None:
+                    conn.close()
 
         threads = [
             threading.Thread(
                 target=_worker, args=(meta,), name=f"tpuft_heal_{i}", daemon=True
             )
-            for i, (_, meta) in enumerate(live)
+            for i, meta in enumerate(streams)
         ]
         for t in threads:
             t.start()
@@ -525,6 +584,7 @@ class HTTPTransport(CheckpointTransport[T]):
                 f"before the deadline"
             )
 
+        out = landing.finish(leaf_hook)
         self.last_heal_metrics = HealMetrics(
             step=step,
             num_sources=len(sources),
@@ -536,7 +596,7 @@ class HTTPTransport(CheckpointTransport[T]):
             failed_sources=failed,
             stolen_chunks=state["stolen"],
         )
-        return load_pytree(_ViewReader(view), leaf_hook=leaf_hook)  # type: ignore[return-value]
+        return out  # type: ignore[return-value]
 
     def shutdown(self, wait: bool = True) -> None:
         self._server.shutdown()

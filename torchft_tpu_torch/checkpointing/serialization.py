@@ -816,28 +816,6 @@ def balanced_shares(sizes: List[int], num_shares: int) -> List[List[int]]:
     return [sorted(s) for s in shares]
 
 
-class ViewReader:
-    """Minimal read/readinto stream over a memoryview (no BytesIO copy) —
-    the zero-copy way to ``load_pytree`` an assembled striped-heal buffer."""
-
-    def __init__(self, view: memoryview) -> None:
-        self._view = view
-        self._off = 0
-
-    def read(self, n: int = -1) -> bytes:
-        if n < 0:
-            n = len(self._view) - self._off
-        out = bytes(self._view[self._off : self._off + n])
-        self._off += len(out)
-        return out
-
-    def readinto(self, out) -> int:
-        n = min(len(out), len(self._view) - self._off)
-        out[:n] = self._view[self._off : self._off + n]
-        self._off += n
-        return n
-
-
 def dumps_pytree(state: Any) -> bytes:
     buf = io.BytesIO()
     save_pytree(state, buf)
